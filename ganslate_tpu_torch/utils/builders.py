@@ -1,0 +1,68 @@
+"""Builders: config -> GAN / networks (the JAX package's `utils/builders.py`).
+
+`build_loader` arrives with the data-plane slice.
+"""
+
+import torch
+
+from ganslate_tpu_torch.configs.config import Config
+from ganslate_tpu_torch.configs.omega import Conf
+from ganslate_tpu_torch.configs.utils import init_config
+from ganslate_tpu_torch.utils.io import import_attr
+
+
+def build_conf(dotlist_args):
+    """CLI dotlist + `config=<yaml>` -> full typed config tree."""
+    cli = Conf.from_dotlist(list(dotlist_args))
+    if "config" not in cli:
+        raise ValueError("Please provide path to a YAML config using `config` option.")
+    yaml_conf = cli.pop("config")
+    conf = init_config(yaml_conf, config_class=Config)
+    return Conf.merge(conf, cli)
+
+
+def build_gan(conf):
+    model_class = import_attr(conf.train.gan._target_)
+    return model_class(conf)
+
+
+def build_G(conf, direction, generator=None):
+    assert direction in ["AB", "BA"]
+    return build_network_by_role("generator", conf, direction, generator)
+
+
+def build_D(conf, domain, generator=None):
+    raise NotImplementedError(
+        "Discriminators are not ported yet; they come with the CycleGAN "
+        "training slice.")
+
+
+def build_network_by_role(role: str, conf, label: str,
+                          generator: torch.Generator = None):
+    """Instantiate a network with kwargs taken from its config node, plus
+    norm/weight-init settings from the GAN config. `generator` seeds the
+    parameter initialisation."""
+    assert role in ["discriminator", "generator"]
+
+    node = conf.train.gan[role]
+    network_class = import_attr(node._target_)
+
+    network_args = node.to_container(resolve=False)
+    network_args.pop("_target_")
+    network_args["norm_type"] = conf.train.gan.norm_type
+    network_args["weight_init_type"] = conf.train.gan.weight_init_type
+    network_args["weight_init_gain"] = conf.train.gan.weight_init_gain
+
+    if role == "generator":
+        network_args.pop("in_out_channels")
+        in_out = node.in_out_channels[label]
+        network_args["in_channels"], network_args["out_channels"] = int(in_out[0]), int(in_out[1])
+    else:
+        in_channels = node.in_channels
+        if isinstance(in_channels, Conf) or hasattr(in_channels, "keys"):
+            in_channels = in_channels[label]
+        network_args["in_channels"] = int(in_channels)
+
+    network_args = {k: tuple(v) if isinstance(v, list) else v
+                    for k, v in network_args.items()}
+    return network_class(**network_args, generator=generator)
