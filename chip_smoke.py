@@ -11,9 +11,13 @@ and prints no result line):
 2. build: compiles the instance-norm kernels from `ganslate_tpu_torch/csrc/`.
 3. kernels: every kernel against its plain PyTorch version on the card, at
    the slab shapes of CycleGAN-256 at batch 16 and 1, in float32 and bfloat16, for
-   each activation; with the kernel's time, the plain version's, the time of
-   `torch.nn.functional.instance_norm` on the same input (a yardstick the
-   port never calls) and the bound (bytes over the card's memory rate).
+   each activation; with the kernel's time and achieved TB/s, the plain
+   version's time, the time of `torch.nn.functional.instance_norm` on the
+   same input (a yardstick the port never calls) and the bound (bytes over
+   the card's memory rate). One-pass records carry the cluster geometry
+   (G, K, blocks, shared memory per block). Then the one-pass kernel at
+   every feasible geometry at its two main slabs, each checked and timed:
+   the record from which `onepass_geometry`'s rule was chosen.
 4. slice: the horse2zebra CycleGAN `G_AB` (Resnet2D, 9 residual blocks,
    ngf 64, bf16 mixed precision, bf16 wire) at 256x256 with seeded random
    weights, served through the deployment `Inferer`: 4 requests at batch 1
@@ -30,6 +34,7 @@ every kernel, and `{"ok": true, "device": {...}}`.
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,10 +52,16 @@ SLABS = tuple((n, s, s, c) for n in (16, 1)
 MAIN_SLAB = {"onepass": (16, 64, 64, 256), "split": (16, 256, 256, 64)}
 NORMS_PER_FORWARD = 23
 # Checked, not timed: S = 1073 (one-pass below 48 KB of shared memory),
-# a 3D volume, S = 6400 (the largest one-pass slab), S = 6401 and 70000
-# (split, with a ragged last tile).
-EDGE_SHAPES = ((2, 37, 29, 32), (2, 4, 6, 6, 16), (1, 6400, 1, 16), (1, 6401, 1, 16),
-               (2, 70000, 1, 32))
+# a 3D volume, S = 6400 (the largest one-pass slab), S = 4097 (one-pass with
+# S % K != 0: ranks of unequal rows), S = 6401 and 70000 (split, with a
+# ragged last tile).
+EDGE_SHAPES = ((2, 37, 29, 32), (2, 4, 6, 6, 16), (1, 6400, 1, 16), (1, 4097, 1, 64),
+               (1, 6401, 1, 16), (2, 70000, 1, 32))
+
+# The one-pass geometries timed at the main slabs: row segments of G
+# channels (bytes) and cluster sizes K (16 needs the non-portable attribute).
+SWEEP_SEGMENT_BYTES = (128, 64, 32)
+SWEEP_CLUSTER_SIZES = (1, 2, 4, 8, 16)
 
 # Kernel vs plain version on the card, same input. Both take fp32 statistics,
 # summed in another order, so mean and rstd differ by a few fp32 ulps. The
@@ -130,13 +141,31 @@ def time_ms(fn, iters=20, reps=5, spin_cycles=20_000_000):
 # ------------------------------------------------------------- phase 3
 
 
-def compare_kernel(kernel, x, act):
-    """One kernel against the plain version on the same input; raises when
-    they disagree beyond `TOL` / `STAT_RTOL`."""
+def onepass_geometry_record(shape, dtype, g, k):
+    """G, K, blocks per launch and slab bytes per block of the one-pass
+    kernel at (g, k) on `shape`."""
+    n, c, s = shape[0], shape[-1], math.prod(shape[1:-1])
+    return {"G": g, "K": k, "blocks": k * (c // g) * n,
+            "smem_bytes": -(-s // k) * g * dtype.itemsize}
+
+
+def chosen_geometry(kernel, shape, dtype):
+    """The geometry record of `onepass_geometry`'s choice; {} for the split
+    form."""
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    if kernel != "onepass":
+        return {}
+    return onepass_geometry_record(shape, dtype, *inorm.onepass_geometry(shape, dtype)[:2])
+
+
+def compare_kernel(kernel, x, act, fn=None):
+    """One kernel (or `fn`, a call of it) against the plain version on the
+    same input; raises when they disagree beyond `TOL` / `STAT_RTOL`."""
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
+    fn = fn or (lambda: inorm.KERNELS[kernel](x, 1e-5, act, 0.2))
     with torch.inference_mode():
-        got = inorm.KERNELS[kernel](x, 1e-5, act, 0.2)
+        got = fn()
         want = inorm.instance_norm_reference(x, 1e-5, act, 0.2)
     torch.cuda.synchronize()
     dname = str(x.dtype).split(".")[1]
@@ -179,6 +208,7 @@ def check_kernels(bandwidth, flops):
             bound_bytes_ms, bound_ops_ms = nbytes / bandwidth * 1e3, nops / flops * 1e3
             bound_ms = max(bound_bytes_ms, bound_ops_ms)
             bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+            geometry = chosen_geometry(kernel, shape, dtype)
             nchw = x.permute(0, 3, 1, 2)   # the same tensor, as torch's norms see it
             for act in inorm.ACTIVATIONS:
                 rec = compare_kernel(kernel, x, act)
@@ -195,13 +225,14 @@ def check_kernels(bandwidth, flops):
                         lambda: act_fn(F.instance_norm(nchw, eps=1e-5)))
                 rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            library_act_ms=library_act_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, bytes=nbytes,
-                           host_bound=hb1 or hb2 or hb3 or hb4)
+                           bound_by=bound_by, bytes=nbytes, tb_per_s=nbytes / ms / 1e9,
+                           host_bound=hb1 or hb2 or hb3 or hb4, **geometry)
                 emit({"phase": "kernel", **rec})
                 if tuple(shape) == MAIN_SLAB[kernel] and dtype == torch.bfloat16 \
                         and act == "none":
                     summary[kernel].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                           bound_ms=bound_ms, bound_by=bound_by)
+                                           bound_ms=bound_ms, bound_by=bound_by,
+                                           tb_per_s=rec["tb_per_s"], **geometry)
             del x, nchw
 
     # Shapes off the slice's path, checked only: ragged row tiles, a 3D
@@ -210,9 +241,42 @@ def check_kernels(bandwidth, flops):
         for dtype in (torch.bfloat16, torch.float32):
             x = activations(shape, dtype)
             kernel = inorm.pick_kernel(x.shape, x.dtype)
+            geometry = chosen_geometry(kernel, shape, dtype)
             for act in inorm.ACTIVATIONS:
-                emit({"phase": "kernel_edge", **compare_kernel(kernel, x, act)})
+                emit({"phase": "kernel_edge", **compare_kernel(kernel, x, act), **geometry})
     return summary
+
+
+def sweep_onepass_geometry(bandwidth):
+    """The one-pass kernel at every (G, K) whose slab fits, at the two main
+    one-pass slabs in both dtypes: each checked against the plain version
+    and timed, beside `onepass_geometry`'s choice."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for shape in ((16, 64, 64, 256), (1, 64, 64, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1.5).to(dtype)
+            nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
+            chosen = inorm.onepass_geometry(shape, dtype)[:2]
+            s, c = math.prod(shape[1:-1]), shape[-1]
+            for seg in SWEEP_SEGMENT_BYTES:
+                g = seg // dtype.itemsize
+                for k in SWEEP_CLUSTER_SIZES:
+                    if c % g or k > s or -(-s // k) * seg > inorm.ONEPASS_MAX_SMEM:
+                        continue
+                    fn = lambda: inorm._launch_onepass(x, g, k, 1e-5, "none", 0.2)  # noqa: E731
+                    rec = compare_kernel("onepass", x, "none", fn)
+                    with torch.inference_mode():
+                        ms, host_bound = time_ms(fn)
+                    emit({"phase": "onepass_geometry", "shape": list(shape),
+                          "dtype": rec["dtype"], **onepass_geometry_record(shape, dtype, g, k),
+                          "chosen": (g, k) == chosen, "ms": ms,
+                          "tb_per_s": nbytes / ms / 1e9,
+                          "bound_ms": nbytes / bandwidth * 1e3, "host_bound": host_bound,
+                          "max_abs_err": rec["max_abs_err"]})
+            del x
 
 
 # ------------------------------------------------------------- phase 4
@@ -426,6 +490,7 @@ def main() -> int:
             emit("ptxas: " + line.strip())
 
     summary = check_kernels(bandwidth, flops)
+    sweep_onepass_geometry(bandwidth)
 
     with tempfile.TemporaryDirectory() as tmp:
         inferer, x16, totals = serve_slice(Path(tmp))
@@ -441,10 +506,7 @@ def main() -> int:
         check(totals[name] > 0, f"the served requests never launched {name}")
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
-                        "replaces": replaces, "launches": totals[name],
-                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+                        "replaces": replaces, "launches": totals[name], **s})
     emit(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,15 @@ Where the computation runs is decided by the tensor alone:
 
 Two kernel forms, chosen by `pick_kernel` from the shape alone:
 
-- ``onepass`` (replaces `_pallas_forward`): one block holds one sample's
-  (S, CB) channel block in shared memory and reads it from device memory
-  once. Taken while that slab fits a block's shared memory.
+- ``onepass`` (replaces `_pallas_forward`): a thread-block cluster of K
+  blocks holds one sample's (S, G) channel group in shared memory, each
+  block a tile of rows, so x is read from device memory once and y written
+  once (the bytes bound: 2 * N*S*C*itemsize). The blocks exchange their
+  partial (mean, M2) through distributed shared memory and merge them in
+  rank order (Chan). `onepass_geometry` picks G (64-byte row segments,
+  twice the old kernel's 32-byte columns) and K (up to 8) for 3 blocks per
+  SM and, at batch 1, 64 blocks rather than 16. Taken while a sample's
+  (S, 32-byte) slab is within `ONEPASS_MAX_SMEM`.
 - ``split`` (replaces `_pallas_forward_tiled`): per-tile (mean, M2)
   partials, a Chan merge over the tiles, then a normalise pass. Taken for
   larger slabs.
@@ -42,12 +48,31 @@ _ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # One row of a channel block is 32 bytes: CB = 8 float or 16 bfloat16
-# channels. The channel count must be a multiple of CB.
+# channels. The channel count must be a multiple of CB (the split form's
+# block width and the one-pass form's narrowest row segment).
 ROW_BYTES = 32
-# Largest slab (S rows x 32 bytes) the one-pass kernel keeps in shared
-# memory. A Hopper block may use 227 KB; the kernel's own reduction scratch
-# (about 1.2 KB) and some headroom come off that.
+# The one-pass/split boundary: slabs of S rows x 32 bytes up to this size
+# (S <= 6400) take the one-pass form. It also caps the slab of the one-pass
+# geometries `chip_smoke.py` times: a Hopper block may use 227 KB, and the
+# kernel's static scratch (about 3 KB) and some headroom come off that.
 ONEPASS_MAX_SMEM = 200 * 1024
+
+# One-pass cluster geometry (`onepass_geometry`), chosen from the one-pass
+# kernel timed at every (G, K) at the two main slabs on an H100
+# (`chip_smoke.py`, geometry phase; PERF.md):
+# - row segments of 64 bytes (32 where a row has only 32): whole sectors,
+#   with half the cluster that 128-byte segments need for the same block.
+#   The cluster's barrier and merge cost more than the wider segment saves.
+ONEPASS_SEGMENT_BYTES = 64
+# - clusters of up to 8 blocks (the portable size): 16 was slower at every
+#   main slab.
+ONEPASS_CLUSTER_SIZES = (1, 2, 4, 8)
+# - at most 64 KB of slab per block, so that 3 blocks share an SM (227 KB)
+#   and one's loads overlap another's reductions and stores;
+ONEPASS_BLOCK_SMEM = 64 * 1024
+# - and at least 64 blocks where a cluster of 8 allows: at batch 1, 64
+#   blocks beat both 32 and 128.
+ONEPASS_MIN_BLOCKS = 64
 
 SOURCE = "instance_norm.cu"
 
@@ -98,6 +123,29 @@ def channel_block(dtype: torch.dtype) -> int:
     return ROW_BYTES // dtype.itemsize
 
 
+def onepass_geometry(shape, dtype: torch.dtype):
+    """`(G, K, rows_per_block, smem_bytes)` of the one-pass cluster kernel for
+    a `(N, *spatial, C)` input that `pick_kernel` sends to it.
+
+    A block owns at most `rows_per_block = ceil(S / K)` rows (rank r of the
+    cluster owns rows [r*S//K, (r+1)*S//K)) x G channels of one sample, in
+    `smem_bytes` of shared memory; the grid is (K * C / G, N). G * itemsize is
+    `ONEPASS_SEGMENT_BYTES`, or 32 where C * itemsize is not a multiple of
+    it. K is the smallest of `ONEPASS_CLUSTER_SIZES` that keeps a block
+    within `ONEPASS_BLOCK_SMEM` and makes at least `ONEPASS_MIN_BLOCKS`
+    blocks, else the largest; never more than S, so that no rank is empty.
+    (A one-pass slab has S <= 6400 rows: 50 KB per block at K = 8.)"""
+    n, c, s = shape[0], shape[-1], math.prod(shape[1:-1])
+    item = dtype.itemsize
+    seg = ONEPASS_SEGMENT_BYTES if (c * item) % ONEPASS_SEGMENT_BYTES == 0 else ROW_BYTES
+    g = seg // item
+    sizes = [k for k in ONEPASS_CLUSTER_SIZES if k <= s]
+    k = next((k for k in sizes if -(-s // k) * seg <= ONEPASS_BLOCK_SMEM
+              and k * (c // g) * n >= ONEPASS_MIN_BLOCKS), sizes[-1])
+    rows = -(-s // k)
+    return g, k, rows, rows * seg
+
+
 def pick_kernel(shape, dtype: torch.dtype) -> str:
     """'onepass' when a sample's (S, CB) slab fits one block's shared
     memory, else 'split'. Raises for shapes the kernels do not take."""
@@ -120,7 +168,7 @@ def pick_kernel(shape, dtype: torch.dtype) -> str:
 
 _SIGNATURES = {
     "inorm_onepass": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
     "inorm_split_stats": (
@@ -171,19 +219,28 @@ def _outputs(x):
 
 
 def onepass(x, eps=1e-5, activation="none", negative_slope=0.2):
-    """One-pass kernel on a CUDA tensor; returns `(out, mean, rstd)`."""
+    """One-pass cluster kernel on a CUDA tensor, at `onepass_geometry`;
+    returns `(out, mean, rstd)`."""
     _check_input(x)
-    pick_kernel(x.shape, x.dtype)
+    if pick_kernel(x.shape, x.dtype) != "onepass":
+        raise ValueError(f"slab of {math.prod(x.shape[1:-1])} rows does not fit the "
+                         f"one-pass kernel")
+    g, k, _, _ = onepass_geometry(x.shape, x.dtype)
+    result = _launch_onepass(x, g, k, eps, activation, negative_slope)
+    LAUNCHES["onepass"] += 1
+    return result
+
+
+def _launch_onepass(x, g, k, eps, activation, negative_slope):
+    """The one-pass kernel at G = g channels per block and clusters of k
+    blocks, on a checked input; not counted in `LAUNCHES`."""
     n, c, s = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
-    if s * ROW_BYTES > ONEPASS_MAX_SMEM:
-        raise ValueError(f"slab of {s} rows does not fit the one-pass kernel")
     out, mean, rstd = _outputs(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = library().inorm_onepass(
         x.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, s, c,
-        _DTYPE_CODES[x.dtype], eps, _ACT_CODES[activation], negative_slope, stream)
+        _DTYPE_CODES[x.dtype], g, k, eps, _ACT_CODES[activation], negative_slope, stream)
     _check(err, "inorm_onepass")
-    LAUNCHES["onepass"] += 1
     return out, mean, rstd
 
 
