@@ -15,9 +15,15 @@ and prints no result line):
    version's time, the time of `torch.nn.functional.instance_norm` on the
    same input (a yardstick the port never calls) and the bound (bytes over
    the card's memory rate). One-pass records carry the cluster geometry
-   (G, K, blocks, shared memory per block). Then the one-pass kernel at
-   every feasible geometry at its two main slabs, each checked and timed:
-   the record from which `onepass_geometry`'s rule was chosen.
+   (G, K, blocks, shared memory per block), split records the tile
+   geometry (tile rows, row segment, threads, blocks, order). Then the
+   one-pass kernel at every feasible geometry at its two main slabs, each
+   checked and timed: the record from which `onepass_geometry`'s rule was
+   chosen. Then the split kernels at every tile size, thread count and
+   order at the four split slabs, likewise (`split_geometry`'s record);
+   the split form's stats and normalise kernels timed apart; two calls of
+   the split form on one input, which must agree bit for bit; and the
+   one-pass kernel at the (16,128,128,128) split slab (G = 16, K = 8).
 4. slice: the horse2zebra CycleGAN `G_AB` (Resnet2D, 9 residual blocks,
    ngf 64, bf16 mixed precision, bf16 wire) at 256x256 with seeded random
    weights, served through the deployment `Inferer`: 4 requests at batch 1
@@ -54,14 +60,24 @@ NORMS_PER_FORWARD = 23
 # Checked, not timed: S = 1073 (one-pass below 48 KB of shared memory),
 # a 3D volume, S = 6400 (the largest one-pass slab), S = 4097 (one-pass with
 # S % K != 0: ranks of unequal rows), S = 6401 and 70000 (split, with a
-# ragged last tile).
+# ragged last tile), a 3D split volume, a 96-byte bf16 row (6 vectors, which
+# do not divide a warp: 96 threads), and a 1 KB float32 row (cut into two
+# 512-byte segments).
 EDGE_SHAPES = ((2, 37, 29, 32), (2, 4, 6, 6, 16), (1, 6400, 1, 16), (1, 4097, 1, 64),
-               (1, 6401, 1, 16), (2, 70000, 1, 32))
+               (1, 6401, 1, 16), (2, 70000, 1, 32), (1, 32, 32, 32, 16), (2, 9000, 1, 48),
+               (1, 7000, 1, 256))
 
 # The one-pass geometries timed at the main slabs: row segments of G
 # channels (bytes) and cluster sizes K (16 needs the non-portable attribute).
 SWEEP_SEGMENT_BYTES = (128, 64, 32)
 SWEEP_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# The split geometries timed at the split slabs: tile bytes, threads per
+# block, and the normalise pass's order (reverse or not).
+SWEEP_SPLIT_TILE_BYTES = (8 * 1024, 16 * 1024, 32 * 1024, 64 * 1024)
+SWEEP_SPLIT_THREADS = (64, 128, 256)
+# The one-pass kernel at a split slab, for the one-pass/split boundary:
+# 32-byte segments and clusters of 8, 64 KB a block.
+ONEPASS_AT_SPLIT_SLAB = ((16, 128, 128, 128), 16, 8)
 
 # Kernel vs plain version on the card, same input. Both take fp32 statistics,
 # summed in another order, so mean and rstd differ by a few fp32 ulps. The
@@ -158,6 +174,27 @@ def chosen_geometry(kernel, shape, dtype):
     return onepass_geometry_record(shape, dtype, *inorm.onepass_geometry(shape, dtype)[:2])
 
 
+def split_geometry_record(shape, dtype, tile_rows, seg_bytes, threads, reverse):
+    """Tile rows, row segment, threads, blocks per launch, stats shared
+    memory per block and order of the split kernels on `shape`."""
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    n, c, s = shape[0], shape[-1], math.prod(shape[1:-1])
+    tile_rows = min(tile_rows, s)
+    return {"tile_rows": tile_rows, "seg_bytes": seg_bytes, "threads": threads,
+            "blocks": n * (c * dtype.itemsize // seg_bytes) * -(-s // tile_rows),
+            "smem_bytes": inorm.split_stats_smem(dtype, tile_rows, seg_bytes, threads),
+            "reverse": reverse}
+
+
+def geometry_record(kernel, shape, dtype):
+    """The geometry record of the kernel's chosen geometry on `shape`."""
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    if kernel == "onepass":
+        return chosen_geometry(kernel, shape, dtype)
+    return split_geometry_record(shape, dtype, *inorm.split_geometry(shape, dtype)[:3],
+                                 inorm.SPLIT_REVERSE)
+
+
 def compare_kernel(kernel, x, act, fn=None):
     """One kernel (or `fn`, a call of it) against the plain version on the
     same input; raises when they disagree beyond `TOL` / `STAT_RTOL`."""
@@ -208,7 +245,7 @@ def check_kernels(bandwidth, flops):
             bound_bytes_ms, bound_ops_ms = nbytes / bandwidth * 1e3, nops / flops * 1e3
             bound_ms = max(bound_bytes_ms, bound_ops_ms)
             bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
-            geometry = chosen_geometry(kernel, shape, dtype)
+            geometry = geometry_record(kernel, shape, dtype)
             nchw = x.permute(0, 3, 1, 2)   # the same tensor, as torch's norms see it
             for act in inorm.ACTIVATIONS:
                 rec = compare_kernel(kernel, x, act)
@@ -241,7 +278,7 @@ def check_kernels(bandwidth, flops):
         for dtype in (torch.bfloat16, torch.float32):
             x = activations(shape, dtype)
             kernel = inorm.pick_kernel(x.shape, x.dtype)
-            geometry = chosen_geometry(kernel, shape, dtype)
+            geometry = geometry_record(kernel, shape, dtype)
             for act in inorm.ACTIVATIONS:
                 emit({"phase": "kernel_edge", **compare_kernel(kernel, x, act), **geometry})
     return summary
@@ -277,6 +314,112 @@ def sweep_onepass_geometry(bandwidth):
                           "bound_ms": nbytes / bandwidth * 1e3, "host_bound": host_bound,
                           "max_abs_err": rec["max_abs_err"]})
             del x
+
+
+def split_slabs():
+    """The slabs of `SLABS` that take the split form."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    return [s for s in SLABS if inorm.pick_kernel(s, torch.bfloat16) == "split"]
+
+
+def sweep_split_geometry(bandwidth):
+    """The split kernels at every tile size, thread count and order at the
+    four split slabs in both dtypes: each checked against the plain version
+    and timed, beside `split_geometry`'s choice."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for shape in split_slabs():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1.5).to(dtype)
+            nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
+            rows_c, seg, threads_c, _ = inorm.split_geometry(shape, dtype)
+            chosen = (rows_c, threads_c, inorm.SPLIT_REVERSE)
+            s = math.prod(shape[1:-1])
+            for tile_bytes in SWEEP_SPLIT_TILE_BYTES:
+                rows = min(s, tile_bytes // seg)
+                for threads in SWEEP_SPLIT_THREADS:
+                    if threads % math.lcm(seg // 16, 32):
+                        continue
+                    for reverse in (False, True):
+                        fn = lambda: inorm._launch_split(  # noqa: E731
+                            x, rows, seg, threads, reverse, 1e-5, "none", 0.2)
+                        rec = compare_kernel("split", x, "none", fn)
+                        with torch.inference_mode():
+                            ms, host_bound = time_ms(fn)
+                        emit({"phase": "split_geometry", "shape": list(shape),
+                              "dtype": rec["dtype"],
+                              **split_geometry_record(shape, dtype, rows, seg, threads, reverse),
+                              "chosen": (rows, threads, reverse) == chosen, "ms": ms,
+                              "tb_per_s": nbytes / ms / 1e9,
+                              "bound_ms": nbytes / bandwidth * 1e3, "host_bound": host_bound,
+                              "max_abs_err": rec["max_abs_err"]})
+            del x
+
+
+def split_parts(bandwidth, summary):
+    """At the four split slabs in both dtypes, at `split_geometry`'s choice:
+    the stats kernel (with its fold) and the normalise kernel timed apart,
+    each beside its own bound (stats reads x; normalise reads x and writes
+    y); and two calls of the split form on one input, which must give equal
+    outputs and statistics bit for bit. Adds the main slab's times to
+    `summary`."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for shape in split_slabs():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1.5).to(dtype)
+            rows, seg, threads, _ = inorm.split_geometry(shape, dtype)
+            with torch.inference_mode():
+                out, mean, rstd = inorm._outputs(x)
+                stats_ms, hb1 = time_ms(lambda: inorm._split_stats(
+                    x, mean, rstd, rows, seg, threads, 1e-5))
+                norm_ms, hb2 = time_ms(lambda: inorm._split_norm(
+                    x, mean, rstd, out, rows, seg, threads, inorm.SPLIT_REVERSE, "relu", 0.2))
+                first = inorm.split(x, 1e-5, "relu", 0.2)
+                second = inorm.split(x, 1e-5, "relu", 0.2)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(first, second))
+            xbytes = x.numel() * x.element_size()
+            rec = {"phase": "split_parts", "shape": list(shape),
+                   "dtype": str(dtype).split(".")[1],
+                   **geometry_record("split", shape, dtype),
+                   "stats_ms": stats_ms, "stats_bound_ms": xbytes / bandwidth * 1e3,
+                   "stats_tb_per_s": xbytes / stats_ms / 1e9,
+                   "norm_ms": norm_ms, "norm_bound_ms": 2 * xbytes / bandwidth * 1e3,
+                   "norm_tb_per_s": 2 * xbytes / norm_ms / 1e9,
+                   "host_bound": hb1 or hb2, "deterministic": same}
+            emit(rec)
+            check(same, f"two split calls on one input differ: {rec}")
+            if tuple(shape) == MAIN_SLAB["split"] and dtype == torch.bfloat16:
+                summary["split"].update(stats_ms=stats_ms, norm_ms=norm_ms)
+            del x, out, mean, rstd, first, second
+
+
+def onepass_at_split_slab(bandwidth):
+    """The one-pass cluster kernel at a split slab, beside the split form on
+    the same input: whether the slab should move to the one-pass form."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+
+    shape, g, k = ONEPASS_AT_SPLIT_SLAB
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1.5).to(dtype)
+    nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
+    fn = lambda: inorm._launch_onepass(x, g, k, 1e-5, "none", 0.2)  # noqa: E731
+    rec = compare_kernel("onepass", x, "none", fn)
+    with torch.inference_mode():
+        ms, hb1 = time_ms(fn)
+        split_ms, hb2 = time_ms(lambda: inorm.split(x, 1e-5, "none", 0.2))
+    emit({"phase": "onepass_at_split_slab", "shape": list(shape), "dtype": rec["dtype"],
+          **onepass_geometry_record(shape, dtype, g, k), "ms": ms, "split_ms": split_ms,
+          "bound_ms": nbytes / bandwidth * 1e3, "tb_per_s": nbytes / ms / 1e9,
+          "host_bound": hb1 or hb2, "max_abs_err": rec["max_abs_err"]})
 
 
 # ------------------------------------------------------------- phase 4
@@ -491,6 +634,9 @@ def main() -> int:
 
     summary = check_kernels(bandwidth, flops)
     sweep_onepass_geometry(bandwidth)
+    sweep_split_geometry(bandwidth)
+    split_parts(bandwidth, summary)
+    onepass_at_split_slab(bandwidth)
 
     with tempfile.TemporaryDirectory() as tmp:
         inferer, x16, totals = serve_slice(Path(tmp))

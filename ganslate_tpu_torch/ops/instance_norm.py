@@ -25,9 +25,15 @@ Two kernel forms, chosen by `pick_kernel` from the shape alone:
   twice the old kernel's 32-byte columns) and K (up to 8) for 3 blocks per
   SM and, at batch 1, 64 blocks rather than 16. Taken while a sample's
   (S, 32-byte) slab is within `ONEPASS_MAX_SMEM`.
-- ``split`` (replaces `_pallas_forward_tiled`): per-tile (mean, M2)
-  partials, a Chan merge over the tiles, then a normalise pass. Taken for
-  larger slabs.
+- ``split`` (replaces `_pallas_forward_tiled`): two kernels over whole-row
+  tiles (R rows x all C channels of one sample, one contiguous span). The
+  stats kernel brings each tile into shared memory with one bulk
+  asynchronous copy and writes its (mean, M2); the last tile of each group
+  of 16 to arrive merges the group in tile order (Chan), and the last group
+  of a sample to arrive merges the groups in order and writes mean and
+  rstd. The normalise kernel reads the tiles again, in reverse order, and
+  writes y. `split_geometry` picks R and the thread count. Taken for larger
+  slabs.
 
 At CycleGAN-256 this sends the down1 and residual norms (64x64x256) to the
 one-pass form and the stem, down0 and up norms (S >= 16384) to the split
@@ -48,8 +54,8 @@ _ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # One row of a channel block is 32 bytes: CB = 8 float or 16 bfloat16
-# channels. The channel count must be a multiple of CB (the split form's
-# block width and the one-pass form's narrowest row segment).
+# channels. The channel count must be a multiple of CB (the one-pass form's
+# narrowest row segment; the split form's row segments are multiples of it).
 ROW_BYTES = 32
 # The one-pass/split boundary: slabs of S rows x 32 bytes up to this size
 # (S <= 6400) take the one-pass form. It also caps the slab of the one-pass
@@ -74,11 +80,28 @@ ONEPASS_BLOCK_SMEM = 64 * 1024
 #   blocks beat both 32 and 128.
 ONEPASS_MIN_BLOCKS = 64
 
+# Split geometry (`split_geometry`), chosen from the split kernels timed at
+# every tile size, thread count and order at the four split slabs on an H100
+# (`chip_smoke.py`, split sweep phase; PERF.md):
+# - a tile's row segment is the whole row up to this width (wider rows are
+#   cut into segments of at most this many bytes);
+SPLIT_SEGMENT_MAX_BYTES = 512
+# - tiles of 32 KB, at batch 1 too: smaller tiles give more blocks but more
+#   partials to merge, and every block pays its own copy, barriers and
+#   counting. 64 KB tiles were as fast at batch 16;
+SPLIT_TILE_BYTES = 32 * 1024
+# - 128 threads per block (or the nearest multiple of the vectors per
+#   segment): 256 and 512 threads cost more in each block's reductions and
+#   barriers.
+SPLIT_THREADS = 128
+# - and the normalise pass walks the tiles in the reverse of the stats
+#   pass's order.
+SPLIT_REVERSE = True
+
 SOURCE = "instance_norm.cu"
 
 #: Launches per kernel form since the last `reset_launches()`. The split form
-#: counts one launch per call (its stats, fold and normalise kernels run
-#: together).
+#: counts one launch per call (its stats and normalise kernels run together).
 LAUNCHES = {"onepass": 0, "split": 0}
 
 
@@ -146,6 +169,36 @@ def onepass_geometry(shape, dtype: torch.dtype):
     return g, k, rows, rows * seg
 
 
+def split_geometry(shape, dtype: torch.dtype):
+    """`(tile_rows, seg_bytes, threads, blocks)` of the split kernels for a
+    `(N, *spatial, C)` input.
+
+    A block owns rows [t * tile_rows, (t + 1) * tile_rows) (the last tile of
+    a sample may be shorter) x one `seg_bytes` segment of each row of one
+    sample. The segment is the whole row up to `SPLIT_SEGMENT_MAX_BYTES`,
+    else the widest multiple of 32 bytes up to it that divides the row, so
+    that a tile is one contiguous span where it can be. `threads` is the
+    multiple of lcm(vectors per segment, 32) nearest below `SPLIT_THREADS`
+    (at least one), so that each thread keeps one 16-byte vector column.
+    A tile is `SPLIT_TILE_BYTES` of whole segments, never more rows than S."""
+    n, c, s = shape[0], shape[-1], math.prod(shape[1:-1])
+    row = c * dtype.itemsize
+    seg = row if row <= SPLIT_SEGMENT_MAX_BYTES else max(
+        b for b in range(ROW_BYTES, SPLIT_SEGMENT_MAX_BYTES + 1, ROW_BYTES) if row % b == 0)
+    unit = math.lcm(seg // 16, 32)
+    threads = unit * max(1, SPLIT_THREADS // unit)
+    rows = min(s, SPLIT_TILE_BYTES // seg)
+    return rows, seg, threads, n * (row // seg) * -(-s // rows)
+
+
+def split_stats_smem(dtype: torch.dtype, tile_rows: int, seg_bytes: int, threads: int) -> int:
+    """Dynamic shared memory of one split stats block, as its launcher
+    computes it: the tile, then the scratch of the column sums."""
+    vecs, per_vec = seg_bytes // 16, 16 // dtype.itemsize
+    sums = (threads // 32 * vecs if 32 % vecs == 0 else threads) * per_vec
+    return tile_rows * seg_bytes + 4 * sums
+
+
 def pick_kernel(shape, dtype: torch.dtype) -> str:
     """'onepass' when a sample's (S, CB) slab fits one block's shared
     memory, else 'split'. Raises for shapes the kernels do not take."""
@@ -172,17 +225,27 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
     "inorm_split_stats": (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        ctypes.c_int),
-    "inorm_split_fold": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
     "inorm_split_norm": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
-    "inorm_split_tile_rows": ([], ctypes.c_int),
 }
+
+# Arrival counters of the split stats kernel (per sample and segment, one
+# for each group of tiles and one for the sample), one int32 buffer per
+# (device, stream): zero between launches, because each block that merges
+# resets its counter. Launches on one stream never overlap, so they share a
+# buffer; launches on two streams never do.
+_ARRIVALS = {}
+
+
+def _arrivals(device, stream: int, count: int):
+    key = (device.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < count:
+        buf = _ARRIVALS[key] = torch.zeros(count, device=device, dtype=torch.int32)
+    return buf
 
 
 def library():
@@ -245,26 +308,53 @@ def _launch_onepass(x, g, k, eps, activation, negative_slope):
 
 
 def split(x, eps=1e-5, activation="none", negative_slope=0.2):
-    """Split (stats, fold, normalise) kernels on a CUDA tensor; returns
-    `(out, mean, rstd)`."""
+    """Split (stats with its fold, normalise) kernels on a CUDA tensor, at
+    `split_geometry`; returns `(out, mean, rstd)`."""
     _check_input(x)
     pick_kernel(x.shape, x.dtype)
-    n, c, s = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
-    lib = library()
-    n_tiles = -(-s // lib.inorm_split_tile_rows())
-    out, mean, rstd = _outputs(x)
-    partial = torch.empty((n, n_tiles, 2, c), device=x.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    dtype = _DTYPE_CODES[x.dtype]
-    _check(lib.inorm_split_stats(x.data_ptr(), partial.data_ptr(), n, s, c, dtype,
-                                 stream), "inorm_split_stats")
-    _check(lib.inorm_split_fold(partial.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                                n, s, c, eps, stream), "inorm_split_fold")
-    _check(lib.inorm_split_norm(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                                out.data_ptr(), n, s, c, dtype, _ACT_CODES[activation],
-                                negative_slope, stream), "inorm_split_norm")
+    rows, seg, threads, _ = split_geometry(x.shape, x.dtype)
+    result = _launch_split(x, rows, seg, threads, SPLIT_REVERSE, eps, activation,
+                           negative_slope)
     LAUNCHES["split"] += 1
+    return result
+
+
+def _launch_split(x, tile_rows, seg_bytes, threads, reverse, eps, activation,
+                  negative_slope):
+    """The split kernels at the given geometry and order, on a checked
+    input; not counted in `LAUNCHES`."""
+    out, mean, rstd = _outputs(x)
+    _split_stats(x, mean, rstd, tile_rows, seg_bytes, threads, eps)
+    _split_norm(x, mean, rstd, out, tile_rows, seg_bytes, threads, reverse, activation,
+                negative_slope)
     return out, mean, rstd
+
+
+def _split_stats(x, mean, rstd, tile_rows, seg_bytes, threads, eps):
+    """The split stats kernel, whose last block per sample folds: writes
+    `mean` and `rstd`."""
+    n, c, s = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
+    tiles = -(-s // min(tile_rows, s))
+    partial = torch.empty((n, tiles, 2, c), device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # At least one counter per group of tiles and one per sample, for each
+    # (sample, segment).
+    arrivals = _arrivals(x.device, stream, n * (c * x.element_size() // seg_bytes) * (tiles + 1))
+    _check(library().inorm_split_stats(
+        x.data_ptr(), partial.data_ptr(), arrivals.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), n, s, c, _DTYPE_CODES[x.dtype], seg_bytes, tile_rows, threads, eps,
+        stream), "inorm_split_stats")
+
+
+def _split_norm(x, mean, rstd, out, tile_rows, seg_bytes, threads, reverse, activation,
+                negative_slope):
+    """The split normalise kernel: writes `out` from `x`, `mean`, `rstd`."""
+    n, c, s = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(library().inorm_split_norm(
+        x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), n, s, c,
+        _DTYPE_CODES[x.dtype], seg_bytes, tile_rows, threads, int(reverse),
+        _ACT_CODES[activation], negative_slope, stream), "inorm_split_norm")
 
 
 KERNELS = {"onepass": onepass, "split": split}
