@@ -5,8 +5,11 @@ imports nothing of `ganslate_tpu` (and no JAX): the configs, builders and
 engines it needs are its own copies, and the JAX package's Pallas kernels are
 hand-written CUDA kernels here (`csrc/`, bound in `ops/`).
 
-Ported so far: serving the CycleGAN ResNet generator through the deployment
-`Inferer` (`engines.utils.init_engine("infer", [..., "infer.is_deployment=true"])`).
+Ported so far: the CycleGAN train step through the model's entry points
+(`utils.builders.build_gan(conf)`, `setup`, `set_input`,
+`optimize_parameters`, `save_checkpoint`), and serving its ResNet generator
+through the deployment `Inferer`
+(`engines.utils.init_engine("infer", [..., "infer.is_deployment=true"])`).
 """
 
 __version__ = "0.1.0"

@@ -69,10 +69,10 @@ class TrainConfig(base.BaseEngineConfig):
     # Accepted for YAML compatibility and read by nothing (see PerfConfig).
     perf: PerfConfig = field(default_factory=PerfConfig)
 
-    # Train steps per dispatch in the JAX package; accepted for YAML
-    # compatibility (the port has no training loop yet).
+    # Train steps per dispatch in the JAX package (logged as chunk means).
+    # The port runs one step per call: a train-mode model raises for > 1.
     steps_per_dispatch: int = 1
 
-    # Spatially-sharded training in the JAX package; accepted for YAML
-    # compatibility (the port has no training loop yet).
+    # Spatially-sharded training in the JAX package; not ported: a
+    # train-mode model raises when it is set.
     spatial_mesh: Optional[int] = None

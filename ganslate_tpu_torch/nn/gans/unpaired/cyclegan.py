@@ -1,13 +1,24 @@
 """CycleGAN (the JAX package's `nn/gans/unpaired/cyclegan.py`).
 
-Infer mode builds `G_AB` only. Training (G_BA, the discriminators, the
-losses, the image pools and Adam) comes with the training port.
+Networks G_AB, G_BA, D_B, D_A; Adam groups {G_AB, G_BA} and {D_B, D_A}. One
+train step, in the original ganslate's order: both cycles (and the identity
+pair when `lambda_identity > 0`), then the G update with the discriminators
+frozen (gradients still flow through them to the fakes); then the image
+pools, queried with the pre-update fakes, detached; then the D update on
+real and pooled fake batches, each D running both as one forward; metrics
+from the step's visuals and the D step's predictions. Infer mode builds
+G_AB only.
 """
 
 from dataclasses import dataclass, field
 
+import torch
+
 from ganslate_tpu_torch import configs
+from ganslate_tpu_torch.data.utils.image_pool import ImagePool
 from ganslate_tpu_torch.nn.gans.base import BaseGAN
+from ganslate_tpu_torch.nn.losses.adversarial_loss import AdversarialLoss
+from ganslate_tpu_torch.nn.losses.cyclegan_losses import CycleGANLosses
 
 
 @dataclass
@@ -30,7 +41,78 @@ class CycleGAN(BaseGAN):
 
     def __init__(self, conf):
         super().__init__(conf)
-        if self.is_train:
-            raise NotImplementedError("CycleGAN training is not ported yet; the "
-                                      "port serves G_AB (infer mode).")
-        self.networks = {"G_AB": None}
+        network_names = ["G_AB", "G_BA", "D_B", "D_A"] if self.is_train else ["G_AB"]
+        self.networks = {name: None for name in network_names}
+        self.network_groups = {"G": ["G_AB", "G_BA"], "D": ["D_B", "D_A"]}
+        self.pool_size = conf.train.gan.pool_size if self.is_train else 0
+
+    def init_criterions(self):
+        self.criterion_adv = AdversarialLoss(
+            self.conf.train.gan.optimizer.adversarial_loss_type)
+        self.criterion_G = CycleGANLosses(self.conf)
+
+    def init_optimizers(self):
+        optimizer_conf = self.conf.train.gan.optimizer
+        self.optimizers = {"G": self.make_adam("G", optimizer_conf.lr_G),
+                           "D": self.make_adam("D", optimizer_conf.lr_D)}
+
+    def init_pools(self, example_batch):
+        # Pools of fakes in the compute dtype, shaped like the batch's images;
+        # one host generator for both, seeded from `train.seed`.
+        generator = torch.Generator().manual_seed(self._seed())
+        self.pools = {f"fake_{domain}": ImagePool(
+            self.pool_size, tuple(example_batch[domain].shape[1:]), self.compute_dtype,
+            self.device, generator) for domain in ("B", "A")}
+
+    def train_step(self):
+        real_A, real_B = self._batch["A"], self._batch["B"]
+        adv = self.criterion_adv
+        opt_G, opt_D = self.optimizers["G"], self.optimizers["D"]
+
+        # ---- G update; the discriminators are frozen.
+        with self.frozen(self.network_groups["D"]):
+            params = self.compute_params(["G_AB", "G_BA", "D_B", "D_A"])
+            fake_B = self.apply("G_AB", real_A, params)
+            fake_A = self.apply("G_BA", real_B, params)
+            rec_B = self.apply("G_AB", fake_A, params)
+            rec_A = self.apply("G_BA", fake_B, params)
+            visuals = {"real_A": real_A, "fake_B": fake_B, "rec_A": rec_A,
+                       "real_B": real_B, "fake_A": fake_A, "rec_B": rec_B}
+            if self.criterion_G.is_using_identity():
+                visuals["idt_B"] = self.apply("G_AB", real_B, params)
+                visuals["idt_A"] = self.apply("G_BA", real_A, params)
+
+            losses = {"G_AB": adv(self.apply("D_B", fake_B, params), target_is_real=True),
+                      "G_BA": adv(self.apply("D_A", fake_A, params), target_is_real=True)}
+            losses.update(self.criterion_G(visuals))
+            opt_G.zero_grad(set_to_none=True)
+            # Summed in sorted key order, as the JAX package's tree_leaves.
+            sum(losses[k] for k in sorted(losses)).backward()
+        opt_G.step()
+        visuals = {k: v.detach() for k, v in visuals.items()}
+
+        # ---- Pool query with the pre-update fakes.
+        fake_B_pooled = self.pools["fake_B"].query(visuals["fake_B"])
+        fake_A_pooled = self.pools["fake_A"].query(visuals["fake_A"])
+
+        # ---- D update.
+        params = self.compute_params(["D_B", "D_A"])
+        preds = {}
+        preds["real_B"], preds["fake_B"] = self.apply_batched("D_B", [real_B, fake_B_pooled],
+                                                              params)
+        preds["real_A"], preds["fake_A"] = self.apply_batched("D_A", [real_A, fake_A_pooled],
+                                                              params)
+        losses_D = {"D_B": adv(preds["real_B"], True) + adv(preds["fake_B"], False),
+                    "D_A": adv(preds["real_A"], True) + adv(preds["fake_A"], False)}
+        opt_D.zero_grad(set_to_none=True)
+        (losses_D["D_B"] + losses_D["D_A"]).backward()
+        opt_D.step()
+
+        # ---- Metrics.
+        with torch.no_grad():
+            metrics = self.training_metrics.compute_metrics_G(visuals)
+            for name, domain in (("D_B", "B"), ("D_A", "A")):
+                metrics.update(self.training_metrics.compute_metrics_D(
+                    name, preds[f"real_{domain}"], preds[f"fake_{domain}"]))
+        losses = {k: v.detach() for k, v in {**losses, **losses_D}.items()}
+        return losses, visuals, metrics

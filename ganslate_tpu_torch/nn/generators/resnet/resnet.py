@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, NormAct,
+from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, NormAct, inert_bias,
                                           is_bias_before_norm, make_initializer,
                                           pad_spatial)
 
@@ -31,13 +31,15 @@ class ResidualBlock(nn.Module):
     def __init__(self, features: int, norm_type: str, pad_mode: str, spatial_dims: int,
                  kernel_init, generator: Optional[torch.Generator] = None):
         super().__init__()
-        use_bias = is_bias_before_norm(norm_type)
+        use_bias, inert = is_bias_before_norm(norm_type), inert_bias(norm_type)
         k = (3,) * spatial_dims
         self.conv1 = Conv(features, features, k, padding=1, pad_mode=pad_mode,
-                          use_bias=use_bias, kernel_init=kernel_init, generator=generator)
+                          use_bias=use_bias, bias_inert=inert, kernel_init=kernel_init,
+                          generator=generator)
         self.norm1 = NormAct(norm_type, "relu")
         self.conv2 = Conv(features, features, k, padding=1, pad_mode=pad_mode,
-                          use_bias=use_bias, kernel_init=kernel_init, generator=generator)
+                          use_bias=use_bias, bias_inert=inert, kernel_init=kernel_init,
+                          generator=generator)
         self.norm2 = NormAct(norm_type)
 
     def forward(self, x):
@@ -63,19 +65,21 @@ class ResnetGenerator(nn.Module):
         # accepts it and runs the plain path.
         del use_cells_boundary
         init = make_initializer(weight_init_type, weight_init_gain)
-        use_bias = is_bias_before_norm(norm_type)
+        # Every conv but the last feeds an instance norm: their biases are
+        # inert (`layers.inert_bias`).
+        use_bias, inert = is_bias_before_norm(norm_type), inert_bias(norm_type)
         k3 = (3,) * self.spatial_dims
         k7 = (7,) * self.spatial_dims
 
         self.initial = Conv(in_channels, ngf, k7, padding=0, use_bias=use_bias,
-                            kernel_init=init, generator=generator)
+                            bias_inert=inert, kernel_init=init, generator=generator)
         self.initial_norm = NormAct(norm_type, "relu")
 
         feats = ngf
         for i in range(2):
             setattr(self, f"down{i}", Conv(feats, feats * 2, k3, strides=2, padding=1,
-                                           use_bias=use_bias, kernel_init=init,
-                                           generator=generator))
+                                           use_bias=use_bias, bias_inert=inert,
+                                           kernel_init=init, generator=generator))
             setattr(self, f"down{i}_norm", NormAct(norm_type, "relu"))
             feats *= 2
 
@@ -87,7 +91,8 @@ class ResnetGenerator(nn.Module):
         for i in range(2):
             setattr(self, f"up{i}", ConvTranspose(feats, feats // 2, k3, strides=2,
                                                   padding=1, output_padding=1,
-                                                  kernel_init=init, generator=generator))
+                                                  bias_inert=inert, kernel_init=init,
+                                                  generator=generator))
             setattr(self, f"up{i}_norm", NormAct(norm_type, "relu"))
             feats //= 2
 

@@ -90,11 +90,13 @@ def _source_index(size: int, p: int, mode: str) -> torch.Tensor:
 def _gather_index(sizes: Tuple[int, ...], pad: Tuple[int, ...], mode: str,
                   device: torch.device) -> torch.Tensor:
     """Flat source row (into the prod(sizes) spatial rows) of every row of
-    the padded grid."""
-    flat = torch.zeros((), dtype=torch.long)
-    for size, p in zip(sizes, pad):
-        flat = flat[..., None] * size + _source_index(size, p, mode)
-    return flat.reshape(-1).to(device)
+    the padded grid. Made outside inference mode: the cached tensor also
+    serves autograd, which refuses inference tensors."""
+    with torch.inference_mode(False):
+        flat = torch.zeros((), dtype=torch.long)
+        for size, p in zip(sizes, pad):
+            flat = flat[..., None] * size + _source_index(size, p, mode)
+        return flat.reshape(-1).to(device)
 
 
 def pad_spatial(x: torch.Tensor, pad: Sequence[int], mode: str = "zeros") -> torch.Tensor:
@@ -126,17 +128,35 @@ def pad_spatial(x: torch.Tensor, pad: Sequence[int], mode: str = "zeros") -> tor
 # ------------------------------------------------------------------- convs
 
 
+def inert_bias(norm_type: Optional[str]) -> bool:
+    """True when a conv bias before this norm type cancels in it: affine-less
+    instance norm subtracts the per-(sample, channel) mean, bias included.
+    Such a conv keeps the bias add but gives the bias no gradient
+    (`bias_inert`), as the JAX package does (`layers.py:inert_bias`, with its
+    `bias_inert` flag at its default)."""
+    return norm_type == "instance"
+
+
+def _bias(layer) -> Optional[torch.Tensor]:
+    """The bias to add: detached for an inert bias, so its gradient is
+    exactly zero (no gradient at all) instead of rounding noise."""
+    if layer.bias is None or not layer.bias_inert:
+        return layer.bias
+    return layer.bias.detach()
+
+
 class Conv(nn.Module):
     """Convolution with torch-style symmetric integer padding.
 
     `pad_mode` in {'zeros', 'reflect', 'replicate'}: a non-zero mode pads
     with `pad_spatial` first and runs the conv unpadded, as the original
-    ganslate's ReflectionPad / ReplicationPad layers do."""
+    ganslate's ReflectionPad / ReplicationPad layers do. `bias_inert`: see
+    `inert_bias`."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  strides: Union[int, Sequence[int]] = 1,
                  padding: Union[int, Sequence[int]] = 0, pad_mode: str = "zeros",
-                 use_bias: bool = True, kernel_init=None,
+                 use_bias: bool = True, bias_inert: bool = False, kernel_init=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         k = tuple(kernel_size)
@@ -149,6 +169,7 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(conv_kernel_to_torch(
             kernel_init((*k, in_features, features), generator)))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.bias_inert = bias_inert
 
     def forward(self, x):
         if self.pad_mode == "zeros":
@@ -156,18 +177,19 @@ class Conv(nn.Module):
         else:
             x = pad_spatial(x, self.padding, self.pad_mode)
             padding = 0
-        return self._conv(x, self.weight, self.bias, self.strides, padding)
+        return self._conv(x, self.weight, _bias(self), self.strides, padding)
 
 
 class ConvTranspose(nn.Module):
     """Fractionally-strided conv with torch's output geometry,
-    out = (in - 1) * stride - 2 * padding + kernel + output_padding."""
+    out = (in - 1) * stride - 2 * padding + kernel + output_padding.
+    `bias_inert`: see `inert_bias`."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  strides: Union[int, Sequence[int]] = 1,
                  padding: Union[int, Sequence[int]] = 0,
                  output_padding: Union[int, Sequence[int]] = 0,
-                 use_bias: bool = True, kernel_init=None,
+                 use_bias: bool = True, bias_inert: bool = False, kernel_init=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         k = tuple(kernel_size)
@@ -180,9 +202,10 @@ class ConvTranspose(nn.Module):
         self.weight = nn.Parameter(conv_transpose_kernel_to_torch(
             kernel_init((*k, in_features, features), generator)))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.bias_inert = bias_inert
 
     def forward(self, x):
-        return self._conv(x, self.weight, self.bias, self.strides, self.padding,
+        return self._conv(x, self.weight, _bias(self), self.strides, self.padding,
                           self.output_padding)
 
 
@@ -226,7 +249,7 @@ class NormAct(nn.Module):
         if self.activation == "relu":
             return F.relu(x)
         if self.activation == "leaky_relu":
-            return F.leaky_relu(x, self.negative_slope)
+            return leaky_relu(x, self.negative_slope)
         return x
 
 
@@ -261,3 +284,10 @@ def is_bias_before_norm(norm_type: str = "instance") -> bool:
     if norm_type == "batch":
         return False
     raise NotImplementedError(f"Normalization layer `{norm_type}` not supported")
+
+
+# -------------------------------------------------------------- activations
+
+
+def leaky_relu(x, negative_slope: float = 0.2):
+    return F.leaky_relu(x, negative_slope)

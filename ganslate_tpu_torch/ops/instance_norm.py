@@ -1,5 +1,5 @@
-"""Fused instance norm (+ activation) forward: CUDA kernels and their plain
-PyTorch version.
+"""Fused instance norm (+ activation): CUDA forward kernels, their plain
+PyTorch version, and the backward.
 
 The counterpart of the JAX package's `ganslate_tpu/ops/instance_norm.py`,
 with the same signature and layout: `instance_norm(x, eps, activation,
@@ -40,8 +40,11 @@ one-pass form and the stem, down0 and up norms (S >= 16384) to the split
 form. Each wrapper counts its launches in `LAUNCHES`, so a caller can show
 which kernels a run went through.
 
-Forward only: a CUDA tensor that needs a gradient raises (the backward is a
-later port step).
+`instance_norm` is differentiable: `InstanceNormFunction` runs the forward
+above, saves `(x, mean, rstd)` and computes the gradient with
+`instance_norm_backward`, plain PyTorch in fp32 from the saved statistics, on
+the CPU and on the card alike. It is the counterpart of the JAX package's
+`_bwd`, which is XLA there too: no TPU kernel stands behind it.
 """
 
 import ctypes
@@ -260,11 +263,6 @@ def _check(err: int, name: str):
 
 
 def _check_input(x):
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "instance_norm on CUDA is forward only: the backward kernel comes "
-            "with the training port. Run under torch.no_grad() or "
-            "torch.inference_mode().")
     if x.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got one on {x.device}")
     if not x.is_contiguous():
@@ -374,7 +372,56 @@ def instance_norm_forward(x, eps: float = 1e-5, activation: str = "none",
     return KERNELS[pick_kernel(x.shape, x.dtype)](x, eps, activation, negative_slope)
 
 
+def _act_grad(y, activation: str, negative_slope: float):
+    """d act(y) / dy as a function of the pre-activation y (fp32), for
+    'relu' and 'leaky_relu'."""
+    if activation == "relu":
+        return (y > 0).float()
+    return torch.where(y >= 0, 1.0, negative_slope)
+
+
+def instance_norm_backward(x, mean, rstd, grad, activation: str = "none",
+                           negative_slope: float = 0.2):
+    """The gradient with respect to `x` of `instance_norm`, given the
+    forward's fp32 `mean` and `rstd` (N, C) and the output's gradient `grad`
+    (any layout). Computed in fp32 and returned in `x.dtype`; mirrors the
+    JAX package's `_bwd`."""
+    n, c = x.shape[0], x.shape[-1]
+    axes = tuple(range(1, x.ndim - 1))
+    stat_shape = (n,) + (1,) * (x.ndim - 2) + (c,)
+    mean, rstd = mean.reshape(stat_shape), rstd.reshape(stat_shape)
+    y = (x.float() - mean) * rstd                   # pre-activation output
+    gy = grad.float()
+    if activation != "none":
+        gy = gy * _act_grad(y, activation, negative_slope)
+    mean_gy = gy.mean(dim=axes, keepdim=True)
+    mean_gy_y = (gy * y).mean(dim=axes, keepdim=True)
+    return (rstd * (gy - mean_gy - y * mean_gy_y)).to(x.dtype)
+
+
+class InstanceNormFunction(torch.autograd.Function):
+    """`instance_norm` under autograd: the forward of `instance_norm_forward`
+    (a kernel for a CUDA tensor), the backward of `instance_norm_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, eps, activation, negative_slope):
+        out, mean, rstd = instance_norm_forward(x, eps, activation, negative_slope)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.activation, ctx.negative_slope = activation, negative_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, mean, rstd = ctx.saved_tensors
+        dx = instance_norm_backward(x, mean, rstd, grad, ctx.activation, ctx.negative_slope)
+        return dx, None, None, None
+
+
 def instance_norm(x, eps: float = 1e-5, activation: str = "none",
                   negative_slope: float = 0.2):
-    """Fused instance norm + optional activation over `(N, *spatial, C)`."""
-    return instance_norm_forward(x, eps, activation, negative_slope)[0]
+    """Fused instance norm + optional activation over `(N, *spatial, C)`,
+    differentiable with respect to `x`. Without a gradient to record (as in
+    serving), the forward runs without the autograd wrapper."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return instance_norm_forward(x, eps, activation, negative_slope)[0]
+    return InstanceNormFunction.apply(x, eps, activation, negative_slope)

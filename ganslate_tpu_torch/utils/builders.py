@@ -32,9 +32,8 @@ def build_G(conf, direction, generator=None):
 
 
 def build_D(conf, domain, generator=None):
-    raise NotImplementedError(
-        "Discriminators are not ported yet; they come with the CycleGAN "
-        "training slice.")
+    assert domain in ["B", "A"]
+    return build_network_by_role("discriminator", conf, domain, generator)
 
 
 def build_network_by_role(role: str, conf, label: str,

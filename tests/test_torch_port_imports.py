@@ -41,7 +41,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "sys.exit(1 if bad else 0)\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 20
+    assert n_modules >= 40          # the training modules included
 
 
 _FORBIDDEN = re.compile(
@@ -125,7 +125,7 @@ def test_import_attr_aliases_to_the_port(prefix):
 
 
 @pytest.mark.parametrize("target, missing", [
-    ("ganslate.nn.discriminators.PatchGAN2D", "ganslate_tpu_torch.nn.discriminators"),
+    ("ganslate.nn.discriminators.PatchGAN3D", "PatchGAN3D"),
     ("ganslate.data.UnpairedImageDataset", "ganslate_tpu_torch.data"),
     ("ganslate.nn.generators.Vnet3D", "Vnet3D"),
 ])

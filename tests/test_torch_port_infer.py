@@ -200,8 +200,16 @@ def test_missing_checkpoint_raises(experiment):
 
 
 def test_cyclegan_train_mode_raises(experiment):
+    """Train mode builds, but raises for the JAX package's training options
+    that the port does not have."""
     from ganslate_tpu_torch.utils.builders import build_conf, build_gan
     conf = build_conf([f"config={experiment()}"])
     conf.mode = "train"
-    with pytest.raises(NotImplementedError, match="training"):
+    assert build_gan(conf).is_train
+    conf.train.steps_per_dispatch = 2
+    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
+        build_gan(conf)
+    conf.train.steps_per_dispatch = 1
+    conf.train.spatial_mesh = 2
+    with pytest.raises(NotImplementedError, match="spatially sharded training"):
         build_gan(conf)

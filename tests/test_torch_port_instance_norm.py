@@ -178,15 +178,18 @@ def test_kernel_wrappers_reject_cpu_tensors(kernel):
 
 @pytest.mark.parametrize("kernel", ("onepass", "split"))
 def test_kernel_wrappers_are_forward_only(kernel):
-    """The kernels have no backward yet: a tensor that needs a gradient is
-    refused (the CPU path keeps autograd)."""
+    """The kernel wrappers compute the forward only, for a tensor that needs
+    a gradient too (they refuse it for lying on the CPU, not for its
+    gradient); the gradient comes from `InstanceNormFunction`, around the
+    same forward."""
     x = torch.zeros(1, 8, 8, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward only"):
+    with pytest.raises(ValueError, match="CUDA"):
         port.KERNELS[kernel](x)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         port.KERNELS[kernel](x)
     out = port.instance_norm(x)
     assert out.requires_grad
+    assert type(out.grad_fn).__name__ == "InstanceNormFunctionBackward"
 
 
 def test_rejects_unknown_activation():
