@@ -49,6 +49,23 @@ and prints no result line):
    kernels, the plain norm backward, pad gathers and their backward, bias
    adds, casts, Adam, losses, metrics) and the device's idle share. Before
    all of it, each norm's gradient alone at the step's slabs, elementwise.
+7. sliding_window: the BRaTS CycleGAN's `G_AB` (Vnet3D, down blocks
+   (2, 2, 3), up blocks (3, 3, 3), 16 first-layer channels, 8,070,257
+   parameters, bf16 mixed precision, bf16 wire) with seeded random weights,
+   served through the deployment `Inferer`'s sliding window (windows of
+   (32, 176, 176), 28 a batch, overlap 0.25, gaussian blend): requests of 2
+   volumes of (155, 240, 240, 1). Each output is checked (shape, finite, in
+   [-1, 1]), two against the same network with plain norms on the card, and
+   the norm launches of every request (14 one-pass, 66 split). A float32
+   run (TF32 off) on a smaller volume checks it tightly. Then vols/s, the
+   device time of one 28-window forward (also with cuDNN's autotuner on, a
+   yardstick the port does not use), peak memory, the level-0 coupling conv
+   alone in two layouts with and without the autotuner, and one request
+   under `torch.profiler`: device time by family and the idle share.
+
+The kernels phase also checks and times both kernels at the V-Net's norm
+slabs, and checks a channel count that is not a multiple of the kernels'
+channel block (C = 20), which the wrappers pad.
 
 The last lines are the card's `nvidia-smi` line, one JSON object listing
 every kernel, and `{"ok": true, "device": {...}}`.
@@ -169,10 +186,41 @@ NORM_BACKWARD_SLABS = (((2, 256, 256, 64), "relu"), ((2, 128, 128, 128), "relu")
 NORM_BACKWARD_TOL = {"float32": dict(rtol=0, atol=1e-5),
                      "bfloat16": dict(rtol=2 ** -7, atol=1e-5)}
 
-# Published peaks (NVIDIA data sheets): HBM bytes/s and fp32 (non-tensor)
-# FLOP/s, by card.
-CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12), ("H200", 4.8e12, 67e12))
+# The V-Net's norm slabs (N, D, H, W, C) of one 28-window forward: level 0
+# (input, up conv and coupling norms at 16 channels; the out block's at
+# 32), level 1 (coupling halves of 16, down and up convs and couplings of
+# 32), level 2, and level 3 (the one-pass slabs). Checked and timed in bf16,
+# and one in float32. Then a channel count that the wrappers pad (C = 20).
+VNET_SLABS = tuple((28, *s, c) for s, c in (
+    ((32, 176, 176), 16), ((32, 176, 176), 32), ((16, 88, 88), 16), ((16, 88, 88), 32),
+    ((8, 44, 44), 32), ((8, 44, 44), 64), ((4, 22, 22), 64), ((4, 22, 22), 128)))
+VNET_FP32_SLAB = (28, 16, 88, 88, 32)
+PADDED_C_SLABS = ((2, 16, 64, 64, 20), (4, 8, 22, 22, 20))
+
+# The sliding-window phase: the BRaTS CycleGAN's G_AB at full width, served
+# at `bench.py`'s volume (2 volumes of 155 x 240 x 240 a request).
+SW_VOLUMES = (2, 155, 240, 240, 1)
+SW_REQUESTS = 5                 # the first is cold; vols/s from the other 4
+SW_PLAIN_CHECKS = (0, SW_REQUESTS - 1)
+SW_PARAMS = 8_070_257
+# Norm launches per request: one 28-window forward per volume, with 7
+# one-pass (level 3) and 33 split norms (levels 0-2).
+SW_LAUNCHES = {"onepass": 2 * 7, "split": 2 * 33}
+# Kernel norms vs plain norms (same network, same volume, bf16): each
+# norm's bf16 output may round to the neighbouring value and the flips
+# travel through 40 norms; the blend averages overlapping windows. Outputs
+# lie in [-1, 1], where a bf16 ulp is at most 2**-8.
+SW_BF16_MAX = 32 * 2 ** -8
+SW_BF16_MEAN = 2 * 2 ** -8
+# float32, TF32 off, on one smaller volume (8 windows): only the norms'
+# summation order differs.
+SW_FP32_VOLUME = (1, 40, 200, 200, 1)
+SW_FP32_MAX = 1e-3
+
+# Published peaks (NVIDIA data sheets): HBM bytes/s, fp32 (non-tensor)
+# FLOP/s and dense bf16 tensor FLOP/s, by card.
+CARDS = (("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100", 3.35e12, 67e12, 989e12), ("H200", 4.8e12, 67e12, 989e12))
 
 def check(ok, what):
     """Raise when a check fails (unlike `assert`, also under `python -O`)."""
@@ -191,9 +239,10 @@ def nvidia_smi() -> str:
 
 
 def card_peaks(name: str):
-    for key, bandwidth, flops in CARDS:
+    """(bytes/s, fp32 FLOP/s, dense bf16 tensor FLOP/s) of the card."""
+    for key, *peaks in CARDS:
         if key in name:
-            return bandwidth, flops
+            return peaks
     raise RuntimeError(f"no published peaks for card {name!r}")
 
 
@@ -355,14 +404,52 @@ def check_kernels(bandwidth, flops):
                 summary[kernel]["max_abs_err"] = max(summary[kernel]["max_abs_err"],
                                                      rec["max_abs_err"])
                 if dtype == torch.bfloat16 and act == "leaky_relu":
+                    nchw = x.permute(0, 3, 1, 2)
                     with torch.inference_mode():
                         rec["ms"], hb1 = time_ms(
                             lambda: inorm.KERNELS[kernel](x, 1e-5, act, 0.2))
                         rec["plain_ms"], hb2 = time_ms(
                             lambda: inorm.instance_norm_reference(x, 1e-5, act, 0.2))
+                        rec["library_ms"], hb3 = time_ms(
+                            lambda: F.leaky_relu(F.instance_norm(nchw, eps=1e-5), 0.2))
                     nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
-                    rec.update(bound_ms=nbytes / bandwidth * 1e3, host_bound=hb1 or hb2)
+                    rec.update(bound_ms=nbytes / bandwidth * 1e3, host_bound=hb1 or hb2 or hb3)
+                    del nchw
                 emit({"phase": "kernel_d", **rec, **geometry})
+            del x
+
+    # The V-Net's slabs (sliding-window phase): checked and timed, activation
+    # none (the V-Net's PReLU follows the norm), against the plain version,
+    # `F.instance_norm` and the bound.
+    for shape, dtype in [(s, torch.bfloat16) for s in VNET_SLABS] + [(VNET_FP32_SLAB,
+                                                                     torch.float32)]:
+        x = activations(shape, dtype)
+        kernel = inorm.pick_kernel(x.shape, x.dtype)
+        rec = compare_kernel(kernel, x, "none")
+        summary[kernel]["max_abs_err"] = max(summary[kernel]["max_abs_err"], rec["max_abs_err"])
+        ncdhw = x.permute(0, 4, 1, 2, 3)
+        with torch.inference_mode():
+            ms, hb1 = time_ms(lambda: inorm.KERNELS[kernel](x, 1e-5, "none", 0.2), iters=5)
+            plain_ms, hb2 = time_ms(lambda: inorm.instance_norm_reference(x, 1e-5, "none", 0.2),
+                                    iters=5)
+            library_ms, hb3 = time_ms(lambda: F.instance_norm(ncdhw, eps=1e-5), iters=5)
+        nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
+        bound_bytes_ms, bound_ops_ms = nbytes / bandwidth * 1e3, 6 * x.numel() / flops * 1e3
+        emit({"phase": "kernel_vnet", **rec, **geometry_record(kernel, shape, dtype), "ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+              "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+              "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9, "host_bound": hb1 or hb2 or hb3})
+        del x, ncdhw
+
+    # Channel counts that are not a multiple of the channel block: the
+    # wrappers pad them (checked in both dtypes, each form).
+    for shape in PADDED_C_SLABS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = activations(shape, dtype)
+            kernel = inorm.pick_kernel(x.shape, x.dtype)
+            for act in inorm.ACTIVATIONS:
+                emit({"phase": "kernel_padded_c", **compare_kernel(kernel, x, act)})
             del x
 
     # Shapes off the slice's path, checked only: ragged row tiles, a 3D
@@ -1111,6 +1198,298 @@ def train_phase(out_dir):
     return totals
 
 
+# ------------------------------------------------------------- phase 7
+
+
+def conv_flops(net, x):
+    """FLOPs of the convolutions and transposed convolutions of one forward
+    of `net` on `x` (N, C, *spatial): 2 x (output elements x input channels
+    x kernel volume), and for a transposed conv 2 x (input elements x output
+    channels x kernel volume)."""
+    import torch
+    from ganslate_tpu_torch.nn.layers import Conv, ConvTranspose
+    counts = {"conv": 0, "conv_transpose": 0}
+
+    def hook(module, inputs, output):
+        k = math.prod(module.weight.shape[2:])
+        if isinstance(module, ConvTranspose):
+            counts["conv_transpose"] += 2 * inputs[0].numel() * module.weight.shape[1] * k
+        else:
+            counts["conv"] += 2 * output.numel() * module.weight.shape[1] * k
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (Conv, ConvTranspose))]
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return counts
+
+
+def sw_family(chain, kernel):
+    """The family of a device kernel of a served sliding-window request,
+    from its name and the host ranges and ops that launched it (`chain`,
+    innermost first; the network's calls run inside a `network` range)."""
+    if "inorm" in kernel.lower():
+        return "norm_kernels"
+    if kernel.startswith("Memcpy"):
+        return "transfers"
+    ops = [n for n in chain if n.startswith("aten::")]
+    inner = ops[0] if ops else ""
+    if "network" not in chain:
+        if "aten::stack" in ops:
+            return "window_slicing"
+        if inner in ("aten::to", "aten::_to_copy", "aten::copy_") and "aten::div" not in ops:
+            return "casts"
+        return "blend"
+    if inner in ("aten::copy_", "aten::clone", "aten::contiguous") \
+            and not ({"aten::to", "aten::_to_copy"} & set(ops)):
+        return "copies"
+    if "aten::cudnn_convolution_transpose" in ops or "aten::conv_transpose3d" in ops:
+        return "bias_add" if inner in ("aten::add", "aten::add_") else "conv_transpose"
+    if "aten::convolution" in ops or "aten::_convolution" in ops:
+        return "bias_add" if inner in ("aten::add", "aten::add_") else "conv_forward"
+    if "aten::prelu" in ops or "aten::_prelu_kernel" in ops:
+        return "prelu"
+    if "aten::cat" in ops:
+        return "concat"
+    if "aten::to" in ops or "aten::_to_copy" in ops:
+        return "casts"
+    if inner in ("aten::add", "aten::sub", "aten::add_"):
+        return "residual_adds"
+    return "network_other"
+
+
+def profile_request(inferer, x):
+    """Device time of one request by family, the largest kernels, and the
+    device's idle share (the profiler's host overhead included).
+
+    The device's busy time is the sum of its kernels and copies, without
+    the `network` range's own device span. The norm kernels are launched
+    from ctypes, outside any PyTorch op, so the profiler links them to no
+    host event: they are read from the device events by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    model = inferer.model
+    model.infer = Labelled(model.infer, "network")
+    try:
+        inferer.infer(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            inferer.infer(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del model.infer
+    events = prof.events()
+    device = [ev for ev in events if "CUDA" in str(getattr(ev, "device_type", ""))
+              and not getattr(ev, "is_user_annotation", False) and ev.name != "network"]
+    busy = sum(ev.device_time_total for ev in device) / 1e3
+    norms = [ev for ev in device if "inorm" in ev.name]
+    fams = {"norm_kernels": sum(ev.device_time_total for ev in norms) / 1e3}
+    top = {("norm_kernels", "ctypes", ev.name[:80]): 0.0 for ev in norms}
+    for ev in norms:
+        top[("norm_kernels", "ctypes", ev.name[:80])] += ev.device_time_total / 1e3
+    for ev in events:
+        if not getattr(ev, "kernels", None):
+            continue
+        chain, parent = [], ev
+        while parent is not None:
+            chain.append(parent.name)
+            parent = parent.cpu_parent
+        for k in ev.kernels:
+            fam = sw_family(chain, k.name)
+            if fam == "norm_kernels":
+                continue            # counted from the device events above
+            fams[fam] = fams.get(fam, 0.0) + k.duration / 1e3
+            key = (fam, chain[0], k.name[:80])
+            top[key] = top.get(key, 0.0) + k.duration / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy if busy else "not measured",
+            "norm_kernel_launches_seen": len(norms),
+            "device_idle_share": (1 - busy / wall_ms) if busy else "not measured",
+            "device_ms_by_family": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+            "device_ms_unattributed": busy - sum(fams.values()) if busy else "not measured",
+            "top": [[f, op, k, ms] for (f, op, k), ms in
+                    sorted(top.items(), key=lambda kv: -kv[1])[:25]]}
+
+
+def conv_probe(bf16_peak):
+    """The V-Net's costliest conv alone (k5, 16 -> 16 channels, padding 2, on
+    a level-0 window batch (28, 16, 32, 176, 176), bf16): device time and
+    TFLOP/s in channels_last_3d and in NCDHW, with cuDNN's heuristics and
+    with its autotuner."""
+    import torch
+    import torch.nn.functional as F
+    shape, k = (28, 16, 32, 176, 176), 5
+    flop = 2 * math.prod(shape) * shape[1] * k ** 3
+    out = {}
+    for layout in ("channels_last_3d", "ncdhw"):
+        fmt = torch.channels_last_3d if layout != "ncdhw" else torch.contiguous_format
+        x = torch.randn(shape, device="cuda", dtype=torch.bfloat16).contiguous(memory_format=fmt)
+        w = (torch.randn((16, 16, k, k, k), device="cuda", dtype=torch.bfloat16) * 0.02) \
+            .contiguous(memory_format=fmt)
+        for benchmark in (False, True):
+            torch.backends.cudnn.benchmark = benchmark
+            try:
+                with torch.inference_mode():
+                    ms, _ = time_ms(lambda: F.conv3d(x, w, padding=2), iters=3, reps=3,
+                                    spin_cycles=200_000_000)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            name = f"{layout}{'_benchmark' if benchmark else ''}"
+            out[name] = {"ms": ms, "tflop_per_s": flop / ms / 1e9,
+                         "share_of_bf16_peak": flop / ms * 1e3 / bf16_peak}
+        del x, w
+    return out
+
+
+def sw_output_check(rec, y, shape):
+    """Adds the output's shape, dtype and range to `rec`; raises unless it
+    is a finite host tensor of `shape` in [-1, 1], not constant."""
+    import torch
+    yf = y.float()
+    rec.update(shape=list(y.shape), dtype=str(y.dtype), out_min=float(yf.min()),
+               out_max=float(yf.max()), out_std=float(yf.std()))
+    check(tuple(y.shape) == tuple(shape) and y.device.type == "cpu", rec)
+    check(bool(torch.isfinite(yf).all()) and -1 <= rec["out_min"] <= rec["out_max"] <= 1, rec)
+    check(rec["out_std"] > 1e-3, f"degenerate output: {rec}")
+
+
+def sliding_window_phase(out_dir, bf16_peak):
+    """Phase 7; returns the norm launches of its requests."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils.builders import build_G
+    from ganslate_tpu_torch.utils.sliding_window_inferer import _scan_interval, dense_patch_slices
+    from ganslate_tpu_torch.utils.testing import make_vnet_conf
+
+    conf = make_vnet_conf(str(out_dir), load_iter=1)
+    g = build_G(conf, "AB", torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in g.parameters())
+    check(n_params == SW_PARAMS, f"Vnet3D has {n_params} parameters, not {SW_PARAMS}")
+    (out_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+    torch.save({"G_AB": g.state_dict()}, out_dir / "checkpoints" / "1.pth")
+    del g
+
+    inferer = Inferer(conf)
+    model = inferer.model
+    rng = np.random.default_rng(SEED + 20)
+    totals = {name: 0 for name in inorm.LAUNCHES}
+    latencies, peaks = [], []
+    x = None
+    for i in range(SW_REQUESTS):
+        x = rng.uniform(-1, 1, SW_VOLUMES).astype(np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        inorm.reset_launches()
+        t0 = time.perf_counter()
+        y = inferer.infer(x)            # returns on the host: synchronised
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(inorm.LAUNCHES)
+        peaks.append(torch.cuda.max_memory_allocated())
+        rec = {"phase": "sliding_window", "request": i, "cold": i == 0,
+               "latency_ms": latency_ms, "launches": launches, "peak_memory_bytes": peaks[-1]}
+        sw_output_check(rec, y, SW_VOLUMES)
+        if i in SW_PLAIN_CHECKS:
+            with plain_norms():
+                inorm.reset_launches()
+                ref = inferer.infer(x)
+                check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+            err = (y.float() - ref.float()).abs()
+            rec.update(max_abs_err_vs_plain=float(err.max()),
+                       mean_abs_err_vs_plain=float(err.mean()),
+                       tol_max=SW_BF16_MAX, tol_mean=SW_BF16_MEAN)
+            del ref, err
+        emit(rec)
+        check(launches == SW_LAUNCHES, rec)
+        if i in SW_PLAIN_CHECKS:
+            check(rec["max_abs_err_vs_plain"] <= SW_BF16_MAX, rec)
+            check(rec["mean_abs_err_vs_plain"] <= SW_BF16_MEAN, rec)
+        if i > 0:
+            latencies.append(latency_ms)
+        for name, count in launches.items():
+            totals[name] += count
+        del y
+
+    # One forward of a volume's windows on the device (the request's
+    # slicing and blend excluded).
+    roi = tuple(conf.infer.sliding_window.window_size)
+    spatial = SW_VOLUMES[1:-1]
+    starts = dense_patch_slices(spatial, roi, _scan_interval(spatial, roi, 0.25))
+    vol = torch.from_numpy(x[0]).to(model.device, torch.bfloat16)
+    windows = torch.stack([vol[tuple(slice(s, s + r) for s, r in zip(st, roi))]
+                           for st in starts])
+    forward_ms, host_bound = time_ms(lambda: model.infer(windows, out_dtype=None), iters=3,
+                                     reps=3, spin_cycles=400_000_000)
+    net = model._serving_network("G_AB")
+    # The same forward with cuDNN's autotuner on (a yardstick: the port
+    # leaves `torch.backends.cudnn.benchmark` at its default, off).
+    torch.backends.cudnn.benchmark = True
+    try:
+        tuned_ms, _ = time_ms(lambda: model.infer(windows, out_dtype=None), iters=3, reps=3,
+                              spin_cycles=400_000_000)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    probe = conv_probe(bf16_peak)
+    flops = conv_flops(net, windows[:1].permute(0, 4, 1, 2, 3))
+    flops = {k: v * windows.shape[0] for k, v in flops.items()}
+    profile = profile_request(inferer, x)
+    fam = profile["device_ms_by_family"]
+    achieved = {k: flops[k] / (fam[f] * 1e-3) / 1e12 for k, f in
+                (("conv", "conv_forward"), ("conv_transpose", "conv_transpose")) if fam.get(f)}
+    stats = {"phase": "sliding_window_summary", "params": n_params, "volumes": list(SW_VOLUMES),
+             "windows_per_volume": windows.shape[0], "latency_ms": latencies,
+             "median_latency_ms": statistics.median(latencies),
+             "vols_per_s": SW_VOLUMES[0] / statistics.median(latencies) * 1e3,
+             "forward_device_ms_28_windows": forward_ms, "forward_host_bound": host_bound,
+             "forward_device_ms_28_windows_cudnn_benchmark": tuned_ms, "conv_probe": probe,
+             "peak_memory_bytes": max(peaks), "peak_memory_gib": max(peaks) / 2 ** 30,
+             "conv_tflop_per_forward": {k: v / 1e12 for k, v in flops.items()},
+             "conv_tflop_per_s_profiled": achieved,
+             "conv_share_of_bf16_peak": {k: v * 1e12 / bf16_peak for k, v in achieved.items()},
+             "profile": profile, "launches_total": totals}
+    emit(stats)
+    check(profile["device_busy_ms"] != "not measured" and fam.get("norm_kernels", 0) > 0,
+          "the profile saw no norm kernel")
+    del inferer, model, net, vol, windows
+    torch.cuda.empty_cache()
+    check_fp32_sliding_window(out_dir)
+    return totals
+
+
+def check_fp32_sliding_window(out_dir):
+    """The sliding window in float32 (TF32 off) on one smaller volume (8
+    windows): kernel norms vs plain norms. Serves the checkpoint that
+    `sliding_window_phase` wrote."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.utils.testing import make_vnet_conf
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        inferer = Inferer(make_vnet_conf(str(out_dir), load_iter=1, mixed_precision=False,
+                                         wire_dtype="float32"))
+        x = np.random.default_rng(SEED + 21).uniform(-1, 1, SW_FP32_VOLUME).astype(np.float32)
+        y = inferer.infer(x)
+        with plain_norms():
+            ref = inferer.infer(x)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    err = float((y - ref).abs().max())
+    rec = {"phase": "sliding_window_fp32", "volume": list(SW_FP32_VOLUME), "dtype": str(y.dtype),
+           "max_abs_err_vs_plain": err, "tol": SW_FP32_MAX}
+    sw_output_check(rec, y, SW_FP32_VOLUME)
+    emit(rec)
+    check(y.dtype == torch.float32 and err <= SW_FP32_MAX, rec)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1124,7 +1503,14 @@ def main() -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
-    bandwidth, flops = card_peaks(smi)
+    bandwidth, flops, bf16_peak = card_peaks(smi)
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        seconds[name] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
 
     from ganslate_tpu_torch.ops import build
     from ganslate_tpu_torch.ops import instance_norm as inorm
@@ -1137,11 +1523,14 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             emit("ptxas: " + line.strip())
 
+    phase_done("build")
     summary = check_kernels(bandwidth, flops)
+    phase_done("kernels")
     sweep_onepass_geometry(bandwidth)
     sweep_split_geometry(bandwidth)
     split_parts(bandwidth, summary)
     onepass_at_split_slab(bandwidth)
+    phase_done("geometry_sweeps")
 
     with tempfile.TemporaryDirectory() as tmp:
         inferer, x16, totals = serve_slice(Path(tmp))
@@ -1150,9 +1539,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_fp32_slice(Path(tmp))
     torch.cuda.empty_cache()
+    phase_done("slice")
 
     with tempfile.TemporaryDirectory() as tmp:
         train_totals = train_phase(Path(tmp))
+    torch.cuda.empty_cache()
+    phase_done("train")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sw_totals = sliding_window_phase(Path(tmp), bf16_peak)
+    phase_done("sliding_window")
+    emit({"phase": "phase_seconds", **seconds})
 
     kernels = []
     for name, replaces in (("onepass", "ganslate_tpu/ops/instance_norm.py:66"),
@@ -1160,7 +1557,8 @@ def main() -> int:
         s = summary[name]
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
-        totals[name] += train_totals[name]
+        check(sw_totals[name] > 0, f"the sliding-window requests never launched {name}")
+        totals[name] += train_totals[name] + sw_totals[name]
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
                         "replaces": replaces, "launches": totals[name], **s})

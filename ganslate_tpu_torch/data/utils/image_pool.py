@@ -6,13 +6,16 @@ For each generated image in turn: while the pool holds fewer than
 probability 1/2 the image is returned as it is, else a random stored image
 is returned and replaced by the new one. `pool_size=0` is the identity.
 
-The pool holds its images on the device, in the compute dtype. The two draws per image (a uniform, compared with 0.5, and an
-index), made for every image as the JAX package makes them, come from a
-host `torch.Generator`: the choices are host integers, so a query never
-waits for the device.
+The pool holds its images on the device, in the compute dtype. The two
+draws per image (a uniform, compared with 0.5, and an index), made for every
+image as the JAX package makes them, come from a host `torch.Generator`: the
+choices are host integers, so a query never waits for the device.
+`state_dict()` holds the images, their count and the generator's state, so
+that a checkpoint resumes the pool where it stood, as the JAX package's
+does.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,3 +57,15 @@ class ImagePool:
                 returned[i].copy_(self.images[idx])
                 self.images[idx].copy_(images[i])
         return returned
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"images": self.images, "count": self.count,
+                "rng_state": self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict[str, object]):
+        if tuple(state["images"].shape) != tuple(self.images.shape):
+            raise ValueError(f"pool images of shape {tuple(state['images'].shape)} do not "
+                             f"fit a pool of {tuple(self.images.shape)}")
+        self.images.copy_(state["images"])
+        self.count = int(state["count"])
+        self.generator.set_state(state["rng_state"])

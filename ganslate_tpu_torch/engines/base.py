@@ -1,5 +1,6 @@
 """Engine bases: mode isolation and the shared inference path (the JAX
-package's `ganslate_tpu/engines/base.py`)."""
+package's `ganslate_tpu/engines/base.py`): the direct forward, or the
+sliding window when the mode's config sets `sliding_window`."""
 
 import copy
 import logging
@@ -8,6 +9,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ganslate_tpu_torch.utils.sliding_window_inferer import SlidingWindowInferer
 
 logger = logging.getLogger(__name__)
 
@@ -32,12 +35,17 @@ class BaseEngineWithInference(BaseEngine):
 
     def __init__(self, conf):
         super().__init__(conf)
+        self.sliding_window_inferer = self._init_sliding_window_inferer()
         mode_conf = self.conf[self.conf.mode]
-        for section in ("sliding_window", "spatial_sharding"):
-            if section in mode_conf and mode_conf[section]:
-                raise NotImplementedError(
-                    f"`{self.conf.mode}.{section}` is not ported yet: sliding-window "
-                    f"and spatially sharded inference come with the V-Net slice.")
+        self.spatial_sharding = mode_conf.spatial_sharding \
+            if "spatial_sharding" in mode_conf else None
+        if self.sliding_window_inferer and self.spatial_sharding:
+            raise ValueError("Use either sliding_window or spatial_sharding, not both.")
+        if self.spatial_sharding:
+            # The JAX package shards the volume only over more than one
+            # device, and otherwise runs the direct forward, as the port does.
+            self.logger.info("spatial_sharding needs more than one device; the port runs "
+                             "on one, so inference runs the direct forward.")
         # bf16 wire format (InferenceConfig.wire_dtype): a float32 host input
         # crosses to the device as bf16 (bit-identical to the in-network cast)
         # and predictions come back bf16. Modes without the field keep fp32.
@@ -48,8 +56,16 @@ class BaseEngineWithInference(BaseEngine):
 
     def infer(self, data, *args, **kwargs) -> torch.Tensor:
         """Translate `data` (N, *spatial, C), a numpy array or a tensor.
-        Returns a host tensor in the wire dtype, in the same layout."""
-        out = self.model.infer(self._to_wire(data), *args, **kwargs)
+        Returns a host tensor in the wire dtype, in the same layout. With a
+        sliding window, the volume moves to the device once and the network
+        runs on its window batches."""
+        data = self._to_wire(data)
+        if self.sliding_window_inferer:
+            def network(windows):
+                return self.model.infer(windows, *args, out_dtype=None, **kwargs)
+            out = self.sliding_window_inferer(data.to(self.model.device), network)
+        else:
+            out = self.model.infer(data, *args, **kwargs)
         return self._from_wire(out).cpu()
 
     def _to_wire(self, data) -> torch.Tensor:
@@ -67,3 +83,11 @@ class BaseEngineWithInference(BaseEngine):
         if self.wire_dtype != "bfloat16":
             return out
         return out.to(torch.bfloat16)
+
+    def _init_sliding_window_inferer(self):
+        mode_conf = self.conf[self.conf.mode]
+        sw = mode_conf.sliding_window if "sliding_window" in mode_conf else None
+        if not sw:
+            return None
+        return SlidingWindowInferer(roi_size=tuple(sw.window_size), sw_batch_size=sw.batch_size,
+                                    overlap=sw.overlap, mode=sw.mode, cval=-1.0)

@@ -11,7 +11,8 @@ subclass writes in `train_step`), `get_loggable_data()` and
 compiles it into one program; the order of the updates is the same.
 Checkpoints are `<output_dir>/checkpoints/<iter>.pth`, the original
 ganslate's layout: one state dict per network and `optimizer_<group>` per
-optimizer.
+optimizer, plus `pool_<name>` per image pool (its images, count and
+generator state), which the JAX package saves too and the original does not.
 
 Mixed precision is the JAX package's bf16 compute policy, not autocast: the
 fp32 master parameters and the input are cast to bf16 at each network
@@ -28,6 +29,7 @@ from abc import ABC, abstractmethod
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -47,6 +49,17 @@ def select_device(cuda: bool) -> torch.device:
             "The config asks for the GPU (`cuda: true`) but PyTorch sees no CUDA "
             "device. Set `train.cuda=false` to run on the CPU.")
     return torch.device("cuda", 0)
+
+
+def channels_last_format(net: torch.nn.Module) -> torch.memory_format:
+    """`torch.channels_last` for a network of 2D convs, `channels_last_3d`
+    for one of 3D convs. Raises for a network with both or neither: it
+    would leave activations in another layout than the norm kernels read."""
+    ranks = {p.dim() for p in net.parameters()} & {4, 5}
+    if len(ranks) != 1:
+        raise ValueError(f"{type(net).__name__} has conv weights of ranks {sorted(ranks)}: "
+                         f"no one channels-last memory format fits it")
+    return torch.channels_last if ranks == {4} else torch.channels_last_3d
 
 
 class BaseGAN(ABC):
@@ -70,6 +83,7 @@ class BaseGAN(ABC):
         self.visuals: Dict[str, torch.Tensor] = {}
         self.metrics: Dict[str, torch.Tensor] = {}
         self.pools: Dict[str, object] = {}
+        self._drawn_seed: Optional[int] = None
 
         if self.is_train:
             train = conf.train
@@ -82,16 +96,25 @@ class BaseGAN(ABC):
                                           "training) is not ported.")
 
     def _seed(self) -> int:
-        seed = self.conf.train.seed
-        return 0 if seed is None else int(seed)
+        """`train.seed`; when it is unset, a fresh seed drawn once for this
+        model and logged (as the JAX package's `shared_random_seed`), so that
+        the weights and the pools' draws share it and a run can be repeated."""
+        if self._drawn_seed is None:
+            seed = self.conf.train.seed
+            if seed is None:
+                seed = np.random.randint(2 ** 31)
+                logger.info(f"train.seed is unset: drew seed {seed}")
+            self._drawn_seed = int(seed)
+        return self._drawn_seed
 
     # ------------------------------------------------------------- networks
 
     def init_networks(self):
         """Instantiate networks by naming convention, initialised from
-        `train.seed` (0 when unset), on the model's device. On the GPU the
-        parameters are kept channels-last, so that cuDNN's convolutions
-        return channels-last activations for the instance-norm kernels."""
+        `_seed()`, on the model's device. On the GPU the parameters are kept
+        channels-last (`torch.channels_last_3d` for a 3D network), so that
+        cuDNN's convolutions return channels-last activations for the
+        instance-norm kernels."""
         from ganslate_tpu_torch.utils.builders import build_D, build_G
         generator = torch.Generator().manual_seed(self._seed())
         for name in list(self.networks):
@@ -105,7 +128,7 @@ class BaseGAN(ABC):
                 continue
             net = net.to(self.device)
             if self.device.type == "cuda":
-                net = net.to(memory_format=torch.channels_last)
+                net = net.to(memory_format=channels_last_format(net))
             self.networks[name] = net.train(self.is_train)
 
     @abstractmethod
@@ -271,9 +294,12 @@ class BaseGAN(ABC):
         return self._serving[name]
 
     @torch.inference_mode()
-    def infer(self, x: torch.Tensor, direction: str = "AB") -> torch.Tensor:
-        """Translate a channels-last batch `(N, *spatial, C)`; returns fp32
-        `(N, *spatial, C)` on the model's device."""
+    def infer(self, x: torch.Tensor, direction: str = "AB",
+              out_dtype: Optional[torch.dtype] = torch.float32) -> torch.Tensor:
+        """Translate a channels-last batch `(N, *spatial, C)`; returns
+        `(N, *spatial, C)` on the model's device in `out_dtype` (fp32, as the
+        JAX package returns; None keeps the compute dtype, for a caller that
+        casts where it reads, as the sliding window's blend does)."""
         name = f"G_{direction}" if f"G_{direction}" in self.networks else "G"
         assert name in self.networks, f"Specify a valid generator direction, got {direction}."
         net = self._serving_network(name)
@@ -281,7 +307,8 @@ class BaseGAN(ABC):
         # (N, *spatial, C) -> (N, C, *spatial): a free permute, whose result
         # is channels-last in memory.
         y = net(x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)))
-        return y.permute(0, *range(2, y.ndim), 1).float()
+        y = y.permute(0, *range(2, y.ndim), 1)
+        return y if out_dtype is None else y.to(out_dtype)
 
     # ---------------------------------------------------------- checkpoints
 
@@ -290,21 +317,29 @@ class BaseGAN(ABC):
 
     def save_checkpoint(self, iter_idx: int):
         """Save `<output_dir>/checkpoints/<iter>.pth`: each network's state
-        dict and each optimizer's as `optimizer_<group>`. The image pools are
-        not saved, as in the original ganslate."""
+        dict, each optimizer's as `optimizer_<group>`, and each image pool's
+        as `pool_<name>`, so that a resumed run continues the uninterrupted
+        one."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
         path.parent.mkdir(parents=True, exist_ok=True)
         logger.info(f"Saving checkpoint at iteration {iter_idx} -> {path}")
         payload = {name: net.state_dict() for name, net in self.networks.items()}
         payload.update({f"optimizer_{group}": optimizer.state_dict()
                         for group, optimizer in self.optimizers.items()})
+        payload.update({f"pool_{name}": pool.state_dict()
+                        for name, pool in self._saved_pools().items()})
         torch.save(payload, path)
+
+    def _saved_pools(self):
+        """The pools with a state: `pool_size = 0` is a pass-through."""
+        return {name: pool for name, pool in self.pools.items() if pool.pool_size}
 
     def load_networks(self, iter_idx: int):
         """Load `<output_dir>/checkpoints/<iter>.pth`, a dict of per-network
         state dicts (`{"G_AB": state_dict, ...}`), the original ganslate's
-        layout. In train mode with `load_optimizers`, also the optimizers'
-        states where the checkpoint has them."""
+        layout. In train mode, also the image pools where the checkpoint has
+        them, and with `load_optimizers` the optimizers' states where it has
+        them."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
         if not path.is_file():
             raise FileNotFoundError(f"No checkpoint at {path}")
@@ -325,5 +360,10 @@ class BaseGAN(ABC):
                 optimizer.load_state_dict(checkpoint[f"optimizer_{group}"])
         else:
             logger.warning("Checkpoint has no optimizer state; optimizers start fresh.")
-        if any(pool.pool_size for pool in self.pools.values()):
-            logger.info("Checkpoints hold no image pools; pools start fresh.")
+        pools = self._saved_pools()
+        if all(f"pool_{name}" in checkpoint for name in pools):
+            for name, pool in pools.items():
+                pool.load_state_dict(checkpoint[f"pool_{name}"])
+        else:
+            logger.info("Checkpoint holds no image pools (one of the original ganslate); "
+                        "pools start fresh.")

@@ -1,4 +1,5 @@
-"""Conv / norm building blocks (the JAX package's `ganslate_tpu/nn/layers.py`).
+"""Conv / norm / activation building blocks (the JAX package's
+`ganslate_tpu/nn/layers.py`).
 
 PyTorch idiom: modules take and return `(N, C, *spatial)` tensors, and the
 parameters are stored in torch's layout (conv `(O, I, *k)`, transposed conv
@@ -276,6 +277,15 @@ def get_norm_layer(norm_type: str = "instance"):
     raise NotImplementedError(f"Normalization layer `{norm_type}` is not ported yet")
 
 
+def apply_norm_s2d(norm_type: str, h, channels: Optional[int] = None, s2d: int = 0):
+    """Norm dispatch of the s2d-capable generators (the JAX package's
+    `layers.apply_norm_s2d`). There, `s2d > 1` selects the grouped norm of
+    its space-to-depth execution form, which computes the same function; the
+    port runs the plain computation, so every `s2d` gives the plain norm."""
+    del channels, s2d
+    return get_norm_layer(norm_type)()(h)
+
+
 def is_bias_before_norm(norm_type: str = "instance") -> bool:
     """Conv keeps its bias before InstanceNorm (no affine), drops it before
     BatchNorm (affine absorbs it)."""
@@ -291,3 +301,28 @@ def is_bias_before_norm(norm_type: str = "instance") -> bool:
 
 def leaky_relu(x, negative_slope: float = 0.2):
     return F.leaky_relu(x, negative_slope)
+
+
+class PReLU(nn.Module):
+    """PReLU with a learned slope per channel (torch `nn.PReLU(features)`),
+    or one shared slope when `features` is None (the JAX package's
+    `layers.PReLU`).
+
+    It computes `where(x >= 0, x, x * slope)` with the slope cast to x's
+    dtype first, as the JAX package does: in bf16 the product of two bf16
+    values is exact in fp32 and rounds once, there as here. `F.prelu` is that
+    function in one pass. `s2d_rn` and `fused_norm` select the JAX package's
+    space-to-depth forms; the port runs the plain computation and takes them
+    only at their plain values."""
+
+    def __init__(self, features: Optional[int] = None, init_slope: float = 0.25,
+                 s2d_rn: int = 0, fused_norm: bool = False):
+        super().__init__()
+        if s2d_rn > 1 or fused_norm:
+            raise NotImplementedError("PReLU's space-to-depth forms (`s2d_rn > 1`, "
+                                      "`fused_norm`) are not ported: the port runs the "
+                                      "plain computation")
+        self.slope = nn.Parameter(torch.full((features or 1,), float(init_slope)))
+
+    def forward(self, x):
+        return F.prelu(x, self.slope.to(x.dtype))

@@ -57,8 +57,9 @@ _ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # One row of a channel block is 32 bytes: CB = 8 float or 16 bfloat16
-# channels. The channel count must be a multiple of CB (the one-pass form's
-# narrowest row segment; the split form's row segments are multiples of it).
+# channels. The kernels take a channel count that is a multiple of CB (the
+# one-pass form's narrowest row segment; the split form's row segments are
+# multiples of it); their wrappers pad any other C up to one.
 ROW_BYTES = 32
 # The one-pass/split boundary: slabs of S rows x 32 bytes up to this size
 # (S <= 6400) take the one-pass form. It also caps the slab of the one-pass
@@ -204,19 +205,29 @@ def split_stats_smem(dtype: torch.dtype, tile_rows: int, seg_bytes: int, threads
 
 def pick_kernel(shape, dtype: torch.dtype) -> str:
     """'onepass' when a sample's (S, CB) slab fits one block's shared
-    memory, else 'split'. Raises for shapes the kernels do not take."""
+    memory, else 'split'. Any C: the kernel wrappers pad the channels up to
+    a multiple of CB (`_channel_padded`). Raises for shapes and dtypes the
+    kernels do not take."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"instance_norm kernels take float32 or bfloat16, got {dtype}")
     if len(shape) not in (4, 5):
         raise ValueError(f"instance_norm kernels take (N, *spatial, C) with 2 or 3 "
                          f"spatial dims, got shape {tuple(shape)}")
-    c = shape[-1]
-    cb = channel_block(dtype)
-    if c % cb:
-        raise ValueError(f"instance_norm kernels need C divisible by {cb} for {dtype}, "
-                         f"got C={c}")
     s = math.prod(shape[1:-1])
     return "onepass" if s * ROW_BYTES <= ONEPASS_MAX_SMEM else "split"
+
+
+def _channel_padded(launch, x, *args):
+    """`launch(x, *args) -> (out, mean, rstd)`, a kernel that needs C to be a
+    multiple of `channel_block`, on an `x` of any C: the channels are padded
+    with zeros up to the next multiple, and the result and its statistics
+    are cut back to C. Exact: each channel's statistics and output depend on
+    that channel alone (a zero channel gives mean 0 and output 0)."""
+    c, cb = x.shape[-1], channel_block(x.dtype)
+    if c % cb == 0:
+        return launch(x, *args)
+    out, mean, rstd = launch(torch.nn.functional.pad(x, (0, cb - c % cb)), *args)
+    return out[..., :c].contiguous(), mean[:, :c].contiguous(), rstd[:, :c].contiguous()
 
 
 # ------------------------------------------------------------------ kernels
@@ -286,10 +297,14 @@ def onepass(x, eps=1e-5, activation="none", negative_slope=0.2):
     if pick_kernel(x.shape, x.dtype) != "onepass":
         raise ValueError(f"slab of {math.prod(x.shape[1:-1])} rows does not fit the "
                          f"one-pass kernel")
-    g, k, _, _ = onepass_geometry(x.shape, x.dtype)
-    result = _launch_onepass(x, g, k, eps, activation, negative_slope)
+    result = _channel_padded(_onepass_at_geometry, x, eps, activation, negative_slope)
     LAUNCHES["onepass"] += 1
     return result
+
+
+def _onepass_at_geometry(x, eps, activation, negative_slope):
+    g, k, _, _ = onepass_geometry(x.shape, x.dtype)
+    return _launch_onepass(x, g, k, eps, activation, negative_slope)
 
 
 def _launch_onepass(x, g, k, eps, activation, negative_slope):
@@ -310,11 +325,14 @@ def split(x, eps=1e-5, activation="none", negative_slope=0.2):
     `split_geometry`; returns `(out, mean, rstd)`."""
     _check_input(x)
     pick_kernel(x.shape, x.dtype)
-    rows, seg, threads, _ = split_geometry(x.shape, x.dtype)
-    result = _launch_split(x, rows, seg, threads, SPLIT_REVERSE, eps, activation,
-                           negative_slope)
+    result = _channel_padded(_split_at_geometry, x, eps, activation, negative_slope)
     LAUNCHES["split"] += 1
     return result
+
+
+def _split_at_geometry(x, eps, activation, negative_slope):
+    rows, seg, threads, _ = split_geometry(x.shape, x.dtype)
+    return _launch_split(x, rows, seg, threads, SPLIT_REVERSE, eps, activation, negative_slope)
 
 
 def _launch_split(x, tile_rows, seg_bytes, threads, reverse, eps, activation,

@@ -38,10 +38,16 @@ def test_port_imports_no_jax_and_no_jax_package():
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'ganslate_tpu')\n"
         "             or m.startswith(('jax.', 'flax.', 'ganslate_tpu.')))\n"
         "print(len(names), bad)\n"
+        "print(*names)\n"
         "sys.exit(1 if bad else 0)\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 40          # the training modules included
+    names = set(proc.stdout.splitlines()[1].split())
+    assert {"ganslate_tpu_torch.nn.invertible", "ganslate_tpu_torch.nn.generators.vnet.vnet",
+            "ganslate_tpu_torch.nn.generators.vnet.vnet2d",
+            "ganslate_tpu_torch.nn.generators.vnet.vnet3d",
+            "ganslate_tpu_torch.utils.sliding_window_inferer"} <= names
 
 
 _FORBIDDEN = re.compile(
@@ -127,11 +133,19 @@ def test_import_attr_aliases_to_the_port(prefix):
 @pytest.mark.parametrize("target, missing", [
     ("ganslate.nn.discriminators.PatchGAN3D", "PatchGAN3D"),
     ("ganslate.data.UnpairedImageDataset", "ganslate_tpu_torch.data"),
-    ("ganslate.nn.generators.Vnet3D", "Vnet3D"),
+    ("ganslate.nn.generators.Piresnet3D", "Piresnet3D"),
 ])
 def test_import_attr_names_what_the_port_lacks(target, missing):
     with pytest.raises(ImportError, match=re.escape(missing)):
         import_attr(target)
+
+
+@pytest.mark.parametrize("name", ("Vnet3D", "Vnet3DConfig", "Vnet2D", "Vnet2DConfig"))
+def test_import_attr_resolves_the_vnets(name):
+    """The BRaTS experiments' `_target_: ganslate.nn.generators.Vnet3D`
+    resolves to the port's V-Net."""
+    from ganslate_tpu_torch.nn import generators
+    assert import_attr(f"ganslate.nn.generators.{name}") is getattr(generators, name)
 
 
 def test_horse2zebra_yaml_waits_for_the_data_plane(monkeypatch):

@@ -177,14 +177,51 @@ def test_run_waits_for_the_data_plane(experiment):
         deployed.run()
 
 
-@pytest.mark.parametrize("section", (
-    "sliding_window={window_size: [16, 16]}",
-    "spatial_sharding={halo: 8, dim: 0}",
-))
+# The V-Net slice's sections of the infer config, as YAML (a dotlist override
+# of an absent section would not get the section's defaults, in either
+# package), by the dotlist that names each.
+SECTIONS = {
+    "sliding_window={window_size: [16, 16]}": {"sliding_window": {"window_size": [16, 16]}},
+    "spatial_sharding={halo: 8, dim: 0}": {"spatial_sharding": {"halo": 8, "dim": 0}},
+}
+
+
+@pytest.mark.parametrize("section", SECTIONS)
 def test_later_slices_raise(experiment, section):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_engine("infer", [f"config={experiment()}", "infer.is_deployment=true",
-                              f"infer.{section}"])
+    """Each section serves alone (below); set together with the other one,
+    it raises, as in the JAX engine."""
+    other = next(s for s in SECTIONS if s != section)
+    with pytest.raises(ValueError, match="not both"):
+        init_engine("infer", [f"config={experiment(**SECTIONS[section], **SECTIONS[other])}",
+                              "infer.is_deployment=true"])
+
+
+def _jax_sliding_window(params, x):
+    """The JAX engine's sliding-window path in fp32 over G_AB, one device."""
+    from ganslate_tpu.utils.sliding_window_inferer import SlidingWindowInferer
+    module = _module()
+    inferer = SlidingWindowInferer((16, 16), sw_batch_size=1, overlap=0.25, mode="gaussian",
+                                   cval=-1.0, distributed=False)
+    return np.asarray(inferer(jnp.asarray(x), lambda p, x: module.apply({"params": p}, x),
+                              params))
+
+
+@pytest.mark.parametrize("section", SECTIONS)
+def test_vnet_slice_sections_serve(experiment, jax_params, section):
+    """`sliding_window` serves through 16x16 windows (9 of them over 32x32,
+    one at a time) as the JAX engine does; `spatial_sharding` needs more
+    than one device, so on the port's one it runs the direct forward, whose
+    output it equals."""
+    x = _inputs(seed=5)
+    fp32 = dict(mixed_precision=False, wire_dtype="float32")
+    inferer, got = _serve(experiment(**fp32, **SECTIONS[section]), x)
+    if "sliding_window" in SECTIONS[section]:
+        assert inferer.sliding_window_inferer.roi_size == (16, 16)
+        np.testing.assert_allclose(got.numpy(), _jax_sliding_window(jax_params, x),
+                                   atol=FP32_ATOL, rtol=0)
+    else:
+        assert inferer.sliding_window_inferer is None and inferer.spatial_sharding
+        torch.testing.assert_close(got, _serve(experiment(**fp32), x)[1], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("mode", ("train", "test"))

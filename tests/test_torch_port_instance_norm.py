@@ -1,7 +1,8 @@
 """The port's instance norm (`ganslate_tpu_torch/ops/instance_norm.py`)
 against the JAX package's: the plain version against `_xla_forward` and
-against both Pallas kernels run in interpret mode, the kernel dispatch rule
-at the CycleGAN-256 shapes, and the CPU path's launch counters.
+against both Pallas kernels run in interpret mode (on 4-D and on the V-Net's
+5-D slabs), the kernel dispatch rule at the CycleGAN-256 shapes, the
+wrappers' channel padding for any C, and the CPU path's launch counters.
 
 The CUDA kernels themselves run only on a GPU; `chip_smoke.py` holds them
 against the plain version there."""
@@ -93,6 +94,36 @@ def test_reference_matches_pallas_onepass_interpret(activation):
                     "float32")
 
 
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_reference_matches_pallas_onepass_interpret_on_a_slab(dtype):
+    """A 5-D (N, D, H, W, C) slab, as the V-Net's norms take: the one-pass
+    kernel sees it as (N, S, C) with S = D * H * W."""
+    xj, xt = _inputs((2, 4, 6, 6, 16), dtype, seed=5, scale=2.0, shift=1.0)
+    in_mod._INTERPRET = True
+    try:
+        want = in_mod._pallas_forward(xj, 1e-5, "none", 0.2)
+    finally:
+        in_mod._INTERPRET = False
+    _assert_matches(port.instance_norm_reference(xt, 1e-5, "none", 0.2), want, dtype)
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_reference_matches_pallas_tiled_interpret_on_a_slab(activation):
+    """A 5-D slab through the tiled kernel, 4 tiles of 64 rows per sample."""
+    xj, xt = _inputs((2, 4, 8, 8, 16), "float32", seed=6, scale=3.0, shift=2.0)
+    in_mod._INTERPRET = True
+    try:
+        want = in_mod._pallas_forward_tiled(xj, 1e-5, activation, 0.2, tile=64)
+    finally:
+        in_mod._INTERPRET = False
+    out_t, mean_t, rstd_t = port.instance_norm_reference(xt, 1e-5, activation, 0.2)
+    assert out_t.shape == want[0].shape
+    # As in the 4-D case below: the tiled kernel's E[x^2] - E[x]^2.
+    np.testing.assert_allclose(_f32(mean_t), np.asarray(want[1]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_f32(rstd_t), np.asarray(want[2]), rtol=1e-4)
+    np.testing.assert_allclose(_f32(out_t), np.asarray(want[0]), rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("activation", ACTIVATIONS)
 def test_reference_matches_pallas_tiled_interpret(activation):
     xj, xt = _inputs((2, 32, 16, 24), "float32", seed=4, scale=3.0, shift=2.0)
@@ -148,14 +179,62 @@ def test_dispatch_limits():
 
 
 @pytest.mark.parametrize("shape, dtype, error", [
-    ((2, 8, 8, 24), torch.bfloat16, ValueError),   # C not a multiple of 16
-    ((2, 8, 8, 12), torch.float32, ValueError),    # C not a multiple of 8
-    ((2, 64, 16), torch.float32, ValueError),      # one spatial dim
+    ((2, 4, 4, 4, 4, 16), torch.bfloat16, ValueError),  # four spatial dims
+    ((2, 16), torch.float32, ValueError),               # none
+    ((2, 64, 16), torch.float32, ValueError),           # one spatial dim
     ((2, 8, 8, 16), torch.float16, TypeError),
 ])
 def test_dispatch_rejects(shape, dtype, error):
     with pytest.raises(error):
         port.pick_kernel(shape, dtype)
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((2, 8, 8, 24), torch.bfloat16),    # C not a multiple of 16
+    ((2, 8, 8, 12), torch.float32),     # C not a multiple of 8
+    ((1, 4, 8, 8, 20), torch.bfloat16),
+    ((1, 200, 200, 3), torch.float32),
+])
+def test_dispatch_takes_any_channel_count(shape, dtype):
+    """The JAX package takes any C; so do the kernels' wrappers, which pad
+    the channels to a multiple of the channel block."""
+    assert port.pick_kernel(shape, dtype) == (
+        "onepass" if math.prod(shape[1:-1]) * port.ROW_BYTES <= port.ONEPASS_MAX_SMEM
+        else "split")
+
+
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("shape", ((2, 6, 7, 20), (1, 3, 4, 5, 20), (2, 9, 9, 3)))
+def test_channel_padding_is_exact(shape, dtype, activation):
+    """`_channel_padded` with the kernel replaced by the plain version:
+    the kernel gets C padded with zeros to a multiple of the channel
+    block, and the result and statistics cut back to C equal the plain
+    version on the unpadded input. Only the summation order of the
+    statistics may differ with the padded width (a few fp32 ulps), and a
+    bf16 output may then round to the neighbouring value."""
+    _, xt = _inputs(shape, dtype, seed=7, scale=2.0, shift=-1.0)
+    seen = []
+
+    def launch(x, eps, act, slope):
+        assert x.shape[-1] % port.channel_block(x.dtype) == 0 and x.is_contiguous()
+        seen.append(tuple(x.shape))
+        return port.instance_norm_reference(x, eps, act, slope)
+
+    got = port._channel_padded(launch, xt, 1e-5, activation, 0.2)
+    want = port.instance_norm_reference(xt, 1e-5, activation, 0.2)
+    cb = port.channel_block(xt.dtype)
+    assert seen == [shape[:-1] + (-(-shape[-1] // cb) * cb,)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous()
+    _assert_matches(got, want, dtype)
+
+
+def test_channel_padding_leaves_a_multiple_alone():
+    _, xt = _inputs((2, 4, 4, 16), "bfloat16")
+    seen = []
+    port._channel_padded(lambda x, *a: seen.append(x) or port.instance_norm_reference(x), xt)
+    assert seen[0] is xt
 
 
 def test_cpu_tensor_leaves_counters_at_zero():

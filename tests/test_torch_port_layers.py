@@ -127,3 +127,46 @@ def test_norm_act_keeps_layout_and_matches_reference():
     torch.testing.assert_close(tl.IdentityNorm()(x), x)
     with pytest.raises(NotImplementedError):
         tl.get_norm_layer("batch")
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("features", (6, None), ids=("per-channel", "shared"))
+def test_prelu_matches_jax(features, dtype):
+    """PReLU over (N, C, D, H, W) against the JAX PReLU over (N, D, H, W, C),
+    with the same slopes: equal bit for bit, in bf16 too, since both cast
+    the slope to x's dtype and round the product once."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 3, 4, 5, 6)).astype(np.float32)
+    slope = (0.25 + 0.2 * rng.normal(size=(features or 1,))).astype(np.float32)
+    jdtype, tdtype = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" \
+        else (jnp.float32, torch.float32)
+    module = jl.PReLU(features)
+    want = jax.jit(module.apply)({"params": {"slope": slope}}, jnp.asarray(x).astype(jdtype))
+    prelu = tl.PReLU(features)
+    assert tuple(prelu.slope.shape) == slope.shape
+    with torch.no_grad():
+        prelu.slope.copy_(torch.from_numpy(slope))
+        got = prelu(_nhwc_to_nchw(x).to(tdtype))
+    assert got.dtype == tdtype
+    np.testing.assert_array_equal(_nchw_to_nhwc(got.float()),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_prelu_takes_only_the_plain_form():
+    assert torch.equal(tl.PReLU(4).slope.detach(), torch.full((4,), 0.25))
+    tl.PReLU(4, s2d_rn=0)
+    tl.PReLU(4, s2d_rn=1)
+    for kw in (dict(s2d_rn=8), dict(fused_norm=True)):
+        with pytest.raises(NotImplementedError, match="plain computation"):
+            tl.PReLU(4, **kw)
+
+
+@pytest.mark.parametrize("s2d", (0, 2))
+def test_apply_norm_s2d_is_the_plain_norm(s2d):
+    """The JAX package's grouped s2d norm computes the instance norm of the
+    unfolded tensor; the port runs that norm for every `s2d`."""
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 4, 6, 6, 6))
+                         .astype(np.float32))
+    torch.testing.assert_close(tl.apply_norm_s2d("instance", x, 4, s2d),
+                               tl.InstanceNorm()(x), rtol=0, atol=0)
+    assert tl.apply_norm_s2d("none", x, 4, s2d) is x

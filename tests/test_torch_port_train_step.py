@@ -328,3 +328,75 @@ def test_serving_before_training_leaves_autograd_usable():
     y = x.clone().requires_grad_(True)
     pad_spatial(y, (3, 3), "reflect").sum().backward()
     assert y.grad is not None and y.grad.shape == y.shape
+
+
+def _pool_conf(out_dir, **kw):
+    return _port_conf(out_dir, False, **{**dict(pool_size=50), **kw})
+
+
+def test_resume_restores_the_image_pools(tmp_path, caplog):
+    """With pool 50: 2 steps + save + load into a fresh model + 2 steps give
+    the losses and parameters of 4 uninterrupted steps, bit for bit: the
+    checkpoint holds each pool's images, count and generator state."""
+    batches = _batches(4)
+    straight = _port_model(_pool_conf(tmp_path / "a"), batches[0])
+    straight_logs = _run_port(straight, batches)[0]
+
+    first = _port_model(_pool_conf(tmp_path / "b"), batches[0])
+    _run_port(first, batches[:2])
+    first.save_checkpoint(2)
+    checkpoint = torch.load(tmp_path / "b" / "checkpoints" / "2.pth", weights_only=True)
+    assert {"pool_fake_A", "pool_fake_B"} <= set(checkpoint)
+    assert checkpoint["pool_fake_B"]["count"] == 2 * BATCH
+    conf = _pool_conf(tmp_path / "b")
+    conf.train.checkpointing.load_iter = 2
+    with caplog.at_level("INFO"):
+        resumed = _port_model(conf, batches[0])
+    assert "pools start fresh" not in caplog.text
+    logs = _run_port(resumed, batches[2:])[0]
+    assert logs == straight_logs[2:]
+    for name in NETWORKS:
+        for (k, p), q in zip(resumed.networks[name].named_parameters(),
+                             straight.networks[name].parameters()):
+            assert torch.equal(p, q), f"{name}.{k}"
+
+
+def test_checkpoint_without_pools_starts_them_fresh(tmp_path, caplog):
+    """A checkpoint of the original ganslate's layout (networks and
+    optimizers only) still loads; the pools start empty, and say so."""
+    batches = _batches(1)
+    first = _port_model(_pool_conf(tmp_path), batches[0])
+    _run_port(first, batches)
+    first.save_checkpoint(1)
+    path = tmp_path / "checkpoints" / "1.pth"
+    checkpoint = torch.load(path, weights_only=True)
+    torch.save({k: v for k, v in checkpoint.items() if not k.startswith("pool_")}, path)
+    conf = _pool_conf(tmp_path)
+    conf.train.checkpointing.load_iter = 1
+    with caplog.at_level("INFO"):
+        resumed = _port_model(conf, batches[0])
+    assert "pools start fresh" in caplog.text
+    assert all(pool.count == 0 for pool in resumed.pools.values())
+
+
+def test_unset_seed_is_drawn_once_and_logged(tmp_path, caplog):
+    """`train.seed: null`: each model draws its own seed and logs it; a model
+    built with the logged seed starts from the same weights and pool
+    draws."""
+    batch = _batches(1)[0]
+    with caplog.at_level("INFO", logger="ganslate_tpu_torch.nn.gans.base"):
+        a = _port_model(_pool_conf(tmp_path / "a", seed=None), batch)
+        b = _port_model(_pool_conf(tmp_path / "b", seed=None), batch)
+    drawn = [int(r.getMessage().rsplit(" ", 1)[1]) for r in caplog.records
+             if "drew seed" in r.getMessage()]
+    assert len(drawn) == 2 and drawn[0] != drawn[1]
+    assert a._seed() == drawn[0] and b._seed() == drawn[1]
+    assert not torch.equal(a.networks["G_AB"].initial.weight, b.networks["G_AB"].initial.weight)
+
+    again = _port_model(_pool_conf(tmp_path / "c", seed=drawn[0]), batch)
+    for name in NETWORKS:
+        for (k, p), q in zip(again.networks[name].named_parameters(),
+                             a.networks[name].parameters()):
+            assert torch.equal(p, q), f"{name}.{k}"
+    for name, pool in again.pools.items():
+        assert torch.equal(pool.generator.get_state(), a.pools[name].generator.get_state())
