@@ -49,6 +49,22 @@ and prints no result line):
    kernels, the plain norm backward, pad gathers and their backward, bias
    adds, casts, Adam, losses, metrics) and the device's idle share. Before
    all of it, each norm's gradient alone at the step's slabs, elementwise.
+6b. trainer: the horse2zebra experiment (`projects/horse2zebra/experiments/
+   default.yaml` field for field, built in Python, with its loop lengths and
+   frequencies cut and `logging.wandb` left out) through the port's engines:
+   `init_engine("train", ...)` from a YAML that the port's `Conf.to_yaml`
+   wrote (the engine class itself where PyYAML is missing), over seeded
+   256x256 PNG folders read by the port's data plane (or, without Pillow,
+   this script's synthetic datasets over the same arrays). At batch 1 (the
+   YAML's) and 16: images/s over the timed iterations, the tracker's t_data
+   and t_comp, plain iterations against log, checkpoint and validation ones,
+   host time by range, peak memory, finite losses at every log, the
+   checkpoints and their data-state sidecars, the norm launches of every
+   step and validation, and the idle share of the Trainer's own
+   `logging.profiler` trace of its last 5 iterations. Then `Inferer.run()`
+   and the `Tester` from the batch-1 run's last checkpoint, and
+   `Inferer.run()` again with the plain norms: outputs finite, in [-1, 1],
+   of the input's shape and within the slice's bf16 limits.
 7. sliding_window: the BRaTS CycleGAN's `G_AB` (Vnet3D, down blocks
    (2, 2, 3), up blocks (3, 3, 3), 16 first-layer channels, 8,070,257
    parameters, bf16 mixed precision, bf16 wire) with seeded random weights,
@@ -72,6 +88,7 @@ every kernel, and `{"ok": true, "device": {...}}`.
 """
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -1144,8 +1161,12 @@ def time_train(out_dir, batch_size, totals):
     emit(rec)
     check(finite, f"a train step gave a non-finite loss: {rec}")
     check(all(step == TRAIN_LAUNCHES for step in launches), f"launches per step: {launches}")
-    check(all(v.dtype == torch.float32 and tuple(v.shape) == (batch_size, SIZE, SIZE, 3)
-              for v in visuals.values()), rec)
+    # The loggable visuals stay on the device in the step's dtypes (bf16
+    # fakes); the training tracker reads them to the host as fp32.
+    from ganslate_tpu_torch.utils.trackers.utils import to_numpy
+    check(all(v.device.type == "cuda" and tuple(v.shape) == (batch_size, SIZE, SIZE, 3)
+              and v.dtype in (torch.float32, torch.bfloat16)
+              and to_numpy(v[:1]).dtype == np.float32 for v in visuals.values()), rec)
     for step in launches:
         for name, count in step.items():
             totals[name] += count
@@ -1195,6 +1216,506 @@ def train_phase(out_dir):
         profile_train_step(model, batch)
         del model, batch
         torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------- phase 6b
+
+
+# The trainer phase: `projects/horse2zebra/experiments/default.yaml` field for
+# field, built in Python, through the port's engines. Only the loop lengths
+# and frequencies are cut (printed as `cuts`); `logging.wandb` is left out,
+# because the wandb package would contact its server. Validation: the
+# paired test folder, cycle metrics on, FID off (no Inception weights here).
+TRAINER_IMAGES = 32             # per training domain (>= batch 16)
+TRAINER_TEST_IMAGES = 4         # paired, for validation, testing, inference
+TRAINER_RUNS = {
+    # batch: (warm-up iterations, timed iterations, profiled iterations,
+    #         logging.freq, checkpointing.freq, val.freq)
+    1: (5, 40, 5, 10, 20, 25),
+    16: (3, 20, 5, 5, 10, 10),
+}
+TRAINER_YAML_LENGTHS = {"n_iters": 117700, "n_iters_decay": 117700, "logging.freq": 500,
+                        "checkpointing.freq": 20000, "val.freq": 20000}
+TRAINER_LEFT_OUT = {"train.logging.wandb": "the wandb package would contact its server",
+                    "val.metrics.fid": "no Inception weights in the repo"}
+# Norm launches of one G forward (validation and inference): 19 one-pass,
+# 4 split.
+G_LAUNCHES = {"onepass": 19, "split": 4}
+# The host ranges of a profiled trainer iteration (`trainer_ranges`).
+TRAINER_RANGES = ("loader_wait", "set_input", "step", "tracker", "checkpoint", "validation")
+
+
+def trainer_dataset(kind):
+    """The dataset node: the port's image folders where Pillow is installed,
+    else this script's `SyntheticUnpairedDataset` / `SyntheticPairedDataset`
+    over the same arrays."""
+    if kind == "image_folder":
+        return {"unpaired": "ganslate.data.UnpairedImageDataset",
+                "paired": "ganslate.data.PairedImageDataset"}
+    return {"unpaired": "chip_smoke.SyntheticUnpairedDataset",
+            "paired": "chip_smoke.SyntheticPairedDataset"}
+
+
+def trainer_images(seed, n, size):
+    """`n` smooth RGB images (uint8, (size, size, 3)) from `seed`: a random
+    low-resolution field, upsampled, plus noise (PNGs of plain noise do not
+    compress, unlike photographs)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    low = rng.uniform(0, 255, (n, size // 16, size // 16, 3))
+    img = np.repeat(np.repeat(low, 16, axis=1), 16, axis=2) + rng.normal(0, 8, (n, size, size, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_trainer_data(root, kind):
+    """`train/{A,B}` and `test/{A,B}` of SIZE x SIZE images under `root`,
+    from the seed: PNGs written by the port's own writer (image folders), or
+    `.npy` stacks (the synthetic datasets)."""
+    import numpy as np
+    from ganslate_tpu_torch.utils.trackers.utils import save_image
+    for split, n, seed in (("train", TRAINER_IMAGES, SEED + 20), ("test", TRAINER_TEST_IMAGES,
+                                                                  SEED + 30)):
+        for d, domain in enumerate("AB"):
+            folder = root / split / domain
+            folder.mkdir(parents=True)
+            images = trainer_images(seed + d, n, SIZE)
+            if kind == "image_folder":
+                for i, img in enumerate(images):
+                    save_image(img / 255.0, folder / f"{i:04d}.png")
+            else:
+                np.save(folder / "images.npy", images)
+
+
+def __getattr__(name):
+    """`SyntheticUnpairedDatasetConfig` and `SyntheticPairedDatasetConfig`,
+    the schemas that the config loader reads for `_target_:
+    chip_smoke.Synthetic*Dataset`; made on request, because they need the
+    port, which this file does not import at module level."""
+    if name not in ("SyntheticUnpairedDatasetConfig", "SyntheticPairedDatasetConfig"):
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from dataclasses import dataclass, field
+    from typing import Tuple
+    from ganslate_tpu_torch import configs
+
+    @dataclass
+    class SyntheticDatasetConfig(configs.base.BaseDatasetConfig):
+        image_channels: int = 3
+        preprocess: Tuple[str] = ("resize", "random_flip")
+        load_size: Tuple[int, int] = field(default_factory=lambda: [SIZE, SIZE])
+        final_size: Tuple[int, int] = field(default_factory=lambda: [SIZE, SIZE])
+    return SyntheticDatasetConfig
+
+
+class SyntheticUnpairedDataset:
+    """The `{A, B}` samples of `UnpairedImageDataset` without Pillow: the
+    same seeded images as float32 (H, W, 3) in [-1, 1], B drawn and each
+    image flipped with the loader's per-sample `rng` (`random_flip`, train
+    mode only)."""
+    paired = False
+
+    def __init__(self, conf):
+        import numpy as np
+        from pathlib import Path
+        dataset_conf = conf[conf.mode].dataset
+        root = Path(dataset_conf.root)
+        self.flip = conf.mode == "train" and "random_flip" in dataset_conf.preprocess
+        self.images = {d: np.load(root / d / "images.npy") for d in "AB"}
+
+    def __len__(self):
+        return max(len(v) for v in self.images.values())
+
+    def _array(self, img, flip):
+        import numpy as np
+        arr = (img.astype(np.float32) / 255.0 - 0.5) / 0.5
+        return np.ascontiguousarray(arr[:, ::-1]) if flip else arr
+
+    def __getitem__(self, index, rng=None):
+        a = self.images["A"][index % len(self.images["A"])]
+        if self.paired:
+            b = self.images["B"][index % len(self.images["B"])]
+            flips = [self.flip and bool(rng.integers(0, 2))] * 2
+        else:
+            b = self.images["B"][int(rng.integers(0, len(self.images["B"])))]
+            flips = [self.flip and bool(rng.integers(0, 2)) for _ in range(2)]
+        return {"A": self._array(a, flips[0]), "B": self._array(b, flips[1])}
+
+
+class SyntheticPairedDataset(SyntheticUnpairedDataset):
+    """The `{A, B}` pairs of `PairedImageDataset` without Pillow."""
+    paired = True
+
+
+def trainer_raw(out_dir, data_root, kind, batch, load_iter=None):
+    """The horse2zebra experiment as a raw config tree, at `batch`, with the
+    run's cut loop lengths and frequencies."""
+    warm, timed, profiled, log_freq, ckpt_freq, val_freq = TRAINER_RUNS[batch]
+    n_iters = warm + timed + profiled
+    targets = trainer_dataset(kind)
+
+    def dataset(split, target, preprocess):
+        return {"_target_": target, "root": str(data_root / split), "num_workers": 16,
+                "image_channels": 3, "preprocess": preprocess, "load_size": [SIZE, SIZE],
+                "final_size": [SIZE, SIZE]}
+
+    return {
+        "train": {
+            "output_dir": str(out_dir), "cuda": True,
+            "n_iters": n_iters - n_iters // 2, "n_iters_decay": n_iters // 2,
+            "batch_size": batch, "mixed_precision": True, "seed": SEED + 1,
+            "logging": {"freq": log_freq,
+                        # Profiles the last `profiled` iterations.
+                        "profiler": {"start_iter": warm + timed, "end_iter": n_iters,
+                                     "output_dir": str(out_dir / "profile")}},
+            "checkpointing": {"freq": ckpt_freq, "load_iter": load_iter},
+            "dataset": dataset("train", targets["unpaired"], ["resize", "random_flip"]),
+            "gan": {
+                "_target_": "ganslate.nn.gans.unpaired.CycleGAN",
+                "generator": {"_target_": "ganslate.nn.generators.Resnet2D",
+                              "n_residual_blocks": 9, "in_out_channels": {"AB": [3, 3]}},
+                "discriminator": {"_target_": "ganslate.nn.discriminators.PatchGAN2D",
+                                  "n_layers": 3, "in_channels": {"B": 3}},
+                "optimizer": {"lambda_AB": 10.0, "lambda_BA": 10.0, "lambda_identity": 0,
+                              "proportion_ssim": 0, "lr_D": 0.0002, "lr_G": 0.0002},
+            },
+            "metrics": {"discriminator_evolution": True, "ssim": True},
+        },
+        "val": {"freq": val_freq,
+                "dataset": dataset("test", targets["paired"], ["resize"]),
+                "metrics": {"cycle_metrics": True, "fid": False}},
+        "test": {"checkpointing": {"load_iter": load_iter},
+                 "dataset": dataset("test", targets["paired"], ["resize"])},
+        "infer": {"checkpointing": {"load_iter": load_iter}, "is_deployment": False,
+                  "dataset": dataset("test", targets["unpaired"], ["resize"])},
+    }
+
+
+def engine(mode, raw, out_dir):
+    """The port's engine for `mode`, through `init_engine` from a YAML that
+    the port's own `Conf.to_yaml` wrote, where PyYAML (which parses it) is
+    installed; else the same engine class from the config built in Python."""
+    import importlib.util
+    from ganslate_tpu_torch.configs.config import Config
+    from ganslate_tpu_torch.configs.omega import Conf
+    from ganslate_tpu_torch.configs.utils import init_config
+    from ganslate_tpu_torch.engines.utils import init_engine
+    conf = init_config(Conf.create(raw), Config)
+    if importlib.util.find_spec("yaml"):
+        path = out_dir / f"{mode}_{time.perf_counter_ns()}.yaml"
+        path.write_text(conf.to_yaml())
+        return init_engine(mode, [f"config={path}"]), "init_engine"
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.engines.trainer import Trainer
+    from ganslate_tpu_torch.engines.validator_tester import Tester
+    return {"train": Trainer, "test": Tester, "infer": Inferer}[mode](conf), "engine_class"
+
+
+class Ranged:
+    """Calls `fn` inside a `torch.profiler.record_function(label)` range,
+    and hands its host time in seconds to `add(label, seconds)`."""
+
+    def __init__(self, fn, label, add):
+        self.fn, self.label, self.add = fn, label, add
+
+    def __call__(self, *args, **kwargs):
+        from torch.profiler import record_function
+        t0 = time.perf_counter()
+        with record_function(self.label):
+            out = self.fn(*args, **kwargs)
+        self.add(self.label, time.perf_counter() - t0)
+        return out
+
+
+def instrument_trainer(trainer):
+    """Per-iteration records of a Trainer's run: the iteration's start, the
+    tracker's t_data and t_comp, its kind (log, checkpoint, validation), the
+    host time of its ranges (`TRAINER_RANGES`; the loader wait that precedes
+    it counts to it), and the losses of log iterations. The ranges are also
+    named ranges of the profiler's trace."""
+    records = {}
+    current = {"ranges": {}}
+    conf = trainer.conf
+
+    def add(label, seconds):
+        ranges = current["ranges"]
+        ranges[label] = ranges.get(label, 0.0) + seconds
+
+    def batches(it):
+        wait = Ranged(lambda: next(it), "loader_wait", add)
+        while True:
+            try:
+                yield wait()
+            except StopIteration:
+                return
+
+    trainer._data_iter = batches(trainer._data_iter)
+    set_iter_idx = trainer._set_iter_idx
+
+    def start(i):
+        set_iter_idx(i)
+        wait = current["ranges"].pop("loader_wait", None)
+        records[i] = {"t0": time.perf_counter(), "ranges": {}}
+        if wait is not None:
+            records[i]["ranges"]["loader_wait"] = wait
+        current["ranges"] = records[i]["ranges"]
+
+    trainer._set_iter_idx = start
+    trainer.model.set_input = Ranged(trainer.model.set_input, "set_input", add)
+    trainer.model.optimize_parameters = Ranged(trainer.model.optimize_parameters, "step",
+                                               add)
+    log_iter = Ranged(trainer.tracker.log_iter, "tracker", add)
+
+    def log(lrs, losses, visuals, metrics):
+        i = trainer.iter_idx
+        rec = records[i]
+        rec["log"] = i % conf.train.logging.freq == 0
+        rec["checkpoint"] = i % conf.train.checkpointing.freq == 0
+        rec["validation"] = i % conf.val.freq == 0
+        rec["plain"] = not (rec["log"] or rec["checkpoint"] or rec["validation"])
+        if rec["log"]:
+            rec["losses"] = {k: float(v) for k, v in losses.items()}
+        log_iter(lrs, losses, visuals, metrics)
+        rec["t_data"], rec["t_comp"] = trainer.tracker.t_data, trainer.tracker.t_comp
+
+    trainer.tracker.log_iter = log
+    trainer._save_checkpoint = Ranged(trainer._save_checkpoint, "checkpoint", add)
+    trainer._run_validation = Ranged(trainer._run_validation, "validation", add)
+    return records
+
+
+def read_trace(out_dir):
+    """Device busy time, the window and the host ranges (ms) of the Chrome
+    trace that the Trainer's `logging.profiler` wrote to `out_dir`."""
+    traces = sorted(out_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"the Trainer's profiler wrote {len(traces)} traces to {out_dir}")
+    events = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -math.inf
+    for t0, t1 in device:                   # union of the device intervals
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    host = [e for e in events if e.get("cat") == "user_annotation"]
+    by_range = {}
+    for e in host:
+        if e["name"] in TRAINER_RANGES:
+            by_range[e["name"]] = by_range.get(e["name"], 0.0) + e["dur"] / 1e3
+    steps = [e for e in host if e["name"] == "step"]
+    starts = [e["ts"] for e in host if e["name"] in TRAINER_RANGES]
+    window = (max([t1 for _, t1 in device] + [e["ts"] + e["dur"] for e in host])
+              - min(starts)) if starts else 0.0
+    return {"trace": traces[0].name, "trace_bytes": traces[0].stat().st_size,
+            "window_ms": window / 1e3, "steps": len(steps),
+            "device_busy_ms": busy / 1e3 if device else "not measured",
+            "device_idle_share": 1 - busy / window if device and window else "not measured",
+            "host_ms_by_range": by_range,
+            "kernels": sum(1 for e in events if e.get("cat") == "kernel")}
+
+
+def _ms_stats(values):
+    values = sorted(values)
+    return {"mean": statistics.fmean(values) * 1e3,
+            "p90": values[min(len(values) - 1, int(0.9 * len(values)))] * 1e3}
+
+
+def train_from_config(root, data_root, kind, batch):
+    """One Trainer run at `batch`, from `init_engine("train")` to `run()`'s
+    end; returns its norm launches, its last checkpoint's iteration and its
+    output directory."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    warm, timed, profiled, log_freq, ckpt_freq, val_freq = TRAINER_RUNS[batch]
+    n_iters = warm + timed + profiled
+    out_dir = root / f"batch{batch}"
+    t_build = time.perf_counter()
+    raw = trainer_raw(out_dir, data_root, kind, batch)
+    trainer, entry = engine("train", raw, root)
+    build_s = time.perf_counter() - t_build
+    records = instrument_trainer(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(inorm.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(sorted(records) == list(range(1, n_iters + 1)), f"iterations run: {sorted(records)}")
+    starts = [records[i]["t0"] for i in range(1, n_iters + 1)] + [t_end]
+    for i in range(1, n_iters + 1):
+        records[i]["ms"] = (starts[i] - starts[i - 1]) * 1e3
+    timed_iters = range(warm + 1, warm + timed + 1)
+    span_s = starts[warm + timed] - starts[warm]
+    plain_iters = [i for i in timed_iters if records[i]["plain"]]
+    plain = [records[i]["ms"] for i in plain_iters]
+    logged = [records[i] for i in range(1, n_iters + 1) if records[i]["log"]]
+    finite = all(math.isfinite(v) for r in logged for v in r["losses"].values())
+    ckpt_dir = out_dir / "checkpoints"
+    ckpts = sorted(int(p.stem) for p in ckpt_dir.glob("*.pth"))
+    sidecars = sorted(int(p.stem.split("_")[-1]) for p in ckpt_dir.glob("data_state_*.json"))
+    # Launches: every train step's, and two G forwards (fake_B, then its
+    # cycle) of each validation batch.
+    val_runs = n_iters // val_freq
+    n_val_batches = -(-TRAINER_TEST_IMAGES // batch)
+    want = {k: n_iters * TRAIN_LAUNCHES[k] + val_runs * n_val_batches * 2 * G_LAUNCHES[k]
+            for k in TRAIN_LAUNCHES}
+    profile = read_trace(out_dir / "profile")
+    rec = {"phase": "trainer_run", "batch": batch, "entry": entry, "dataset": kind,
+           "cuts": {"from": TRAINER_YAML_LENGTHS, "left_out": TRAINER_LEFT_OUT,
+                    "to": {"n_iters": raw["train"]["n_iters"],
+                           "n_iters_decay": raw["train"]["n_iters_decay"],
+                           "logging.freq": log_freq, "checkpointing.freq": ckpt_freq,
+                           "val.freq": val_freq}},
+           "build_s": build_s, "run_s": t_end - t0,
+           "iterations": n_iters, "timed_iterations": [timed_iters.start, timed_iters.stop - 1],
+           "timed_wall_s": span_s, "images_per_s": timed * batch / span_s,
+           "t_data_ms": _ms_stats([records[i]["t_data"] for i in timed_iters]),
+           "t_comp_ms_per_image": _ms_stats([records[i]["t_comp"] for i in timed_iters]),
+           "t_comp_ms_per_image_log_iterations": [records[i]["t_comp"] * 1e3 for i in
+                                                  timed_iters if records[i]["log"]],
+           "plain_iteration_ms": {"median": statistics.median(plain), "n": len(plain),
+                                  **_ms_stats([p / 1e3 for p in plain])},
+           "log_iteration_ms": {i: records[i]["ms"] for i in timed_iters if records[i]["log"]},
+           "checkpoint_iteration_ms": {i: records[i]["ms"] for i in timed_iters
+                                       if records[i]["checkpoint"]},
+           "validation_iteration_ms": {i: records[i]["ms"] for i in timed_iters
+                                       if records[i]["validation"]},
+           "plain_host_ranges_ms": {r: statistics.fmean(records[i]["ranges"].get(r, 0.0)
+                                                        for i in plain_iters) * 1e3
+                                    for r in TRAINER_RANGES},
+           "host_ranges_ms": {i: {r: v * 1e3 for r, v in records[i]["ranges"].items()}
+                              for i in timed_iters if not records[i]["plain"]},
+           "peak_memory_bytes": peak, "peak_memory_gib": peak / 2 ** 30,
+           "losses_at_logs": {i: records[i]["losses"] for i in range(1, n_iters + 1)
+                              if records[i]["log"]},
+           "checkpoints": ckpts, "data_state_sidecars": sidecars,
+           "launches": launches, "launches_expected": want,
+           "profile": {"iterations": [warm + timed + 1, n_iters], **profile}}
+    emit(rec)
+    check(finite and logged, f"a logged loss is not finite: {rec['losses_at_logs']}")
+    want_ckpts = [i for i in range(1, n_iters + 1) if i % ckpt_freq == 0]
+    check(ckpts == want_ckpts and sidecars == want_ckpts, rec)
+    state = json.loads((ckpt_dir / f"data_state_{ckpts[-1]}.json").read_text())
+    check(state["position"] == ckpts[-1] * batch and state["world_size"] == 1, state)
+    check((out_dir / "train" / "train_config.yaml").is_file(), "no train_config.yaml")
+    check(len(list((out_dir / "train" / "images").glob("*.png"))) == n_iters // log_freq,
+          "the training tracker's PNGs")
+    check(len(list((out_dir / "val" / "images").rglob("*.png"))) == val_runs
+          * TRAINER_TEST_IMAGES, "the validator's PNGs")
+    check(launches == want, f"norm launches {launches}, expected {want}")
+    check(profile["steps"] == profiled, f"the profile holds {profile['steps']} steps")
+    # The wrappers above make reference cycles through the engine: collect
+    # them, so that its model and optimizers leave the device now and do
+    # not count in a later phase's peak memory.
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ckpts[-1], out_dir
+
+
+def serve_from_checkpoint(root, data_root, kind, out_dir, load_iter):
+    """`Inferer.run()` and the `Tester` from the batch-1 run's last
+    checkpoint; `Inferer.run()` again with the plain norms."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    raw = trainer_raw(out_dir, data_root, kind, 1, load_iter=load_iter)
+    launches = {}
+
+    def run_infer():
+        inferer, entry = engine("infer", raw, root)
+        outputs = []
+        save = inferer.save_generated_tensor
+
+        def keep(generated_tensor, **kwargs):
+            outputs.append(np.array(generated_tensor))
+            return save(generated_tensor=generated_tensor, **kwargs)
+
+        inferer.save_generated_tensor = keep
+        t0 = time.perf_counter()
+        inferer.run()
+        return np.concatenate(outputs), time.perf_counter() - t0, entry
+
+    inorm.reset_launches()
+    out, infer_s, entry = run_infer()
+    launches["infer"] = dict(inorm.LAUNCHES)
+    with plain_norms():
+        inorm.reset_launches()
+        ref, _, _ = run_infer()
+        check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+    err = np.abs(out - ref)
+    rec = {"phase": "trainer_infer", "entry": entry, "load_iter": load_iter,
+           "shape": list(out.shape), "dtype": str(out.dtype), "run_s": infer_s,
+           "out_min": float(out.min()), "out_max": float(out.max()),
+           "max_abs_err_vs_plain": float(err.max()), "mean_abs_err_vs_plain": float(err.mean()),
+           "tol": {"max": SLICE_BF16_MAX, "mean": SLICE_BF16_MEAN},
+           "launches": launches["infer"]}
+    emit(rec)
+    check(out.shape == (TRAINER_TEST_IMAGES, SIZE, SIZE, 3) and out.dtype == np.float32, rec)
+    check(bool(np.isfinite(out).all()) and -1 <= rec["out_min"] <= rec["out_max"] <= 1, rec)
+    check(rec["max_abs_err_vs_plain"] <= SLICE_BF16_MAX, rec)
+    check(rec["mean_abs_err_vs_plain"] <= SLICE_BF16_MEAN, rec)
+    check(launches["infer"] == {k: TRAINER_TEST_IMAGES * v for k, v in G_LAUNCHES.items()},
+          rec)
+
+    inorm.reset_launches()
+    tester, entry = engine("test", raw, root)
+    metrics = {}
+    log_samples = tester.tracker.log_samples
+
+    def keep_metrics(*args, **kwargs):
+        for m in tester.tracker.metrics:
+            for name, values in m.items():
+                metrics.setdefault(name, []).extend(values)
+        return log_samples(*args, **kwargs)
+
+    tester.tracker.log_samples = keep_metrics
+    tester.run()
+    launches["test"] = dict(inorm.LAUNCHES)
+    csv_rows = (out_dir / "test" / "metrics.csv").read_text().splitlines()
+    rec = {"phase": "trainer_test", "entry": entry, "load_iter": load_iter,
+           "metrics_mean": {k: statistics.fmean(v) for k, v in metrics.items()},
+           "csv_rows": len(csv_rows) - 1, "launches": launches["test"]}
+    emit(rec)
+    check(all(len(v) == TRAINER_TEST_IMAGES and all(math.isfinite(x) for x in v)
+              for v in metrics.values()) and metrics, rec)
+    check(rec["csv_rows"] == TRAINER_TEST_IMAGES, rec)
+    del tester
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def trainer_phase(root):
+    """Phase 6b; returns the norm launches of its runs."""
+    import importlib.util
+    import torch
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    kind = "image_folder" if importlib.util.find_spec("PIL") else "synthetic_no_pillow"
+    data_root = root / "data"
+    write_trainer_data(data_root, kind)
+    emit({"phase": "trainer_data", "dataset": kind, "seconds": time.perf_counter() - t0,
+          "train_images_per_domain": TRAINER_IMAGES, "test_pairs": TRAINER_TEST_IMAGES})
+    totals = {"onepass": 0, "split": 0}
+    last = None
+    for batch in TRAINER_RUNS:
+        launches, load_iter, out_dir = train_from_config(root, data_root, kind, batch)
+        for k, v in launches.items():
+            totals[k] += v
+        if last is None:
+            last = (out_dir, load_iter)
+    for launches in serve_from_checkpoint(root, data_root, kind, *last).values():
+        for k, v in launches.items():
+            totals[k] += v
+    left = torch.cuda.memory_allocated() - allocated
+    emit({"phase": "trainer_summary", "seconds": time.perf_counter() - t0,
+          "launches_total": totals, "device_bytes_left_allocated": left})
+    check(left < 2 ** 28, f"the trainer phase left {left} bytes allocated on the device")
     return totals
 
 
@@ -1547,6 +2068,11 @@ def main() -> int:
     phase_done("train")
 
     with tempfile.TemporaryDirectory() as tmp:
+        trainer_totals = trainer_phase(Path(tmp))
+    torch.cuda.empty_cache()
+    phase_done("trainer")
+
+    with tempfile.TemporaryDirectory() as tmp:
         sw_totals = sliding_window_phase(Path(tmp), bf16_peak)
     phase_done("sliding_window")
     emit({"phase": "phase_seconds", **seconds})
@@ -1557,8 +2083,9 @@ def main() -> int:
         s = summary[name]
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
+        check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
         check(sw_totals[name] > 0, f"the sliding-window requests never launched {name}")
-        totals[name] += train_totals[name] + sw_totals[name]
+        totals[name] += train_totals[name] + trainer_totals[name] + sw_totals[name]
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
                         "replaces": replaces, "launches": totals[name], **s})

@@ -5,11 +5,13 @@ imports nothing of `ganslate_tpu` (and no JAX): the configs, builders and
 engines it needs are its own copies, and the JAX package's Pallas kernels are
 hand-written CUDA kernels here (`csrc/`, bound in `ops/`).
 
-Ported so far: the CycleGAN train step through the model's entry points
-(`utils.builders.build_gan(conf)`, `setup`, `set_input`,
-`optimize_parameters`, `save_checkpoint`), and serving its ResNet generator
-through the deployment `Inferer`
-(`engines.utils.init_engine("infer", [..., "infer.is_deployment=true"])`).
+Ported so far: training a CycleGAN from an experiment YAML through the
+engines (`engines.utils.init_engine("train", ["config=<yaml>"]).run()`: the
+host data plane, the trackers, checkpoints with their data-state sidecar,
+periodic validation), testing and inference over a dataset
+(`init_engine("test" | "infer", ...).run()`), and serving a generator
+through the deployment `Inferer` (`infer.is_deployment=true`), directly or
+through the sliding window.
 """
 
 __version__ = "0.1.0"

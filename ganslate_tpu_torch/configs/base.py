@@ -8,7 +8,8 @@ and the original ganslate, so experiment files stay compatible:
 - ``mixed_precision`` -> bfloat16 compute policy: parameters and inputs are
   cast to bf16 for the forward, instance-norm statistics stay fp32.
 - ``opt_level`` -> accepted for compatibility.
-- ``pin_memory``/``num_workers`` -> host data-plane knobs.
+- ``pin_memory``/``num_workers`` -> the host loader's prefetch depth and
+  worker threads.
 """
 
 from dataclasses import dataclass, field
@@ -25,8 +26,8 @@ class BaseDatasetConfig:
     root: str = MISSING
     # Host-side prefetch worker threads (reference: DataLoader workers).
     num_workers: int = 4
-    # Kept for YAML compatibility (host->device transfer of prefetched
-    # batches).
+    # The loader's prefetch depth, as in the JAX package: 2 ready batches
+    # when true, 1 when false. Host buffers are not pinned.
     pin_memory: bool = True
 
 

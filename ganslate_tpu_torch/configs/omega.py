@@ -14,15 +14,18 @@ It implements the subset of OmegaConf the framework needs:
 - ``MISSING`` ("???") values that raise on access
 - attribute + item access, ``select``, ``to_yaml``, ``to_container``
 
-PyYAML is imported only by the functions that parse or emit YAML, so a
-config built in Python (``Conf.create`` + ``init_config``) and the serving
-path work on machines without it.
+PyYAML is imported only by the functions that parse YAML; ``to_yaml`` has
+its own emitter. So a config built in Python (``Conf.create`` +
+``init_config``), its dump, and the training and serving paths work on
+machines without PyYAML.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import json
+import math
 import re
 import typing
 from typing import Any, Dict, List, Optional, Union
@@ -342,15 +345,98 @@ class Conf:
             if _is_interp(node):
                 try:
                     view = Conf(root._data)
-                    return view._resolve_interp(node, path)
+                    value = view._resolve_interp(node, path)
                 except (InterpolationResolutionError, MissingMandatoryValue):
                     return node
+                # An interpolation of a subtree resolves to a view of it.
+                return value.to_container() if isinstance(value, (Conf, ConfList)) else value
         return node
 
     def to_yaml(self, resolve: bool = False) -> str:
-        import yaml
-        return yaml.safe_dump(self.to_container(resolve=resolve),
-                              default_flow_style=False, sort_keys=False)
+        """The tree as block-style YAML, from the port's own emitter (no
+        PyYAML): every string double-quoted as JSON quotes it, which YAML
+        reads back."""
+        return _emit_yaml(self.to_container(resolve=resolve))
+
+
+# Plain keys (left unquoted): identifiers that YAML does not read as a bool
+# or null.
+_PLAIN_KEY_RE = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+_YAML_WORDS = {"y", "n", "yes", "no", "on", "off", "true", "false", "null"}
+
+
+def _yaml_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        # YAML 1.1 floats have a dot: 1e-05 -> 1.0e-05.
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(value, str):
+        text = json.dumps(value, ensure_ascii=False)
+        # JSON escapes the C0 controls; YAML also wants the other
+        # non-printable characters escaped.
+        return "".join(c if c.isprintable() else
+                       f"\\u{ord(c):04x}" if ord(c) < 0x10000 else f"\\U{ord(c):08x}"
+                       for c in text)
+    raise TypeError(f"cannot emit a {type(value).__name__} as a YAML scalar: {value!r}")
+
+
+def _yaml_key(key: Any) -> str:
+    if isinstance(key, str) and _PLAIN_KEY_RE.fullmatch(key) and key.lower() not in _YAML_WORDS:
+        return key
+    return _yaml_scalar(key)
+
+
+def _yaml_block(node: Any) -> bool:
+    return isinstance(node, (dict, list)) and len(node) > 0
+
+
+def _yaml_lines(node: Any, indent: int) -> List[str]:
+    pad = " " * indent
+    lines = []
+    if isinstance(node, dict):
+        for key, value in node.items():
+            if _yaml_block(value):
+                lines.append(f"{pad}{_yaml_key(key)}:")
+                lines.extend(_yaml_lines(value, indent + 2))
+            else:
+                lines.append(f"{pad}{_yaml_key(key)}: {_yaml_flow(value)}")
+    else:
+        for item in node:
+            if _yaml_block(item):
+                sub = _yaml_lines(item, indent + 2)
+                lines.append(f"{pad}- {sub[0][indent + 2:]}")
+                lines.extend(sub[1:])
+            else:
+                lines.append(f"{pad}- {_yaml_flow(item)}")
+    return lines
+
+
+def _yaml_flow(value: Any) -> str:
+    """A scalar, or an empty container."""
+    if isinstance(value, dict):
+        return "{}"
+    if isinstance(value, list):
+        return "[]"
+    return _yaml_scalar(value)
+
+
+def _emit_yaml(tree: Any) -> str:
+    """Block-style YAML of a tree of dicts, lists and scalars."""
+    if not _yaml_block(tree):
+        return _yaml_flow(tree) + "\n"
+    return "\n".join(_yaml_lines(tree, 0)) + "\n"
 
 
 class ConfList:

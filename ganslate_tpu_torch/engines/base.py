@@ -1,6 +1,8 @@
 """Engine bases: mode isolation and the shared inference path (the JAX
 package's `ganslate_tpu/engines/base.py`): the direct forward, or the
-sliding window when the mode's config sets `sliding_window`."""
+sliding window when the mode's config sets `sliding_window`; and the
+dispatch of outputs to the dataset's `save()` hook, with each sample's
+metadata."""
 
 import copy
 import logging
@@ -10,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ganslate_tpu_torch.utils.io import decollate
 from ganslate_tpu_torch.utils.sliding_window_inferer import SlidingWindowInferer
 
 logger = logging.getLogger(__name__)
@@ -21,6 +24,8 @@ class BaseEngine(ABC):
         # Deep copy isolates this engine's conf.mode from other engines.
         self.conf = copy.deepcopy(conf)
         self._set_mode()
+        if self.conf.get(self.conf.mode) is None:
+            raise ValueError(f"The config has no `{self.conf.mode}` section.")
 
         self.output_dir = Path(conf[conf.mode].output_dir) / self.conf.mode
         self.model = None
@@ -91,3 +96,30 @@ class BaseEngineWithInference(BaseEngine):
             return None
         return SlidingWindowInferer(roi_size=tuple(sw.window_size), sw_batch_size=sw.batch_size,
                                     overlap=sw.overlap, mode=sw.mode, cval=-1.0)
+
+    def save_generated_tensor(self, generated_tensor, metadata, data_loader,
+                              idx=None, dataset_name=None):
+        """Hand each output sample to the dataset's `save()`, when it has
+        one, with the sample's metadata, under
+        `<output_dir>/<mode>/saved/[<dataset_name>/][<idx>/]`."""
+        save_fn = getattr(data_loader.dataset, "save", False)
+        if not save_fn:
+            return
+
+        save_dir = "saved/"
+        if dataset_name is not None:
+            save_dir += f"{dataset_name}/"
+        if idx is not None:
+            save_dir += f"{idx}/"
+        save_dir = self.output_dir / save_dir
+
+        if metadata:
+            metadata = decollate(metadata, batch_size=len(generated_tensor))
+
+        generated_tensor = np.asarray(generated_tensor)
+        for batch_idx in range(len(generated_tensor)):
+            if metadata:
+                save_fn(tensor=generated_tensor[batch_idx], save_dir=save_dir,
+                        metadata=metadata[batch_idx])
+            else:
+                save_fn(tensor=generated_tensor[batch_idx], save_dir=save_dir)

@@ -4,14 +4,14 @@ from ganslate_tpu_torch.utils.builders import build_conf
 
 
 def init_engine(mode, dotlist_args):
-    """`init_engine("infer", ["config=<yaml>", "infer.is_deployment=true"])`.
-    The train and test engines come with later port steps."""
+    """`init_engine("train" | "test" | "infer", ["config=<yaml>", "a.b=c", ...])`."""
     from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.engines.trainer import Trainer
+    from ganslate_tpu_torch.engines.validator_tester import Tester
 
-    if mode in ("train", "test"):
-        raise NotImplementedError(f"The `{mode}` engine is not ported yet.")
-    engines = {"infer": Inferer}
-    assert mode in engines, f"unknown engine mode `{mode}`"
+    engines = {"train": Trainer, "test": Tester, "infer": Inferer}
+    if mode not in engines:
+        raise ValueError(f"unknown engine mode `{mode}`; one of {sorted(engines)}")
 
     conf = build_conf(dotlist_args)
     return engines[mode](conf)

@@ -237,9 +237,18 @@ class BaseGAN(ABC):
 
     @staticmethod
     def _batch_fusable(module) -> bool:
-        """A module that declares a per-sample `norm_type` (not batch norm)
-        treats each sample alone."""
-        return getattr(module, "norm_type", None) not in (None, "batch")
+        """May several same-shaped batches run through `module` as one
+        concatenated batch and give the same numbers? A module's boolean
+        `batch_fusable` decides when it declares one. Otherwise, yes for a
+        module that declares a per-sample `norm_type` (not batch norm) and
+        has no dropout (`use_dropout`) and no per-call random draws
+        (`stochastic_rngs`), as in the JAX package."""
+        declared = getattr(module, "batch_fusable", None)
+        if declared is not None:
+            return bool(declared)
+        return (getattr(module, "norm_type", None) not in (None, "batch")
+                and not getattr(module, "use_dropout", False)
+                and not getattr(module, "stochastic_rngs", ()))
 
     @contextlib.contextmanager
     def frozen(self, names: Sequence[str]):
@@ -260,15 +269,23 @@ class BaseGAN(ABC):
         self._batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
                        if hasattr(v, "shape")}
 
-    def optimize_parameters(self):
+    def optimize_parameters(self, sync: bool = False):
         """One train step: the learning rates of this update, `train_step`,
-        and a fresh serving copy for the next `infer`."""
+        and a fresh serving copy for the next `infer`. The GPU runs the step
+        after this returns; `sync=True` waits for it, so that a timer around
+        the call reads device time (the Trainer's log iterations)."""
         for group, optimizer in self.optimizers.items():
             lr = self.lr_schedules[group](self._update_count(optimizer))
             for param_group in optimizer.param_groups:
                 param_group["lr"] = lr
         self.losses, self.visuals, self.metrics = self.train_step()
         self._serving.clear()
+        if sync and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def update_learning_rate(self):
+        """No-op: `optimize_parameters` sets each update's rate from the
+        schedule, as the JAX package's optax chain does."""
 
     def get_learning_rates(self) -> Dict[str, float]:
         """The rate of each group's last update (of its first, before any)."""
@@ -276,9 +293,11 @@ class BaseGAN(ABC):
                 for group, optimizer in self.optimizers.items()}
 
     def get_loggable_data(self):
-        """Learning rates, losses, visuals (fp32) and metrics of the last step."""
-        visuals = {k: v.float() for k, v in self.visuals.items()}
-        return self.get_learning_rates(), self.losses, visuals, self.metrics
+        """Learning rates, and the losses, visuals and metrics of the last
+        step as device tensors (visuals in the compute dtype). A reader
+        copies what it logs to the host (the training tracker, on its log
+        iterations), so that the other iterations add no device work."""
+        return self.get_learning_rates(), self.losses, self.visuals, self.metrics
 
     # ------------------------------------------------------------ inference
 

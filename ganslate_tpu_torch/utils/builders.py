@@ -1,7 +1,7 @@
-"""Builders: config -> GAN / networks (the JAX package's `utils/builders.py`).
+"""Builders: config -> loader / GAN / networks (the JAX package's
+`utils/builders.py`)."""
 
-`build_loader` arrives with the data-plane slice.
-"""
+import copy
 
 import torch
 
@@ -19,6 +19,48 @@ def build_conf(dotlist_args):
     yaml_conf = cli.pop("config")
     conf = init_config(yaml_conf, config_class=Config)
     return Conf.merge(conf, cli)
+
+
+def build_loader(conf):
+    """The mode's data loader, or a dict of loaders by name when the mode
+    sets `multi_dataset` (val/test). Train mode draws from an
+    `InfiniteSampler`, other modes pass over the dataset once in order."""
+    from ganslate_tpu_torch.data.loaders import DataLoader
+    from ganslate_tpu_torch.data.samplers import InfiniteSampler, SequentialShardSampler
+    from ganslate_tpu_torch.utils import communication
+
+    mode_conf = conf[conf.mode]
+
+    if "multi_dataset" in mode_conf and mode_conf.multi_dataset is not None:
+        if mode_conf.dataset is not None:
+            raise ValueError("Use either `dataset` or `multi_dataset`.")
+        loaders = {}
+        for dataset_name in mode_conf.multi_dataset.keys():
+            current_conf = copy.deepcopy(conf)
+            current_conf[conf.mode].dataset = mode_conf.multi_dataset[dataset_name]
+            current_conf[conf.mode].multi_dataset = None
+            loaders[dataset_name] = build_loader(current_conf)
+        return loaders
+
+    dataset_class = import_attr(mode_conf.dataset._target_)
+    dataset = dataset_class(conf)
+
+    global_batch_size = mode_conf.batch_size
+    if conf.mode == "train" and global_batch_size > len(dataset):
+        raise RuntimeError(
+            f"Dataset has {len(dataset)} examples but the global batch size is "
+            f"{global_batch_size}; training would repeat samples within a batch.")
+
+    if conf.mode == "train":
+        sampler = InfiniteSampler(size=len(dataset), shuffle=True)
+    else:
+        sampler = SequentialShardSampler(size=len(dataset), shard=communication.get_rank(),
+                                         num_shards=communication.get_world_size())
+
+    return DataLoader(dataset, sampler=sampler, batch_size=global_batch_size,
+                      num_workers=mode_conf.dataset.num_workers,
+                      prefetch=2 if mode_conf.dataset.pin_memory else 0,
+                      drop_last=(conf.mode == "train"))
 
 
 def build_gan(conf):

@@ -1,4 +1,5 @@
-"""Dynamic imports and batch decollation (the JAX package's `utils/io.py`).
+"""File discovery, dynamic imports and batch decollation (the JAX package's
+`utils/io.py`).
 
 `import_attr` resolves the `_target_` strings of experiment YAMLs. Both the
 original package name (``ganslate.``) and the JAX package's
@@ -9,6 +10,7 @@ fails with the import error that names it.
 
 import collections.abc
 import importlib
+from pathlib import Path
 
 import numpy as np
 
@@ -17,6 +19,32 @@ _IMPORT_ALIASES = {
     "ganslate.": "ganslate_tpu_torch.",
     "ganslate_tpu.": "ganslate_tpu_torch.",
 }
+
+
+def mkdirs(*paths):
+    for path in paths:
+        Path(path).mkdir(parents=True, exist_ok=True)
+
+
+def make_dataset_of_files(root, extensions):
+    """The sorted files directly under `root` with one of `extensions`."""
+    root = Path(root).resolve()
+    if not root.is_dir():
+        raise NotADirectoryError(f"{root} is not a valid directory")
+    return sorted(root / f for f in root.iterdir() if has_extension(f, extensions))
+
+
+def make_recursive_dataset_of_files(root, extensions):
+    root = Path(root).resolve()
+    if not root.is_dir():
+        raise NotADirectoryError(f"{root} is not a valid directory")
+    return sorted(path for ext in extensions for path in root.rglob(f"*{ext}"))
+
+
+def has_extension(file, extensions):
+    # Joined suffixes, so that multi-part extensions like ".nii.gz" match.
+    suffix = "".join(Path(file).suffixes)
+    return any(ext in suffix for ext in extensions)
 
 
 def import_attr(module_attr: str):

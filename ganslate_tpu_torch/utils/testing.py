@@ -1,6 +1,7 @@
 """Programmatic experiment configs (the JAX package's `utils/testing.py`),
-built in Python, since a machine may lack PyYAML. They name no dataset: the
-data plane is not ported.
+built in Python, for driving the model's entry points without a YAML. They
+name no dataset: the engines' dataset-driven runs take a YAML (or a config
+built with `Conf.create` + `init_config`, as `chip_smoke.py` does).
 
 - `make_cyclegan_conf`: training the horse2zebra CycleGAN
   (`projects/horse2zebra/experiments/default.yaml`: Resnet2D with 9

@@ -48,6 +48,17 @@ def test_port_imports_no_jax_and_no_jax_package():
             "ganslate_tpu_torch.nn.generators.vnet.vnet2d",
             "ganslate_tpu_torch.nn.generators.vnet.vnet3d",
             "ganslate_tpu_torch.utils.sliding_window_inferer"} <= names
+    # The data plane, the engines and the trackers.
+    assert {f"ganslate_tpu_torch.{m}" for m in (
+        "data", "data.samplers", "data.loaders", "data.image_folder",
+        "data.unpaired_image_dataset", "data.paired_image_dataset",
+        "data.utils.transforms", "data.utils.normalization",
+        "engines.trainer", "engines.validator_tester", "engines.inferer",
+        "utils.trackers.base", "utils.trackers.utils", "utils.trackers.training",
+        "utils.trackers.inference", "utils.trackers.validation_testing",
+        "utils.trackers.wandb", "utils.trackers.tensorboard",
+        "utils.environment", "utils.summary", "utils.csv_saver",
+        "utils.metrics.val_test_metrics")} <= names
 
 
 _FORBIDDEN = re.compile(
@@ -57,6 +68,11 @@ _FORBIDDEN = re.compile(
 
 def test_port_sources_import_nothing_of_jax():
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scanned = {str(p.relative_to(PORT)) for p in sources if p.is_relative_to(PORT)}
+    assert {"data/loaders.py", "data/image_folder.py", "data/utils/transforms.py",
+            "engines/trainer.py", "engines/validator_tester.py",
+            "utils/trackers/base.py", "utils/trackers/training.py",
+            "utils/environment.py", "utils/summary.py"} <= scanned
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders
@@ -132,7 +148,7 @@ def test_import_attr_aliases_to_the_port(prefix):
 
 @pytest.mark.parametrize("target, missing", [
     ("ganslate.nn.discriminators.PatchGAN3D", "PatchGAN3D"),
-    ("ganslate.data.UnpairedImageDataset", "ganslate_tpu_torch.data"),
+    ("ganslate.nn.gans.paired.Pix2PixConditionalGAN", "ganslate_tpu_torch.nn.gans.paired"),
     ("ganslate.nn.generators.Piresnet3D", "Piresnet3D"),
 ])
 def test_import_attr_names_what_the_port_lacks(target, missing):
@@ -148,9 +164,23 @@ def test_import_attr_resolves_the_vnets(name):
     assert import_attr(f"ganslate.nn.generators.{name}") is getattr(generators, name)
 
 
+@pytest.mark.parametrize("name", ("UnpairedImageDataset", "UnpairedImageDatasetConfig",
+                                  "PairedImageDataset", "PairedImageDatasetConfig"))
+def test_import_attr_resolves_the_data_plane(name):
+    """The horse2zebra experiment's `_target_: ganslate.data.*` datasets
+    resolve to the port's."""
+    from ganslate_tpu_torch import data
+    assert import_attr(f"ganslate.data.{name}") is getattr(data, name)
+
+
 def test_horse2zebra_yaml_waits_for_the_data_plane(monkeypatch):
-    """The headline YAML names dataset and discriminator classes that the
-    port does not have yet; loading it fails on the first of them."""
+    """The headline YAML loads in the port now that the data plane is in:
+    its train, val and infer datasets resolve to the port's classes, with
+    their config schemas' defaults."""
+    from ganslate_tpu_torch.data import PairedImageDataset, UnpairedImageDataset
     monkeypatch.chdir(REPO)
-    with pytest.raises(ImportError, match="ganslate_tpu_torch.(data|nn.discriminators)"):
-        init_config("projects/horse2zebra/experiments/default.yaml", Config)
+    conf = init_config("projects/horse2zebra/experiments/default.yaml", Config)
+    assert import_attr(conf.train.dataset._target_) is UnpairedImageDataset
+    assert import_attr(conf.val.dataset._target_) is PairedImageDataset
+    assert import_attr(conf.infer.dataset._target_) is UnpairedImageDataset
+    assert conf.train.dataset.pin_memory is True and conf.val.dataset.num_workers == 16

@@ -7,6 +7,8 @@ checkpoint holding JAX-initialised `G_AB` parameters, served through
 The JAX side runs at module level (`jax.jit(module.apply)`), because its
 infer engine needs an orbax checkpoint."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import yaml
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 import torch
 
 from ganslate_tpu.nn.generators.resnet.resnet2d import Resnet2D as JaxResnet2D
+from ganslate_tpu_torch.configs.omega import MissingMandatoryValue
 from ganslate_tpu_torch.engines.utils import init_engine
 from ganslate_tpu_torch.nn.generators import Resnet2D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
@@ -168,10 +171,53 @@ def test_serving_copy_is_bf16_and_masters_stay_fp32(experiment):
                for p in model._serving_network("G_AB").parameters())
 
 
-def test_run_waits_for_the_data_plane(experiment):
-    inferer = init_engine("infer", [f"config={experiment()}", "infer.is_deployment=false"])
-    with pytest.raises(NotImplementedError, match="data plane"):
-        inferer.run()
+def _save_orbax(out_dir, params):
+    """The same `G_AB` as the `.pth`, as the JAX package's checkpoint
+    (`checkpoints/<iter>/`), which its Inferer reads."""
+    import orbax.checkpoint as ocp
+    path = (out_dir / "checkpoints" / str(LOAD_ITER)).resolve()
+    with ocp.StandardCheckpointer() as ckptr:
+        ckptr.save(path, {"params": {"G_AB": params}}, force=True)
+
+
+def _run_outputs(inferer):
+    """`run()`, and the outputs it handed to the dataset's save hook."""
+    outputs = []
+    inferer.save_generated_tensor = lambda generated_tensor, **kw: outputs.append(
+        np.asarray(generated_tensor))
+    inferer.run()
+    return outputs
+
+
+def test_run_waits_for_the_data_plane(experiment, jax_params, tmp_path):
+    """`run()` over a folder of images (the data plane) gives JAX
+    `Inferer.run()`'s outputs at fp32; a deployment engine does not run."""
+    from PIL import Image
+
+    from ganslate_tpu.engines.utils import init_engine as jax_init_engine
+    rng = np.random.default_rng(6)
+    for domain in ("A", "B"):
+        (tmp_path / domain).mkdir()
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)).save(
+                tmp_path / domain / f"{i}.png")
+    dataset = {"_target_": "ganslate.data.UnpairedImageDataset", "root": str(tmp_path),
+               "num_workers": 2, "preprocess": ["resize"], "load_size": [SIZE, SIZE],
+               "final_size": [SIZE, SIZE]}
+    config = experiment(mixed_precision=False, wire_dtype="float32", is_deployment=False,
+                        batch_size=2, dataset=dataset)
+    out_dir = Path(yaml.safe_load(Path(config).read_text())["train"]["output_dir"])
+    _save_orbax(out_dir, jax_params)
+
+    got = _run_outputs(init_engine("infer", [f"config={config}"]))
+    want = _run_outputs(jax_init_engine("infer", [f"config={config}"]))
+    assert [o.shape for o in got] == [o.shape for o in want] == \
+        [(2, SIZE, SIZE, 3), (1, SIZE, SIZE, 3)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        np.testing.assert_allclose(g, w, atol=FP32_ATOL, rtol=0)
+    assert len(list((out_dir / "infer" / "images").glob("*.png"))) == 3
+
     deployed = init_engine("infer", [f"config={experiment()}", "infer.is_deployment=true"])
     with pytest.raises(AssertionError):
         deployed.run()
@@ -226,7 +272,10 @@ def test_vnet_slice_sections_serve(experiment, jax_params, section):
 
 @pytest.mark.parametrize("mode", ("train", "test"))
 def test_other_engines_raise(experiment, mode):
-    with pytest.raises(NotImplementedError):
+    """The train engine needs a dataset and the test engine a `test`
+    section, which the deployment config does not have."""
+    with pytest.raises(MissingMandatoryValue if mode == "train" else ValueError,
+                       match="dataset" if mode == "train" else "no `test` section"):
         init_engine(mode, [f"config={experiment()}"])
 
 

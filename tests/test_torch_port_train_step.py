@@ -43,6 +43,7 @@ from ganslate_tpu_torch.engines.inferer import Inferer
 from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.testing import make_cyclegan_conf
+from ganslate_tpu_torch.utils.trackers.utils import to_numpy
 
 BATCH, SIZE = 2, 32
 SMALL = dict(n_residual_blocks=1, ngf=8, ndf=8, n_layers_D=2, pool_size=0, seed=3)
@@ -212,7 +213,11 @@ def test_bf16_step_with_identity_and_ssim_matches_jax(tmp_path):
     for net in port_model.networks.values():
         assert all(p.dtype == torch.float32 for p in net.parameters())
     assert port_model.visuals["fake_B"].dtype == torch.bfloat16
-    assert port_model.get_loggable_data()[2]["fake_B"].dtype == torch.float32
+    # The loggable visuals stay bf16 on the device; the tracker reads them
+    # to the host as fp32.
+    visual = port_model.get_loggable_data()[2]["fake_B"]
+    assert visual.dtype == torch.bfloat16
+    assert to_numpy(visual).dtype == np.float32
 
 
 # ------------------------------------------------------------ port only

@@ -1,5 +1,6 @@
 """The port's image pool (`data/utils/image_pool.py`) and learning-rate
-schedule (`nn/utils.py`) against the JAX package's.
+schedule (`nn/utils.py`) against the JAX package's, and which networks
+`BaseGAN.apply_batched` runs as one fused batch (`nn/gans/base.py`).
 
 The pool's random draws cannot match JAX's keys, so the pool is held against
 a numpy emulation of the JAX `query_pool` body (`image_pool.py:50-68`) fed
@@ -14,6 +15,7 @@ import torch
 
 from ganslate_tpu.nn.utils import make_lr_schedule as jax_schedule
 from ganslate_tpu_torch.data.utils.image_pool import ImagePool
+from ganslate_tpu_torch.nn.gans.base import BaseGAN
 from ganslate_tpu_torch.nn.utils import make_lr_lambda, make_lr_schedule
 
 SHAPE = (4, 4, 3)
@@ -113,3 +115,54 @@ def test_lr_lambda_decays_to_zero_and_stays():
     lam = make_lr_lambda(n_iters=2, n_iters_decay=3)
     assert [lam(i) for i in range(7)] == [1.0, 1.0, 0.75, 0.5, 0.25, 0.0, 0.0]
     assert make_lr_lambda(2, 3, load_iter=2)(0) == 0.75
+
+
+class _Stub(torch.nn.Module):
+    """A per-sample network (instance norm) that records the batch sizes it
+    is run on, with the attributes `_batch_fusable` reads."""
+
+    def __init__(self, **attributes):
+        super().__init__()
+        self.norm_type = "instance"
+        self.__dict__.update(attributes)
+        self.batch_sizes = []
+
+    def forward(self, x):
+        self.batch_sizes.append(x.shape[0])
+        return x * 2
+
+
+class _Model:
+    """Just what `BaseGAN.apply_batched` uses of a model."""
+    compute_dtype = torch.float32
+    _batch_fusable = staticmethod(BaseGAN._batch_fusable)
+
+    def __init__(self, net):
+        self.networks = {"D": net}
+
+    def apply(self, name, x, params=None):
+        return self.networks[name](x)
+
+
+@pytest.mark.parametrize("attributes, fused", [
+    ({}, True),
+    ({"batch_fusable": False}, False),
+    ({"use_dropout": True}, False),
+    ({"stochastic_rngs": ("crop",)}, False),
+    ({"norm_type": "batch"}, False),
+    ({"norm_type": None}, False),
+    ({"norm_type": None, "batch_fusable": True}, True),
+    ({"use_dropout": True, "batch_fusable": True}, True),
+], ids=["instance_norm", "declared_false", "dropout", "stochastic_rngs", "batch_norm",
+        "no_norm_type", "declared_true", "declared_true_with_dropout"])
+def test_apply_batched_fuses_only_per_sample_networks(attributes, fused):
+    """As the JAX package's `_batch_fusable` (without its perf flag): a
+    declared `batch_fusable` decides; otherwise a per-sample norm, no
+    dropout and no per-call random draws."""
+    net = _Stub(**attributes)
+    real, fake = torch.ones(2, 4, 4, 3), torch.zeros(2, 4, 4, 3)
+    outs = BaseGAN.apply_batched(_Model(net), "D", [real, fake])
+    assert BaseGAN._batch_fusable(net) is fused
+    assert net.batch_sizes == ([4] if fused else [2, 2])
+    torch.testing.assert_close(outs[0], 2 * real)
+    torch.testing.assert_close(outs[1], 2 * fake)
