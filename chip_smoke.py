@@ -79,9 +79,32 @@ and prints no result line):
    alone in two layouts with and without the autotuner, and one request
    under `torch.profiler`: device time by family and the idle share.
 
-The kernels phase also checks and times both kernels at the V-Net's norm
-slabs, and checks a channel count that is not a multiple of the kernels'
-channel block (C = 20), which the wrappers pad.
+8. revgan: the BRaTS RevGAN experiment (`projects/brats_mri_sequence_
+   translation/experiments/revgan.yaml` field for field, built in Python:
+   Piresnet3D of depth 5 with 32 first-layer channels and memory saving,
+   PatchGAN3D with 2 layers, (32, 176, 176) patches, batch 1, bf16), with
+   its loop lengths and frequencies cut and this script's datasets in place
+   of the project's: 3 synthetic BRaTS-shaped scans (4 sequences of (155,
+   240, 240)) from the seed, flair -> t1w patch pairs through the port's
+   `StochasticFocalPatchSampler`, and one whole scan for validation through
+   the sliding window with cycle metrics (the inverted generator). (a) The
+   memory-saving config from `init_engine("train", ...)`: plain iterations,
+   log, checkpoint and validation ones, finite losses and validation
+   metrics, the norm launches of every step and validation; then
+   model-level steps (CUDA events, peak memory), the recompute checked bit
+   for bit and its rebuilt inputs' error, conv FLOPs, and 3 steps under
+   `torch.profiler` by family (convs, norm kernels, the plain norm backward,
+   pads, the couplings' recompute and layout copies). (b) The same config
+   with stored activations: steps and peak memory, which must exceed (a)'s.
+   (c) `init_engine("infer")` from (a)'s checkpoint: `run()` over the
+   volume, and `infer` AB and BA through the sliding window against the
+   plain norms. Then one step of memory saving against stored activations
+   from the same state and batch (fp32 within 1e-4 per network; bf16 each
+   against the fp32 gradient) and one against the plain norms (fp32, 1e-2).
+
+The kernels phase also checks and times both kernels at the V-Net's and
+the RevGAN's norm slabs, and checks a channel count that is not a multiple
+of the kernels' channel block (C = 20), which the wrappers pad.
 
 The last lines are the card's `nvidia-smi` line, one JSON object listing
 every kernel, and `{"ok": true, "device": {...}}`.
@@ -213,6 +236,16 @@ VNET_SLABS = tuple((28, *s, c) for s, c in (
     ((8, 44, 44), 32), ((8, 44, 44), 64), ((4, 22, 22), 64), ((4, 22, 22), 128)))
 VNET_FP32_SLAB = (28, 16, 88, 88, 32)
 PADDED_C_SLABS = ((2, 16, 64, 64, 20), (4, 8, 22, 22, 20))
+# The RevGAN's norm slabs (N, D, H, W, C) at its (32, 176, 176) patches,
+# batch 1, with their activations: Piresnet3D's level 0 (the down path's
+# first norm and the up path's), its down path's second norm, and its core's
+# halves (a block's first norm, then its second with the ReLU); PatchGAN3D's
+# two (n_layers 2) in the G step, and at batch 2 (real and fake) in the D
+# step. Every one takes the split form.
+REVGAN_SLABS = (((1, 32, 176, 176, 32), "relu"), ((1, 16, 88, 88, 64), "relu"),
+                ((1, 16, 88, 88, 32), "none"), ((1, 16, 88, 88, 32), "relu"),
+                ((1, 8, 44, 44, 128), "leaky_relu"), ((1, 7, 43, 43, 256), "leaky_relu"),
+                ((2, 8, 44, 44, 128), "leaky_relu"), ((2, 7, 43, 43, 256), "leaky_relu"))
 
 # The sliding-window phase: the BRaTS CycleGAN's G_AB at full width, served
 # at `bench.py`'s volume (2 volumes of 155 x 240 x 240 a request).
@@ -233,6 +266,40 @@ SW_BF16_MEAN = 2 * 2 ** -8
 # summation order differs.
 SW_FP32_VOLUME = (1, 40, 200, 200, 1)
 SW_FP32_MAX = 1e-3
+
+# The revgan phase: the BRaTS RevGAN experiment
+# (`projects/brats_mri_sequence_translation/experiments/revgan.yaml`) at full
+# width through the port's Trainer, on synthetic BRaTS-shaped volumes.
+REVGAN_PATCH = (32, 176, 176)
+REVGAN_VOLUME = (4, 155, 240, 240)      # 4 MRI sequences of one BRaTS scan
+REVGAN_VOLUMES = 3
+REVGAN_NETS = {"depth": 5, "n_layers_D": 2}     # the YAML's; widths are defaults
+REVGAN_YAML_LENGTHS = {"n_iters": 20000, "n_iters_decay": 20000, "logging.freq": 50,
+                       "checkpointing.freq": 5000, "val.freq": 40000}
+# (warm-up iterations, timed iterations, logging.freq, checkpointing.freq,
+#  val.freq): one validation and one checkpoint inside the timed span.
+REVGAN_RUN = (5, 20, 5, 20, 15)
+REVGAN_MODEL_STEPS = (2, 5)             # (warm, timed) model-level steps a config
+REVGAN_PROFILED_STEPS = 3
+REVGAN_LEFT_OUT = {
+    "project": "the project's datasets import the JAX package and SimpleITK",
+    "train.dataset._target_": "chip_smoke.SyntheticBratsDataset (no BRaTS volumes here)",
+    "val.dataset._target_": "chip_smoke.SyntheticBratsValDataset"}
+# Memory saving against stored activations, one step from the same state
+# and batch: fp32 (TF32 off, cuDNN deterministic) differs only by the
+# rebuilt core inputs' rounding, a few fp32 ulps (max 2.9e-5 at values up
+# to 14.3 on an NVIDIA H100 80GB HBM3 at 700 W). The losses and the Ds'
+# gradients agree exactly; the G's full-width gradient, whose weight sums
+# cancel over millions of elements, moves by ~1e-3 relative L2 for such
+# noise (8.1e-4 on that card; one-ulp noise on the norm outputs moves it
+# by several 1e-3, as in the train phase), so the step bound is the train
+# phase's 1e-2 per
+# network, with that control printed. The CPU tests hold the same backward
+# exactly in float64 and to 1e-5 against the JAX custom VJP in fp32. In
+# bf16 the rebuilt inputs round in bf16, so each run is held against the
+# fp32 stored run's gradient: no farther than `TRAIN_BF16_GRAD_RATIO` times
+# the stored run, at the median tensor and at the worst.
+REVGAN_FP32_GRAD_MAX = TRAIN_FP32_GRAD_MAX
 
 # Published peaks (NVIDIA data sheets): HBM bytes/s, fp32 (non-tensor)
 # FLOP/s and dense bf16 tensor FLOP/s, by card.
@@ -435,29 +502,46 @@ def check_kernels(bandwidth, flops):
                 emit({"phase": "kernel_d", **rec, **geometry})
             del x
 
+    def timed_5d(phase, shape, dtype, act):
+        """A 5-D slab checked and timed against the plain version, the
+        library call (`F.instance_norm` and the activation) and the bound."""
+        x = activations(shape, dtype)
+        kernel = inorm.pick_kernel(x.shape, x.dtype)
+        rec = compare_kernel(kernel, x, act)
+        summary[kernel]["max_abs_err"] = max(summary[kernel]["max_abs_err"], rec["max_abs_err"])
+        ncdhw = x.permute(0, 4, 1, 2, 3)
+        act_fn = {"none": lambda y: y, "relu": F.relu,
+                  "leaky_relu": lambda y: F.leaky_relu(y, 0.2)}[act]
+        with torch.inference_mode():
+            ms, hb1 = time_ms(lambda: inorm.KERNELS[kernel](x, 1e-5, act, 0.2), iters=5)
+            plain_ms, hb2 = time_ms(lambda: inorm.instance_norm_reference(x, 1e-5, act, 0.2),
+                                    iters=5)
+            library_ms, hb3 = time_ms(lambda: act_fn(F.instance_norm(ncdhw, eps=1e-5)), iters=5)
+        nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
+        bound_bytes_ms, bound_ops_ms = nbytes / bandwidth * 1e3, 6 * x.numel() / flops * 1e3
+        emit({"phase": phase, **rec, **geometry_record(kernel, shape, dtype), "ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+              "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+              "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9, "host_bound": hb1 or hb2 or hb3})
+
     # The V-Net's slabs (sliding-window phase): checked and timed, activation
     # none (the V-Net's PReLU follows the norm), against the plain version,
     # `F.instance_norm` and the bound.
     for shape, dtype in [(s, torch.bfloat16) for s in VNET_SLABS] + [(VNET_FP32_SLAB,
                                                                      torch.float32)]:
-        x = activations(shape, dtype)
-        kernel = inorm.pick_kernel(x.shape, x.dtype)
-        rec = compare_kernel(kernel, x, "none")
-        summary[kernel]["max_abs_err"] = max(summary[kernel]["max_abs_err"], rec["max_abs_err"])
-        ncdhw = x.permute(0, 4, 1, 2, 3)
-        with torch.inference_mode():
-            ms, hb1 = time_ms(lambda: inorm.KERNELS[kernel](x, 1e-5, "none", 0.2), iters=5)
-            plain_ms, hb2 = time_ms(lambda: inorm.instance_norm_reference(x, 1e-5, "none", 0.2),
-                                    iters=5)
-            library_ms, hb3 = time_ms(lambda: F.instance_norm(ncdhw, eps=1e-5), iters=5)
-        nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
-        bound_bytes_ms, bound_ops_ms = nbytes / bandwidth * 1e3, 6 * x.numel() / flops * 1e3
-        emit({"phase": "kernel_vnet", **rec, **geometry_record(kernel, shape, dtype), "ms": ms,
-              "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-              "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-              "bytes": nbytes, "tb_per_s": nbytes / ms / 1e9, "host_bound": hb1 or hb2 or hb3})
-        del x, ncdhw
+        timed_5d("kernel_vnet", shape, dtype, "none")
+
+    # The RevGAN's slabs (revgan phase), with their activations: timed in
+    # bf16, checked in fp32 too.
+    for shape, act in REVGAN_SLABS:
+        timed_5d("kernel_revgan", shape, torch.bfloat16, act)
+        x = activations(shape, torch.float32)
+        rec = compare_kernel(inorm.pick_kernel(x.shape, x.dtype), x, act)
+        summary[rec["kernel"]]["max_abs_err"] = max(summary[rec["kernel"]]["max_abs_err"],
+                                                   rec["max_abs_err"])
+        emit({"phase": "kernel_revgan", **rec})
+        del x
 
     # Channel counts that are not a multiple of the channel block: the
     # wrappers pad them (checked in both dtypes, each form).
@@ -1288,14 +1372,34 @@ def write_trainer_data(root, kind):
 
 
 def __getattr__(name):
-    """`SyntheticUnpairedDatasetConfig` and `SyntheticPairedDatasetConfig`,
-    the schemas that the config loader reads for `_target_:
-    chip_smoke.Synthetic*Dataset`; made on request, because they need the
-    port, which this file does not import at module level."""
-    if name not in ("SyntheticUnpairedDatasetConfig", "SyntheticPairedDatasetConfig"):
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    """`SyntheticUnpairedDatasetConfig`, `SyntheticPairedDatasetConfig` and
+    the `SyntheticBrats*DatasetConfig`s, the schemas that the config loader
+    reads for `_target_: chip_smoke.Synthetic*Dataset`; made on request,
+    because they need the port, which this file does not import at module
+    level."""
     from dataclasses import dataclass, field
     from typing import Tuple
+    if name == "SyntheticBratsDatasetConfig":
+        from ganslate_tpu_torch import configs
+
+        @dataclass
+        class SyntheticBratsDatasetConfig(configs.base.BaseDatasetConfig):
+            # `projects/brats_mri_sequence_translation/datasets/train_dataset.py`'s.
+            patch_size: Tuple[int, int, int] = (32, 32, 32)
+            focal_region_proportion: float = 0
+            source_sequence: str = "flair"
+            target_sequence: str = "t1w"
+        return SyntheticBratsDatasetConfig
+    if name == "SyntheticBratsValDatasetConfig":
+        from ganslate_tpu_torch import configs
+
+        @dataclass
+        class SyntheticBratsValDatasetConfig(configs.base.BaseDatasetConfig):
+            source_sequence: str = "flair"
+            target_sequence: str = "t1w"
+        return SyntheticBratsValDatasetConfig
+    if name not in ("SyntheticUnpairedDatasetConfig", "SyntheticPairedDatasetConfig"):
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     from ganslate_tpu_torch import configs
 
     @dataclass
@@ -2011,6 +2115,704 @@ def check_fp32_sliding_window(out_dir):
     check(y.dtype == torch.float32 and err <= SW_FP32_MAX, rec)
 
 
+# ------------------------------------------------------------- phase 8
+
+
+BRATS_SEQUENCES = {"flair": 0, "t1w": 1, "t1gd": 2, "t2w": 3}
+
+
+def revgan_launches(memory_saving):
+    """Norm launches of one RevGAN train step, all of the split form (every
+    slab is over the one-pass limit): 4 Piresnet3D passes of 2 down-path, 4
+    per coupling block and 1 up-path norm; in the memory-saving backward, 8
+    per block and use of the core (4 rebuild the block's input, 4 rerun
+    it); 2 PatchGAN3D passes in the G step and 2 in the D step (real and
+    fake in one forward), of one norm per layer."""
+    depth = REVGAN_NETS["depth"]
+    split = 4 * piresnet_launches()["split"] + 4 * REVGAN_NETS["n_layers_D"]
+    return {"onepass": 0, "split": split + (4 * 8 * depth if memory_saving else 0)}
+
+
+def piresnet_launches():
+    """Norm launches of one Piresnet3D pass (serving, validation)."""
+    return {"onepass": 0, "split": 2 + 4 * REVGAN_NETS["depth"] + 1}
+
+
+_BRATS_VOLUMES = {}
+
+
+def brats_volumes(seed, n, shape):
+    """`n` BRaTS-shaped scans (`shape`: 4 MRI sequences of (155, 240, 240),
+    float32) from `seed`, made once per run: per sequence a smooth random
+    field (a coarse normal field, trilinearly upsampled 8x) of positive
+    MR-like intensities inside an ellipsoidal head, and a zero background."""
+    key = (seed, n, shape)
+    if key not in _BRATS_VOLUMES:
+        import numpy as np
+        import torch
+        import torch.nn.functional as F
+        rng = np.random.default_rng(seed)
+        c, *spatial = shape
+        grid = np.ogrid[tuple(slice(0, d) for d in spatial)]
+        head = sum(((g - d / 2) / (0.45 * d)) ** 2 for g, d in zip(grid, spatial)) <= 1
+        volumes = []
+        for _ in range(n):
+            coarse = rng.normal(size=(1, c, *(-(-d // 8) for d in spatial))).astype(np.float32)
+            field = F.interpolate(torch.from_numpy(coarse), size=tuple(spatial),
+                                  mode="trilinear", align_corners=False)[0].numpy()
+            volumes.append(np.maximum(300 + 100 * field, 0) * head)
+        _BRATS_VOLUMES.clear()
+        _BRATS_VOLUMES[key] = volumes
+    return _BRATS_VOLUMES[key]
+
+
+class SyntheticBratsDataset:
+    """The training samples of the BRaTS dataset
+    (`projects/brats_mri_sequence_translation/datasets/train_dataset.py`)
+    over `brats_volumes`: A's sequence from scan `index`, B's from a scan
+    drawn with the loader's per-sample `rng`, a corresponding patch pair
+    through the port's `StochasticFocalPatchSampler` (drawn from the same
+    `rng`), each patch z-scored to [-1, 1] by the port's
+    `z_score_normalize`, channels-last (*patch_size, 1)."""
+
+    def __init__(self, conf):
+        from ganslate_tpu_torch.data.utils.stochastic_focal_patching import \
+            StochasticFocalPatchSampler
+        dataset_conf = conf[conf.mode].dataset
+        self.volumes = brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)
+        self.sampler = StochasticFocalPatchSampler(tuple(dataset_conf.patch_size),
+                                                   dataset_conf.focal_region_proportion)
+        self.source = BRATS_SEQUENCES[dataset_conf.source_sequence]
+        self.target = BRATS_SEQUENCES[dataset_conf.target_sequence]
+
+    def __len__(self):
+        return len(self.volumes)
+
+    def __getitem__(self, index, rng=None):
+        from ganslate_tpu_torch.data.utils.normalization import z_score_normalize
+        a = self.volumes[index % len(self.volumes)][self.source]
+        b = self.volumes[int(rng.integers(0, len(self.volumes)))][self.target]
+        a, b = self.sampler.get_patch_pair(a, b, rng=rng)
+        return {"A": z_score_normalize(a, scale_to_range=(-1, 1))[..., None],
+                "B": z_score_normalize(b, scale_to_range=(-1, 1))[..., None]}
+
+
+class SyntheticBratsValDataset:
+    """The BRaTS validation samples
+    (`projects/brats_mri_sequence_translation/datasets/val_test_dataset.py`):
+    the whole source and target volumes of one scan, z-scored to [-1, 1],
+    channels-last; metrics in [0, 1] (`denormalize`)."""
+
+    def __init__(self, conf):
+        dataset_conf = conf[conf.mode].dataset
+        self.volume = brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)[0]
+        self.source = BRATS_SEQUENCES[dataset_conf.source_sequence]
+        self.target = BRATS_SEQUENCES[dataset_conf.target_sequence]
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, index):
+        from ganslate_tpu_torch.data.utils.normalization import z_score_normalize
+        return {"A": z_score_normalize(self.volume[self.source], scale_to_range=(-1, 1))[..., None],
+                "B": z_score_normalize(self.volume[self.target], scale_to_range=(-1, 1))[..., None]}
+
+    def denormalize(self, tensor):
+        import numpy as np
+        return (np.asarray(tensor) + 1) / 2
+
+
+def revgan_raw(out_dir, memory_saving=True, mixed_precision=True):
+    """The BRaTS RevGAN experiment as a raw config tree, field for field,
+    with the run's cut loop lengths and frequencies and this script's
+    datasets (`REVGAN_LEFT_OUT`)."""
+    warm, timed, log_freq, ckpt_freq, val_freq = REVGAN_RUN
+    n_iters = warm + timed
+    return {
+        "train": {
+            "output_dir": str(out_dir), "cuda": True,
+            "n_iters": n_iters - n_iters // 2, "n_iters_decay": n_iters // 2,
+            "batch_size": 1, "mixed_precision": mixed_precision, "seed": SEED + 3,
+            "logging": {"freq": log_freq},
+            "checkpointing": {"freq": ckpt_freq},
+            "dataset": {"_target_": "chip_smoke.SyntheticBratsDataset",
+                        "root": "/workspace/Task01_BrainTumour/imagesTr", "num_workers": 8,
+                        "patch_size": list(REVGAN_PATCH)},
+            "gan": {
+                "_target_": "ganslate.nn.gans.unpaired.RevGAN",
+                "generator": {"_target_": "ganslate.nn.generators.Piresnet3D",
+                              "use_memory_saving": memory_saving, "use_inverse": True,
+                              "in_out_channels": {"AB": [1, 1]},
+                              "depth": REVGAN_NETS["depth"]},
+                "discriminator": {"_target_": "ganslate.nn.discriminators.PatchGAN3D",
+                                  "n_layers": REVGAN_NETS["n_layers_D"],
+                                  "in_channels": {"B": 1}},
+                "optimizer": {"lr_D": 0.0002, "lr_G": 0.0004, "lambda_AB": 5.0,
+                              "lambda_BA": 5.0, "lambda_identity": 0, "proportion_ssim": 0},
+            },
+        },
+        "val": {"freq": val_freq,
+                "dataset": {"_target_": "chip_smoke.SyntheticBratsValDataset",
+                            "root": "/workspace/Task01_BrainTumour/imagesTs"},
+                "sliding_window": {"window_size": "${train.dataset.patch_size}"}},
+    }
+
+
+def revgan_conf(out_dir, **kwargs):
+    from ganslate_tpu_torch.configs.config import Config
+    from ganslate_tpu_torch.configs.omega import Conf
+    from ganslate_tpu_torch.configs.utils import init_config
+    return init_config(Conf.create(revgan_raw(out_dir, **kwargs)), Config)
+
+
+def revgan_batches(conf, n, seed):
+    """`n` training samples of the config's dataset as batches of 1, drawn
+    as the loader draws them (a generator per sample)."""
+    import numpy as np
+    dataset = SyntheticBratsDataset(conf)
+    return [{k: v[None] for k, v in dataset.__getitem__(
+        i % len(dataset), rng=np.random.default_rng([seed, i])).items()} for i in range(n)]
+
+
+def grads_of(model):
+    return {f"{name}.{k}": p.grad for name, net in model.networks.items()
+            for k, p in net.named_parameters()}
+
+
+def net_rel_l2(grads, ref):
+    """Relative L2 distance of each network's whole gradient (its tensors
+    concatenated; inert biases, which have none, left out)."""
+    import torch
+    out = {}
+    for name in sorted({k.split(".")[0] for k in ref}):
+        keys = [k for k in ref if k.split(".")[0] == name and ref[k] is not None]
+        a = torch.cat([grads[k].float().flatten() for k in keys])
+        b = torch.cat([ref[k].float().flatten() for k in keys])
+        out[name] = float((a - b).norm() / b.norm())
+    return out
+
+
+def revgan_one_step(out_dir, batch, memory_saving, mixed_precision, norms=None,
+                    inspect=None):
+    """Losses, gradients and norm launches of one train step of a fresh
+    RevGAN (its state made from the seed) on `batch`; then `inspect(model)`,
+    where given."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils.builders import build_gan
+    model = build_gan(revgan_conf(out_dir, memory_saving=memory_saving,
+                                  mixed_precision=mixed_precision))
+    model.setup(batch)
+    model.set_input(batch)
+    inorm.reset_launches()
+    with norms or contextlib.nullcontext():
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    out = ({k: float(v) for k, v in model.losses.items()}, grads_of(model),
+           dict(inorm.LAUNCHES))
+    if inspect:
+        inspect(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def revgan_grad_checks(out_dir, batch):
+    """One step with memory saving against one with stored activations, and
+    one against the plain norms, from the same state and batch: fp32 (TF32
+    off, cuDNN deterministic) and bf16. Returns the phase's launches."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    # Deterministic kernels where PyTorch has them (the pads' backward is an
+    # `index_add_`, with atomics otherwise); a warning where it has none.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_a, grads_a, launches_a = revgan_one_step(
+            out_dir, batch, True, False,
+            inspect=lambda model: revgan_recompute_check(model, batch))
+        losses_b, grads_b, launches_b = revgan_one_step(out_dir, batch, False, False)
+        losses_p, grads_p, launches_p = revgan_one_step(out_dir, batch, True, False,
+                                                        plain_norms())
+        # The scale of the gap: the stored run repeated; stored activations
+        # with the plain forward, without and with one-ulp noise on every
+        # norm output.
+        _, repeat, launches_r = revgan_one_step(out_dir, batch, False, False)
+        plain_fwd = revgan_one_step(out_dir, batch, False, False, plain_forward())[1]
+        one_ulp = revgan_one_step(out_dir, batch, False, False,
+                                  plain_forward(ulp_noise=True))[1]
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved[:3]
+        torch.use_deterministic_algorithms(saved[3], warn_only=saved[4])
+    keys = [k for k, g in grads_b.items() if g is not None]
+    inert = [k for k, g in grads_b.items() if g is None]
+    tensor_err = {k: rel_l2(grads_a[k], grads_b[k]) for k in keys}
+    plain_err = {k: rel_l2(grads_a[k], grads_p[k]) for k in keys}
+    rec = {"phase": "revgan_grad_check", "dtype": "float32",
+           "losses": losses_a, "losses_stored": losses_b, "losses_plain_norms": losses_p,
+           "grad_rel_l2_vs_stored_by_network": net_rel_l2(grads_a, grads_b),
+           "grad_rel_l2_vs_stored_worst_tensor": max(tensor_err.items(), key=lambda kv: kv[1]),
+           "grad_tol": REVGAN_FP32_GRAD_MAX,
+           "grad_rel_l2_stored_repeat_by_network": net_rel_l2(repeat, grads_b),
+           "grad_rel_l2_one_ulp_output_noise_by_network": net_rel_l2(one_ulp, plain_fwd),
+           "grad_rel_l2_vs_plain_norms_by_network": net_rel_l2(grads_a, grads_p),
+           "grad_rel_l2_vs_plain_norms_worst": sorted(plain_err.items(),
+                                                      key=lambda kv: -kv[1])[:5],
+           "plain_norms_grad_tol": TRAIN_FP32_GRAD_MAX,
+           "loss_rel_err_vs_plain_norms": {k: abs(losses_a[k] - losses_p[k]) / abs(losses_p[k])
+                                           for k in losses_p},
+           "n_grads": len(keys), "n_inert_biases": len(inert),
+           "launches": {"memory_saving": launches_a, "stored": launches_b,
+                        "plain_norms": launches_p}}
+    emit(rec)
+    check(all(grads_a[k] is None and grads_p[k] is None for k in inert), rec)
+    check(max(rec["grad_rel_l2_vs_stored_by_network"].values()) <= REVGAN_FP32_GRAD_MAX, rec)
+    check(max(plain_err.values()) <= TRAIN_FP32_GRAD_MAX, rec)
+    check(max(rec["loss_rel_err_vs_plain_norms"].values()) <= TRAIN_FP32_LOSS_RTOL, rec)
+    check(all(abs(losses_a[k] - losses_b[k]) <= 1e-5 * abs(losses_b[k]) for k in losses_b), rec)
+    check(sum(launches_p.values()) == 0, "the plain-norm step launched a kernel")
+    check(launches_a == revgan_launches(True)
+          and launches_b == revgan_launches(False), rec)
+
+    # bf16: each run against the fp32 stored-activation gradient.
+    _, grads_a16, l_a16 = revgan_one_step(out_dir, batch, True, True)
+    _, grads_b16, l_b16 = revgan_one_step(out_dir, batch, False, True)
+    saving = {k: rel_l2(grads_a16[k], grads_b[k]) for k in keys}
+    stored = {k: rel_l2(grads_b16[k], grads_b[k]) for k in keys}
+    ratio = statistics.median(saving[k] / stored[k] for k in keys)
+    rec = {"phase": "revgan_grad_check", "dtype": "bfloat16",
+           "grad_rel_l2_saving_vs_stored_by_network": net_rel_l2(grads_a16, grads_b16),
+           "grad_vs_fp32_saving_by_network": net_rel_l2(grads_a16, grads_b),
+           "grad_vs_fp32_stored_by_network": net_rel_l2(grads_b16, grads_b),
+           "grad_vs_fp32_saving_max": max(saving.values()),
+           "grad_vs_fp32_stored_max": max(stored.values()),
+           "grad_vs_fp32_median_ratio": ratio, "grad_ratio_tol": TRAIN_BF16_GRAD_RATIO}
+    emit(rec)
+    check(ratio <= TRAIN_BF16_GRAD_RATIO, rec)
+    check(rec["grad_vs_fp32_saving_max"] <= TRAIN_BF16_GRAD_RATIO
+          * rec["grad_vs_fp32_stored_max"], rec)
+    return [launches_a, launches_b, launches_r, l_a16, l_b16]
+
+
+def revgan_recompute_check(model, batch):
+    """On the card, at the core's slab, in the model's compute dtype (after a
+    step: its updated state): the backward's rerun of a coupling
+    block (`InvertibleSequence.rerun`, with a graph, on leaf copies of the
+    block's tensors) gives the first pass's output (no graph) bit for bit
+    at the same input; and the chain's input rebuilt by its inverse, as the
+    backward rebuilds it block by block, against the first pass's input."""
+    import torch
+    from ganslate_tpu_torch.nn import invertible
+    net = model._serving_network("G")
+    x = torch.as_tensor(batch["A"]).to(model.device, model.compute_dtype)
+    with torch.no_grad():
+        h = net.down_ab(x.permute(0, 4, 1, 2, 3))
+        core = net.core
+        h1, h2 = h.chunk(2, dim=1)
+        first = invertible.coupling_forward(core.blocks[0]["F"], core.blocks[0]["G"],
+                                            [h1, h2])
+        rebuilt = core.chain(core.chain(h), inverse=True)
+    names, tensors = core.block_tensors()
+    rerun = core.rerun(0, names, tensors, [True] * len(tensors), h1, h2)[0]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b.detach()) for a, b in zip(first, rerun))
+    err = (rebuilt.float() - h.float()).abs()
+    rec = {"phase": "revgan_recompute", "dtype": str(model.compute_dtype).split(".")[1],
+           "core_input": list(h.shape), "rerun_equals_first_pass": same,
+           "rebuilt_input_max_abs_err": float(err.max()),
+           "rebuilt_input_mean_abs_err": float(err.mean()),
+           "core_input_max_abs": float(h.abs().max())}
+    emit(rec)
+    check(same, f"the backward's rerun of a coupling block differs from its first pass: {rec}")
+    return rec
+
+
+def revgan_family(chain, kernel):
+    """`family`, with the couplings' recompute (rebuilding and rerunning the
+    blocks) and layout copies (the first norm of a coupling chain copies
+    its channel half, a view) as families of their own."""
+    if "coupling_recompute" in chain:
+        return "coupling_recompute"
+    ops = [n for n in chain if n.startswith("aten::")]
+    if ops and ops[0] in ("aten::copy_", "aten::clone") and "aten::contiguous" in ops \
+            and not any(n.startswith("autograd::engine::") for n in chain):
+        return "layout_copies"
+    return family(chain, kernel)
+
+
+REVGAN_RANGES = ("coupling_recompute", "losses", "metrics", "pool")
+
+
+def revgan_profile(model, batches):
+    """Device time of `REVGAN_PROFILED_STEPS` train steps by family, and the
+    device's idle share. The norm kernels, launched through ctypes, are
+    read from the device events by name (the profiler links them to no
+    host op)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    label_step(model)
+    model.set_input(batches[0])
+    model.optimize_parameters()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(REVGAN_PROFILED_STEPS):
+            model.set_input(batches[i % len(batches)])
+            model.optimize_parameters()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = [ev for ev in events if "CUDA" in str(getattr(ev, "device_type", ""))
+              and not getattr(ev, "is_user_annotation", False) and ev.name not in REVGAN_RANGES]
+    busy = sum(ev.device_time_total for ev in device) / 1e3
+    norms = [ev for ev in device if "inorm" in ev.name]
+    fams = {"norm_kernels": sum(ev.device_time_total for ev in norms) / 1e3}
+    top = {}
+    for ev in events:
+        if not getattr(ev, "kernels", None):
+            continue
+        chain, parent = [], ev
+        while parent is not None:
+            chain.append(parent.name)
+            parent = parent.cpu_parent
+        for k in ev.kernels:
+            if "inorm" in k.name.lower():
+                continue            # counted from the device events above
+            fam = revgan_family(chain, k.name)
+            fams[fam] = fams.get(fam, 0.0) + k.duration / 1e3
+            node = next((n.split(": ", 1)[1] for n in chain
+                         if n.startswith("autograd::engine::evaluate_function: ")), chain[0])
+            key = (fam, node, k.name[:70])
+            top[key] = top.get(key, 0.0) + k.duration / 1e3
+    per_step = {k: v / REVGAN_PROFILED_STEPS for k, v in
+                sorted(fams.items(), key=lambda kv: -kv[1])}
+    return {"steps": REVGAN_PROFILED_STEPS, "wall_ms": wall_ms,
+            "device_busy_ms_per_step": busy / REVGAN_PROFILED_STEPS if busy else "not measured",
+            "device_idle_share": (1 - busy / wall_ms) if busy else "not measured",
+            "device_ms_per_step_by_family": per_step,
+            "device_ms_unattributed_per_step": (busy - sum(fams.values()))
+            / REVGAN_PROFILED_STEPS if busy else "not measured",
+            "norm_kernel_launches_seen": len(norms),
+            "top": [[f, n, k, ms / REVGAN_PROFILED_STEPS] for (f, n, k), ms in
+                    sorted(top.items(), key=lambda kv: -kv[1])[:25]]}
+
+
+def revgan_conv_flops(model):
+    """Conv FLOPs (`conv_flops`) of one Piresnet3D pass, of its core alone
+    and of one PatchGAN3D pass at batch 1, and of a train step: 4 G passes
+    forward and backward (the backward counted as twice the forward: data
+    and weight gradients), 2 D passes with input gradients in the G step, 4
+    D passes (2 Ds, real and fake) with a full backward in the D step; and
+    the memory-saving backward's recompute, 4 uses of the core rebuilt and
+    rerun."""
+    import torch
+    g, d = model.networks["G"], model.networks["D_B"]
+    flc = g.core.blocks[0]["F"].conv.weight.shape[0] * 2
+    x = torch.zeros((1, 1, *REVGAN_PATCH), device=model.device)
+    core_x = torch.zeros((1, flc, *(s // 2 for s in REVGAN_PATCH)), device=model.device)
+    g_pass = sum(conv_flops(g, x).values())
+    core = sum(conv_flops(g.core, core_x).values())
+    d_pass = sum(conv_flops(d, x).values())
+    return {"g_pass": g_pass, "core_pass": core, "d_pass": d_pass,
+            "step_first_pass_and_backward": 4 * 3 * g_pass + 2 * 2 * d_pass + 4 * 3 * d_pass,
+            "step_recompute": 4 * 2 * core}
+
+
+def revgan_model_steps(model, batches, label):
+    """Timed model-level train steps (CUDA events around each, after
+    warm-up), peak memory over them, and their norm launches."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    warm, timed = REVGAN_MODEL_STEPS
+    steps, launches, losses = [], [], []
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        model.set_input(batches[i % len(batches)])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        inorm.reset_launches()
+        start.record()
+        model.optimize_parameters()
+        end.record()
+        launches.append(dict(inorm.LAUNCHES))
+        losses.append(model.losses)
+        steps.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = [s.elapsed_time(e) for s, e in steps[warm:]]
+    peak = torch.cuda.max_memory_allocated()
+    return {"config": label, "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+            "peak_memory_bytes": peak, "peak_memory_gib": peak / 2 ** 30,
+            "launches_per_step": launches[-1],
+            "losses_finite": all(math.isfinite(float(v)) for s in losses for v in s.values())}, \
+        launches
+
+
+def revgan_train_run(root, batches):
+    """Run (a): the memory-saving config from `init_engine("train")` through
+    `run()`; then model-level steps and the profile on its model. Returns
+    the run's norm launches, its last checkpoint, its output directory, the
+    model-level record and the profile."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    warm, timed, log_freq, ckpt_freq, val_freq = REVGAN_RUN
+    n_iters = warm + timed
+    out_dir = root / "revgan"
+    t_build = time.perf_counter()
+    raw = revgan_raw(out_dir)
+    trainer, entry = engine("train", raw, root)
+    build_s = time.perf_counter() - t_build
+    records = instrument_trainer(trainer)
+    val_metrics = {}
+    tracker = trainer.validator.tracker
+    log_samples = tracker.log_samples
+
+    def keep_metrics(*args, **kwargs):
+        for m in tracker.metrics:
+            for name, values in m.items():
+                val_metrics.setdefault(name, []).extend(values)
+        return log_samples(*args, **kwargs)
+
+    tracker.log_samples = keep_metrics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(inorm.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(sorted(records) == list(range(1, n_iters + 1)), f"iterations run: {sorted(records)}")
+    starts = [records[i]["t0"] for i in range(1, n_iters + 1)] + [t_end]
+    for i in range(1, n_iters + 1):
+        records[i]["ms"] = (starts[i] - starts[i - 1]) * 1e3
+    timed_iters = range(warm + 1, n_iters + 1)
+    plain = [records[i]["ms"] for i in timed_iters if records[i]["plain"]]
+    logged = [i for i in range(1, n_iters + 1) if records[i]["log"]]
+    finite = all(math.isfinite(v) for i in logged for v in records[i]["losses"].values())
+    ckpts = sorted(int(p.stem) for p in (out_dir / "checkpoints").glob("*.pth"))
+    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
+    val_runs = n_iters // val_freq
+    want = {k: n_iters * v + val_runs * 2 * windows * piresnet_launches()[k]
+            for k, v in revgan_launches(True).items()}
+    rec = {"phase": "revgan_run", "entry": entry, "dataset": "synthetic BRaTS volumes",
+           "cuts": {"from": REVGAN_YAML_LENGTHS, "left_out": REVGAN_LEFT_OUT,
+                    "to": {"n_iters": raw["train"]["n_iters"],
+                           "n_iters_decay": raw["train"]["n_iters_decay"],
+                           "logging.freq": log_freq, "checkpointing.freq": ckpt_freq,
+                           "val.freq": val_freq}},
+           "build_s": build_s, "run_s": t_end - t0, "iterations": n_iters,
+           "timed_iterations": [timed_iters.start, timed_iters.stop - 1],
+           "timed_wall_s": starts[n_iters] - starts[warm],
+           "patches_per_s": timed / (starts[n_iters] - starts[warm]),
+           "plain_iteration_ms": {"median": statistics.median(plain), "n": len(plain),
+                                  **_ms_stats([p / 1e3 for p in plain])},
+           "log_iteration_ms": {i: records[i]["ms"] for i in timed_iters if records[i]["log"]},
+           "checkpoint_iteration_ms": {i: records[i]["ms"] for i in timed_iters
+                                       if records[i]["checkpoint"]},
+           "validation_iteration_ms": {i: records[i]["ms"] for i in timed_iters
+                                       if records[i]["validation"]},
+           "plain_host_ranges_ms": {r: statistics.fmean(records[i]["ranges"].get(r, 0.0)
+                                                        for i in timed_iters
+                                                        if records[i]["plain"]) * 1e3
+                                    for r in TRAINER_RANGES},
+           "t_data_ms": _ms_stats([records[i]["t_data"] for i in timed_iters]),
+           "peak_memory_bytes": peak, "peak_memory_gib": peak / 2 ** 30,
+           "losses_at_logs": {i: records[i]["losses"] for i in logged},
+           "validation_windows_per_volume": windows,
+           "validation_metrics": {k: statistics.fmean(v) for k, v in val_metrics.items()},
+           "checkpoints": ckpts, "launches": launches, "launches_expected": want}
+    emit(rec)
+    check(finite and logged, f"a logged loss is not finite: {rec['losses_at_logs']}")
+    check(ckpts == [i for i in range(1, n_iters + 1) if i % ckpt_freq == 0]
+          and any(warm < c for c in ckpts), rec)
+    check(any(records[i]["validation"] for i in timed_iters), rec)
+    check(val_metrics and all(math.isfinite(x) for v in val_metrics.values() for x in v)
+          and "cycle_SSIM" in val_metrics,
+          f"validation metrics: {val_metrics}")
+    check(launches == want, f"norm launches {launches}, expected {want}")
+
+    model = trainer.model
+    del model.set_input, model.optimize_parameters         # the instrumentation's wrappers
+    tracker.log_samples = log_samples
+    del trainer
+    gc.collect()
+    device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                       for k, v in b.items()} for b in batches]
+    steps, step_launches = revgan_model_steps(model, device_batches, "memory_saving")
+    steps["plain_iteration_over_step"] = rec["plain_iteration_ms"]["median"] \
+        / steps["median_step_ms"]
+    recompute = revgan_recompute_check(model, batches[0])
+    flops = revgan_conv_flops(model)
+    profile = revgan_profile(model, device_batches)
+    del model, device_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ckpts[-1], out_dir, steps, step_launches, recompute, flops, profile
+
+
+def sw_windows(spatial, roi, overlap=0.25):
+    from ganslate_tpu_torch.utils.sliding_window_inferer import _scan_interval, dense_patch_slices
+    return len(dense_patch_slices(spatial, roi, _scan_interval(spatial, roi, overlap)))
+
+
+def revgan_stored_steps(out_dir, batches):
+    """Run (b): the same config with `use_memory_saving: false`, model-level
+    steps (the price of the saving: step time and peak memory)."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.utils.builders import build_gan
+    model = build_gan(revgan_conf(out_dir, memory_saving=False))
+    model.setup(batches[0])
+    device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                       for k, v in b.items()} for b in batches]
+    steps, launches = revgan_model_steps(model, device_batches, "stored_activations")
+    del model, device_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return steps, launches
+
+
+def revgan_serve(root, out_dir, load_iter):
+    """Run (c): `init_engine("infer")` (not a deployment) from run (a)'s
+    last checkpoint: `run()` over the validation volume through the sliding
+    window; then `infer` AB and BA on it, with the kernels and with the
+    plain norms. Returns the main path's launches (`run()` and the two
+    kernel `infer`s)."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    raw = revgan_raw(out_dir)
+    raw["infer"] = {"checkpointing": {"load_iter": load_iter}, "is_deployment": False,
+                    "dataset": dict(raw["val"]["dataset"]),
+                    "sliding_window": {"window_size": list(REVGAN_PATCH)}}
+    inferer, entry = engine("infer", raw, root)
+    outputs = []
+    save = inferer.save_generated_tensor
+
+    def keep(generated_tensor, **kwargs):
+        outputs.append(np.array(generated_tensor))
+        return save(generated_tensor=generated_tensor, **kwargs)
+
+    inferer.save_generated_tensor = keep
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    inferer.run()
+    run_s = time.perf_counter() - t0
+    launches = [dict(inorm.LAUNCHES)]
+    out = np.concatenate(outputs)
+    shape = (1, *REVGAN_VOLUME[1:], 1)
+    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
+    rec = {"phase": "revgan_infer_run", "entry": entry, "load_iter": load_iter,
+           "shape": list(out.shape), "dtype": str(out.dtype), "run_s": run_s,
+           "out_min": float(out.min()), "out_max": float(out.max()),
+           "out_std": float(out.std()), "launches": launches[0]}
+    emit(rec)
+    check(out.shape == shape and bool(np.isfinite(out).all())
+          and -1 <= rec["out_min"] <= rec["out_max"] <= 1 and rec["out_std"] > 1e-3, rec)
+    check(launches[0] == {k: windows * v for k, v in piresnet_launches().items()}, rec)
+
+    x = inferer.data_loader.dataset[0]["A"][None]
+    outs = {}
+    for direction in ("AB", "BA"):
+        inorm.reset_launches()
+        t0 = time.perf_counter()
+        y = inferer.infer(x, direction=direction)
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        launches.append(dict(inorm.LAUNCHES))
+        with plain_norms():
+            inorm.reset_launches()
+            ref = inferer.infer(x, direction=direction)
+            check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+        err = (y.float() - ref.float()).abs()
+        rec = {"phase": "revgan_serve", "direction": direction, "latency_ms": latency_ms,
+               "windows": windows, "launches": launches[-1],
+               "max_abs_err_vs_plain": float(err.max()),
+               "mean_abs_err_vs_plain": float(err.mean()),
+               "tol_max": SW_BF16_MAX, "tol_mean": SW_BF16_MEAN}
+        sw_output_check(rec, y, shape)
+        emit(rec)
+        check(launches[-1] == launches[0], rec)
+        check(rec["max_abs_err_vs_plain"] <= SW_BF16_MAX, rec)
+        check(rec["mean_abs_err_vs_plain"] <= SW_BF16_MEAN, rec)
+        outs[direction] = y.float()
+        del ref, err
+    ab_ba = float((outs["AB"] - outs["BA"]).abs().max())
+    emit({"phase": "revgan_serve_directions", "max_abs_ab_minus_ba": ab_ba})
+    check(ab_ba > 1e-3, "infer BA gave AB's output: the inverse did not run")
+    del inferer, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def revgan_phase(root):
+    """Phase 8; returns the norm launches of its main path (run (a) and the
+    serving from its checkpoint)."""
+    import torch
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)
+    conf = revgan_conf(root / "revgan_data")
+    batches = revgan_batches(conf, 4, SEED + 41)
+    emit({"phase": "revgan_data", "seconds": time.perf_counter() - t0,
+          "volumes": [REVGAN_VOLUMES, *REVGAN_VOLUME], "patch": list(REVGAN_PATCH),
+          "batch_shapes": {k: list(v.shape) for k, v in batches[0].items()}})
+    launches, load_iter, out_dir, steps_a, launches_a, recompute, flops, profile = \
+        revgan_train_run(root, batches)
+    totals = dict(launches)
+    for step in revgan_serve(root, out_dir, load_iter):
+        for k, v in step.items():
+            totals[k] += v
+    other = [*launches_a]
+    steps_b, launches_b = revgan_stored_steps(root / "revgan_stored", batches)
+    other += launches_b
+    check(all(s == revgan_launches(True) for s in launches_a)
+          and all(s == revgan_launches(False) for s in launches_b),
+          f"launches per step: {launches_a}, {launches_b}")
+    check(steps_a["losses_finite"] and steps_b["losses_finite"], "a non-finite loss")
+
+    fam = profile["device_ms_per_step_by_family"]
+    conv_ms = sum(fam.get(f, 0.0) for f in ("conv_forward", "conv_dgrad", "conv_wgrad",
+                                            "conv_backward_other"))
+    rec = {"phase": "revgan_summary", "memory_saving": steps_a, "stored_activations": steps_b,
+           "peak_saving_bytes": steps_b["peak_memory_bytes"] - steps_a["peak_memory_bytes"],
+           "step_ms_cost_of_saving": steps_a["median_step_ms"] - steps_b["median_step_ms"],
+           "conv_gflop": {k: v / 1e9 for k, v in flops.items()},
+           "conv_tflop_per_s": flops["step_first_pass_and_backward"] / (conv_ms * 1e-3) / 1e12
+           if conv_ms else "not measured",
+           "recompute_tflop_per_s_with_its_pads_and_adds":
+               flops["step_recompute"] / (fam["coupling_recompute"] * 1e-3) / 1e12
+               if fam.get("coupling_recompute") else "not measured",
+           "profile": profile, "recompute": recompute,
+           "launches_main_path": totals}
+    emit(rec)
+    check(steps_a["peak_memory_bytes"] < steps_b["peak_memory_bytes"],
+          f"memory saving saved no memory: {steps_a['peak_memory_bytes']} against "
+          f"{steps_b['peak_memory_bytes']} bytes")
+    check(profile["device_busy_ms_per_step"] != "not measured"
+          and fam.get("norm_kernels", 0) > 0 and fam.get("coupling_recompute", 0) > 0,
+          "the profile saw no norm kernel or no recompute")
+    other += revgan_grad_checks(root / "revgan_check", batches[0])
+    _BRATS_VOLUMES.clear()
+    left = torch.cuda.memory_allocated() - allocated
+    emit({"phase": "revgan_phase", "seconds": time.perf_counter() - t0,
+          "launches_main_path": totals,
+          "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other) for k in totals},
+          "device_bytes_left_allocated": left})
+    check(left < 2 ** 28, f"the revgan phase left {left} bytes allocated on the device")
+    return totals
+
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2075,7 +2877,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         sw_totals = sliding_window_phase(Path(tmp), bf16_peak)
     phase_done("sliding_window")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        revgan_totals = revgan_phase(Path(tmp))
+    torch.cuda.empty_cache()
+    phase_done("revgan")
     emit({"phase": "phase_seconds", **seconds})
+    # Every RevGAN slab takes the split form.
+    check(revgan_totals["split"] > 0 and revgan_totals["onepass"] == 0,
+          f"the revgan phase's launches: {revgan_totals}")
 
     kernels = []
     for name, replaces in (("onepass", "ganslate_tpu/ops/instance_norm.py:66"),
@@ -2085,7 +2895,8 @@ def main() -> int:
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
         check(sw_totals[name] > 0, f"the sliding-window requests never launched {name}")
-        totals[name] += train_totals[name] + trainer_totals[name] + sw_totals[name]
+        totals[name] += (train_totals[name] + trainer_totals[name] + sw_totals[name]
+                         + revgan_totals[name])
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
                         "replaces": replaces, "launches": totals[name], **s})

@@ -25,7 +25,7 @@ class BaseValTestEngine(BaseEngineWithInference):
         if getattr(self.conf[self.conf.mode].metrics, "fid", False):
             raise NotImplementedError(
                 f"FID (`{self.conf.mode}.metrics.fid: true`) is not ported yet: it comes "
-                f"with slice 7 of the port. Set `{self.conf.mode}.metrics.fid=false`.")
+                f"with a later slice of the port. Set `{self.conf.mode}.metrics.fid=false`.")
 
         self.data_loaders = build_loader(self.conf)
         # A single dataset is the anonymous entry of a multi-dataset.

@@ -213,15 +213,17 @@ class BaseGAN(ABC):
                        for k, p in self.networks[name].named_parameters()}
                 for name in names}
 
-    def apply(self, name: str, x: torch.Tensor, params: Optional[Dict] = None):
+    def apply(self, name: str, x: torch.Tensor, params: Optional[Dict] = None, **kwargs):
         """Run network `name` on a channels-last `(N, *spatial, C)` batch
         under the compute-dtype policy (`params` from `compute_params`);
-        returns `(N, *spatial, C)` in the compute dtype."""
+        returns `(N, *spatial, C)` in the compute dtype. `kwargs` go to the
+        network's forward (`inverse=True` runs a RevGAN generator BA)."""
         net = self.networks[name]
         x = x.to(self.compute_dtype)
         # (N, *spatial, C) -> (N, C, *spatial): a view, channels-last in memory.
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
-        y = net(x) if params is None else functional_call(net, params[name], (x,))
+        y = net(x, **kwargs) if params is None \
+            else functional_call(net, params[name], (x,), kwargs)
         return y.permute(0, *range(2, y.ndim), 1)
 
     def apply_batched(self, name: str, xs: Sequence[torch.Tensor],
@@ -318,14 +320,25 @@ class BaseGAN(ABC):
         """Translate a channels-last batch `(N, *spatial, C)`; returns
         `(N, *spatial, C)` on the model's device in `out_dtype` (fp32, as the
         JAX package returns; None keeps the compute dtype, for a caller that
-        casts where it reads, as the sliding window's blend does)."""
-        name = f"G_{direction}" if f"G_{direction}" in self.networks else "G"
-        assert name in self.networks, f"Specify a valid generator direction, got {direction}."
+        casts where it reads, as the sliding window's blend does).
+
+        `direction` picks `G_AB` or `G_BA`; a model with one generator `G`
+        (RevGAN) runs it inverted for `BA`, on one serving copy for both."""
+        if direction not in ("AB", "BA"):
+            raise ValueError(f"Specify which generator direction, AB or BA, to use; "
+                             f"got {direction!r}.")
+        name = f"G_{direction}"
+        kwargs = {}
+        if name not in self.networks and "G" in self.networks:
+            name, kwargs = "G", {"inverse": direction == "BA"}
+        if name not in self.networks:
+            raise KeyError(f"The model has no generator for direction {direction}; "
+                           f"networks: {list(self.networks)}")
         net = self._serving_network(name)
         x = x.to(device=self.device, dtype=self.compute_dtype)
         # (N, *spatial, C) -> (N, C, *spatial): a free permute, whose result
         # is channels-last in memory.
-        y = net(x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)))
+        y = net(x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)), **kwargs)
         y = y.permute(0, *range(2, y.ndim), 1)
         return y if out_dtype is None else y.to(out_dtype)
 

@@ -1,1 +1,2 @@
 from ganslate_tpu_torch.nn.gans.unpaired.cyclegan import CycleGAN, CycleGANConfig  # noqa: F401
+from ganslate_tpu_torch.nn.gans.unpaired.revgan import RevGAN, RevGANConfig  # noqa: F401

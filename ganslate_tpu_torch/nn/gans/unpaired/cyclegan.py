@@ -67,7 +67,7 @@ class CycleGAN(BaseGAN):
     def train_step(self):
         real_A, real_B = self._batch["A"], self._batch["B"]
         adv = self.criterion_adv
-        opt_G, opt_D = self.optimizers["G"], self.optimizers["D"]
+        opt_G = self.optimizers["G"]
 
         # ---- G update; the discriminators are frozen.
         with self.frozen(self.network_groups["D"]):
@@ -90,6 +90,15 @@ class CycleGAN(BaseGAN):
             sum(losses[k] for k in sorted(losses)).backward()
         opt_G.step()
         visuals = {k: v.detach() for k, v in visuals.items()}
+        return self.discriminator_step(losses, visuals)
+
+    def discriminator_step(self, losses, visuals):
+        """The step's second half, after the G update: the pools, the D
+        update and the metrics; returns `(losses, visuals, metrics)` with the
+        G step's `losses` and detached `visuals`."""
+        real_A, real_B = self._batch["A"], self._batch["B"]
+        adv = self.criterion_adv
+        opt_D = self.optimizers["D"]
 
         # ---- Pool query with the pre-update fakes.
         fake_B_pooled = self.pools["fake_B"].query(visuals["fake_B"])

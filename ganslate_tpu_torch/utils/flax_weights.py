@@ -11,9 +11,13 @@ copies it into the port module whose submodules carry the same names.
 - Biases and PReLU slopes are copied as they are.
 - A subtree stacked on a leading block axis (the JAX package's invertible
   couplings, e.g. `downs_0/core/blocks/F/conv/kernel` of shape
-  `(n_blocks, 5, 5, 5, C, C)`) is unstacked into the port's list of blocks
-  (`downs_0.core.blocks[i].F.conv`), where the port holds an
+  `(n_blocks, 5, 5, 5, C, C)`, or Piresnet3D's `core/blocks/G/conv/kernel`
+  of shape `(depth, 3, 3, 3, C, C)`) is unstacked into the port's list of
+  blocks (`downs_0.core.blocks[i].F.conv`), where the port holds an
   `nn.ModuleList`.
+
+A GAN's state holds one tree per network (a RevGAN's `G`, `D_B`, `D_A`):
+each goes into the network of that name.
 
 Every shape is checked, every key is consumed, and every parameter of the
 module is written: a leftover or a missing key raises.
@@ -89,7 +93,7 @@ def load_flax_params(module: torch.nn.Module, params) -> torch.nn.Module:
         elif not isinstance(layer, PReLU):
             raise KeyError(f"`{name}` is a {type(layer).__name__}, not a conv or PReLU layer")
         for leaf, value in leaves.items():
-            value = torch.from_numpy(np.asarray(value, dtype=np.float32))
+            value = torch.from_numpy(np.array(value, dtype=np.float32))
             if leaf == "kernel" and not isinstance(layer, PReLU):
                 target, value, attr = layer.weight, convert(value), "weight"
             elif leaf == "bias" and getattr(layer, "bias", None) is not None:

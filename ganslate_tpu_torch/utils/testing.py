@@ -11,7 +11,13 @@ built with `Conf.create` + `init_config`, as `chip_smoke.py` does).
   Vnet3D, down blocks (2, 2, 3), up blocks (3, 3, 3), 16 first-layer
   channels, 8,070,257 parameters) through the deployment `Inferer`'s
   sliding window over (32, 176, 176) windows, 28 a batch, overlap 0.25,
-  gaussian blend (`bench.py`'s `bench_vnet3d_sliding_window`)."""
+  gaussian blend (`bench.py`'s `bench_vnet3d_sliding_window`).
+- `make_revgan_conf`: training the BRaTS RevGAN
+  (`projects/brats_mri_sequence_translation/experiments/revgan.yaml`:
+  Piresnet3D of depth 5, 32 first-layer channels, memory saving on;
+  PatchGAN3D with 2 layers; lambda 5/5, lr_G 4e-4, lr_D 2e-4), with an
+  infer section that serves `<output_dir>/checkpoints/<load_iter>.pth`
+  through a sliding window of the patch size."""
 
 from ganslate_tpu_torch.configs.config import Config
 from ganslate_tpu_torch.configs.omega import Conf
@@ -117,6 +123,62 @@ def make_vnet_conf(output_dir: str,
                 "overlap": overlap,
                 "mode": "gaussian",
             },
+        },
+    }
+    return init_config(Conf.create(raw), config_class=Config)
+
+
+def make_revgan_conf(output_dir: str,
+                     depth: int = 5,
+                     first_layer_channels: int = 32,
+                     ndf: int = 64,
+                     n_layers_D: int = 2,
+                     patch=(32, 176, 176),
+                     cuda: bool = True,
+                     mixed_precision: bool = True,
+                     use_memory_saving: bool = True,
+                     batch_size: int = 1,
+                     pool_size: int = 50,
+                     load_iter: int = 1):
+    raw = {
+        "train": {
+            "output_dir": output_dir,
+            "batch_size": batch_size,
+            "cuda": cuda,
+            "mixed_precision": mixed_precision,
+            "n_iters": 20000,
+            "n_iters_decay": 20000,
+            "logging": {"freq": 1000000},
+            "checkpointing": {"freq": 1000000},
+            "gan": {
+                "_target_": "ganslate.nn.gans.unpaired.RevGAN",
+                "pool_size": pool_size,
+                "generator": {
+                    "_target_": "ganslate.nn.generators.Piresnet3D",
+                    "use_memory_saving": use_memory_saving,
+                    "use_inverse": True,
+                    "first_layer_channels": first_layer_channels,
+                    "depth": depth,
+                    "in_out_channels": {"AB": [1, 1]},
+                },
+                "discriminator": {
+                    "_target_": "ganslate.nn.discriminators.PatchGAN3D",
+                    "ndf": ndf,
+                    "n_layers": n_layers_D,
+                    "in_channels": {"B": 1},
+                },
+                "optimizer": {
+                    "lambda_AB": 5.0, "lambda_BA": 5.0,
+                    "lambda_identity": 0, "proportion_ssim": 0,
+                    "lr_D": 0.0002, "lr_G": 0.0004,
+                },
+            },
+            "seed": 0,
+        },
+        "infer": {
+            "is_deployment": True,
+            "checkpointing": {"load_iter": load_iter},
+            "sliding_window": {"window_size": list(patch), "batch_size": 1},
         },
     }
     return init_config(Conf.create(raw), config_class=Config)

@@ -395,3 +395,38 @@ def test_multi_dataset_gives_a_loader_per_name(png_root):
     assert sorted(loaders) == ["first", "second"]
     assert all(isinstance(loader.sampler, SequentialShardSampler)
                for loader in loaders.values())
+
+
+@pytest.mark.parametrize("patch_size, shape, proportion", [
+    ((32, 176, 176), (155, 240, 240), 0.2),
+    ((8, 16, 16), (4, 20, 24, 30), 0.0),
+    ((16, 16), (12, 40, 36), 0.5),
+    ((6, 6, 6), (6, 9, 6), 1.0),
+], ids=("brats", "channels-first", "2d", "tight"))
+def test_focal_patch_sampler_matches_jax(patch_size, shape, proportion):
+    """The port's `StochasticFocalPatchSampler` gives the JAX package's
+    patch pairs bit for bit from generators seeded alike, drawn through the
+    sampler's own generator and through a per-call (per-sample) one."""
+    from ganslate_tpu.data.utils.stochastic_focal_patching import \
+        StochasticFocalPatchSampler as JaxSampler
+    from ganslate_tpu_torch.data.utils.stochastic_focal_patching import \
+        StochasticFocalPatchSampler
+    data = np.random.default_rng(0)
+    volume_A = data.normal(size=shape).astype(np.float32)
+    volume_B = data.normal(size=shape[:-3] + tuple(s + 3 for s in shape[-3:])
+                           ).astype(np.float32)
+    jax_sampler = JaxSampler(patch_size, proportion, rng=np.random.default_rng(4))
+    port_own = StochasticFocalPatchSampler(patch_size, proportion,
+                                           rng=np.random.default_rng(4))
+    port_per_call = StochasticFocalPatchSampler(patch_size, proportion)
+    per_call = np.random.default_rng(4)
+    for _ in range(6):
+        want = jax_sampler.get_patch_pair(volume_A, volume_B)
+        for got in (port_own.get_patch_pair(volume_A, volume_B),
+                    port_per_call.get_patch_pair(volume_A, volume_B, rng=per_call)):
+            for g, w in zip(got, want):
+                assert g.shape == w.shape
+                assert g.shape[-len(patch_size):] == tuple(patch_size)
+                np.testing.assert_array_equal(g, w)
+    with pytest.raises(RuntimeError, match="smaller than the patch size"):
+        port_own.get_patch_pair(volume_A[..., :2], volume_B)

@@ -47,7 +47,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert {"ganslate_tpu_torch.nn.invertible", "ganslate_tpu_torch.nn.generators.vnet.vnet",
             "ganslate_tpu_torch.nn.generators.vnet.vnet2d",
             "ganslate_tpu_torch.nn.generators.vnet.vnet3d",
-            "ganslate_tpu_torch.utils.sliding_window_inferer"} <= names
+            "ganslate_tpu_torch.utils.sliding_window_inferer",
+            "ganslate_tpu_torch.nn.generators.resnet.piresnet3d",
+            "ganslate_tpu_torch.nn.discriminators.patchgan.patchgan3d",
+            "ganslate_tpu_torch.nn.gans.unpaired.revgan",
+            "ganslate_tpu_torch.data.utils.stochastic_focal_patching"} <= names
     # The data plane, the engines and the trackers.
     assert {f"ganslate_tpu_torch.{m}" for m in (
         "data", "data.samplers", "data.loaders", "data.image_folder",
@@ -147,9 +151,9 @@ def test_import_attr_aliases_to_the_port(prefix):
 
 
 @pytest.mark.parametrize("target, missing", [
-    ("ganslate.nn.discriminators.PatchGAN3D", "PatchGAN3D"),
+    ("ganslate.nn.discriminators.MultiScalePatchGAN3D", "MultiScalePatchGAN3D"),
     ("ganslate.nn.gans.paired.Pix2PixConditionalGAN", "ganslate_tpu_torch.nn.gans.paired"),
-    ("ganslate.nn.generators.Piresnet3D", "Piresnet3D"),
+    ("ganslate.nn.generators.Resnet3D", "Resnet3D"),
 ])
 def test_import_attr_names_what_the_port_lacks(target, missing):
     with pytest.raises(ImportError, match=re.escape(missing)):
@@ -162,6 +166,17 @@ def test_import_attr_resolves_the_vnets(name):
     resolves to the port's V-Net."""
     from ganslate_tpu_torch.nn import generators
     assert import_attr(f"ganslate.nn.generators.{name}") is getattr(generators, name)
+
+
+@pytest.mark.parametrize("target", (
+    "nn.gans.unpaired.RevGAN", "nn.gans.unpaired.RevGANConfig",
+    "nn.generators.Piresnet3D", "nn.generators.Piresnet3DConfig",
+    "nn.discriminators.PatchGAN3D", "nn.discriminators.PatchGAN3DConfig"))
+def test_import_attr_resolves_the_revgan_slice(target):
+    """The BRaTS RevGAN experiment's `_target_`s resolve to the port's."""
+    module, name = f"ganslate_tpu_torch.{target}".rsplit(".", 1)
+    import importlib
+    assert import_attr(f"ganslate.{target}") is getattr(importlib.import_module(module), name)
 
 
 @pytest.mark.parametrize("name", ("UnpairedImageDataset", "UnpairedImageDatasetConfig",
