@@ -101,10 +101,38 @@ and prints no result line):
    plain norms. Then one step of memory saving against stored activations
    from the same state and batch (fp32 within 1e-4 per network; bf16 each
    against the fp32 gradient) and one against the plain norms (fp32, 1e-2).
+9. pix2pix: the Cityscapes label->photo Pix2Pix experiment (`projects/
+   cityscapes_label2photo/experiments/pix2pix.yaml` field for field, built
+   in Python: Unet2D of 7 levels, ngf 128 and dropout, 167,275,267
+   parameters; the conditional PatchGAN2D of 4 layers on 6 channels;
+   256x512, batch 1, bf16), through `init_engine("train", ...)` over
+   seeded synthetic paired 256x512 PNG folders, with its loop lengths and
+   frequencies cut, `logging.wandb` left out, a seed set and the
+   validation size cut from [286, 572], which a 7-level U-Net cannot take,
+   to [256, 512] (`PIX2PIX_LEFT_OUT`): images/s, plain iterations against
+   log, checkpoint and validation ones, t_data, peak memory, finite losses
+   at every log, the norm launches of every step (14 one-pass, 5 split)
+   and validation, paired validation metrics. Then on its model:
+   model-level steps (CUDA events), dropout bit for bit from one generator
+   state and not from another, conv FLOPs, and 3 steps under
+   `torch.profiler` by family (convs, norm kernels, the plain norm
+   backward, concat, dropout, casts, Adam, layout copies) with the idle
+   share. From its checkpoint: the `Tester`, `Inferer.run()` over the
+   validation folder and a deployment `infer` against the plain norms.
+   The Trainer again with the loader's threads off (where a plain
+   iteration's host time goes). One step against the plain norms from the
+   same state, batch and dropout masks, in fp32 (losses 1e-4, gradients
+   1e-2) and bf16 (each against the fp32 gradient). Last, the HX4 PET
+   Pix2Pix's networks (`projects/maastro_hx4_pet_translation/experiments/
+   pix2pix.yaml`: Unet3D of 4 levels, ngf 64, 2 -> 1 channels; PatchGAN3D
+   of 3 layers, k4) model-level on synthetic (32, 128, 128) patches at
+   batch 1 in bf16: steps, peak memory, finite losses, norm launches, one
+   forward against the plain norms.
 
-The kernels phase also checks and times both kernels at the V-Net's and
-the RevGAN's norm slabs, and checks a channel count that is not a multiple
-of the kernels' channel block (C = 20), which the wrappers pad.
+The kernels phase also checks and times both kernels at the V-Net's, the
+RevGAN's and the Pix2Pix's norm slabs (in both dtypes for the last), and
+checks a channel count that is not a multiple of the kernels' channel
+block (C = 20), which the wrappers pad.
 
 The last lines are the card's `nvidia-smi` line, one JSON object listing
 every kernel, and `{"ok": true, "device": {...}}`.
@@ -300,6 +328,63 @@ REVGAN_LEFT_OUT = {
 # fp32 stored run's gradient: no farther than `TRAIN_BF16_GRAD_RATIO` times
 # the stored run, at the median tensor and at the worst.
 REVGAN_FP32_GRAD_MAX = TRAIN_FP32_GRAD_MAX
+
+# The pix2pix phase: the Cityscapes label->photo Pix2Pix experiment
+# (`projects/cityscapes_label2photo/experiments/pix2pix.yaml`) at full width
+# through the port's Trainer, on seeded synthetic paired PNG folders.
+PIX2PIX_SIZE = (256, 512)               # the YAML's final_size (H, W)
+PIX2PIX_TRAIN_PAIRS = 16
+PIX2PIX_VAL_PAIRS = 2
+PIX2PIX_YAML_LENGTHS = {"n_iters": 297500, "n_iters_decay": 5000, "logging.freq": 100,
+                        "checkpointing.freq": 5000, "val.freq": 5000}
+# (warm-up iterations, timed iterations, logging.freq, checkpointing.freq,
+#  val.freq): one validation and one checkpoint inside the timed span.
+PIX2PIX_RUN = (5, 20, 5, 20, 15)
+PIX2PIX_MODEL_STEPS = (2, 5)
+# The Trainer again with the loader's threads off (`num_workers: 0`), its
+# iterations (warm-up, timed): where a plain iteration's host time goes.
+PIX2PIX_SYNC_RUN = (5, 15)
+PIX2PIX_PROFILED_STEPS = 3
+PIX2PIX_LEFT_OUT = {
+    "train.logging.wandb": "the wandb package would contact its server",
+    "train.dataset.root, val.dataset.root": "seeded synthetic paired PNG folders (no "
+                                            "Cityscapes images in the repo)",
+    "val.dataset.load_size": "[286, 572] -> [256, 512]: 7 levels need multiples of 128; "
+                             "the YAML's size fails in the JAX package too",
+    "train.seed": "unset in the YAML (drawn) -> the script's seed, so that a run repeats"}
+# Norm launches of one Cityscapes G forward (11: downs 1-5, ups 6-1; the
+# slabs of S <= 6400 rows take the one-pass form: downs 2-5 and ups 6-3),
+# and of one PatchGAN2D forward (4 layers: down1 split, down2, down3 and
+# the penultimate one-pass). A train step: G, D in the G step, and D on
+# real and fake as one forward of batch 2.
+PIX2PIX_G_LAUNCHES = {"onepass": 8, "split": 3}
+PIX2PIX_D_LAUNCHES = {"onepass": 3, "split": 1}
+PIX2PIX_LAUNCHES = {k: PIX2PIX_G_LAUNCHES[k] + 2 * PIX2PIX_D_LAUNCHES[k]
+                    for k in PIX2PIX_G_LAUNCHES}
+PIX2PIX_PARAMS = {"G": 167_275_267, "D": 6_962_625}
+# The new slabs (N, *spatial, C) of the pix2pix phase, with their
+# activations: the U-Net's 1024-channel levels (S = 32, 128, 512) and its
+# up1; the PatchGAN2D's down1 in the D step (batch 2) and its penultimate;
+# the HX4 Unet3D's up1.
+PIX2PIX_SLABS = (((1, 4, 8, 1024), "none"), ((1, 8, 16, 1024), "none"),
+                 ((1, 16, 32, 1024), "none"), ((1, 128, 256, 128), "none"),
+                 ((2, 64, 128, 128), "leaky_relu"), ((1, 15, 31, 512), "leaky_relu"),
+                 ((1, 16, 64, 64, 64), "none"))
+# The HX4 PET Pix2Pix (`projects/maastro_hx4_pet_translation/experiments/
+# pix2pix.yaml`): Unet3D of 4 levels, ngf 64, 2 -> 1 channels (5 norms:
+# down2 and up3 one-pass, down1, up2 and up1 split; its 4 levels have no
+# dropout level); PatchGAN3D of 3 layers, k4, ndf 64, 3 input channels (3
+# norms: down1 split, down2 and the penultimate one-pass); lambda 10;
+# (32, 128, 128) patches at batch 1, bf16.
+HX4_PATCH = (32, 128, 128)
+HX4_NETS = dict(spatial_dims=3, num_downs=4, ngf=64, use_dropout=True, ndf=64,
+                n_layers_D=3, kernel_size_D=(4, 4, 4), in_out_channels=(2, 1),
+                lambda_pix2pix=10.0, n_iters=30000, n_iters_decay=30000)
+HX4_STEPS = (2, 5)
+HX4_G_LAUNCHES = {"onepass": 2, "split": 3}
+HX4_D_LAUNCHES = {"onepass": 2, "split": 1}
+HX4_LAUNCHES = {k: HX4_G_LAUNCHES[k] + 2 * HX4_D_LAUNCHES[k] for k in HX4_G_LAUNCHES}
+HX4_PARAMS = {"G": 24_659_329, "D": 11_056_065}
 
 # Published peaks (NVIDIA data sheets): HBM bytes/s, fp32 (non-tensor)
 # FLOP/s and dense bf16 tensor FLOP/s, by card.
@@ -502,21 +587,22 @@ def check_kernels(bandwidth, flops):
                 emit({"phase": "kernel_d", **rec, **geometry})
             del x
 
-    def timed_5d(phase, shape, dtype, act):
-        """A 5-D slab checked and timed against the plain version, the
-        library call (`F.instance_norm` and the activation) and the bound."""
+    def timed_slab(phase, shape, dtype, act, iters=5):
+        """A slab checked and timed against the plain version, the library
+        call (`F.instance_norm` and the activation) and the bound."""
         x = activations(shape, dtype)
         kernel = inorm.pick_kernel(x.shape, x.dtype)
         rec = compare_kernel(kernel, x, act)
         summary[kernel]["max_abs_err"] = max(summary[kernel]["max_abs_err"], rec["max_abs_err"])
-        ncdhw = x.permute(0, 4, 1, 2, 3)
+        nc = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))    # the same tensor, as torch sees it
         act_fn = {"none": lambda y: y, "relu": F.relu,
                   "leaky_relu": lambda y: F.leaky_relu(y, 0.2)}[act]
         with torch.inference_mode():
-            ms, hb1 = time_ms(lambda: inorm.KERNELS[kernel](x, 1e-5, act, 0.2), iters=5)
+            ms, hb1 = time_ms(lambda: inorm.KERNELS[kernel](x, 1e-5, act, 0.2), iters=iters)
             plain_ms, hb2 = time_ms(lambda: inorm.instance_norm_reference(x, 1e-5, act, 0.2),
-                                    iters=5)
-            library_ms, hb3 = time_ms(lambda: act_fn(F.instance_norm(ncdhw, eps=1e-5)), iters=5)
+                                    iters=iters)
+            library_ms, hb3 = time_ms(lambda: act_fn(F.instance_norm(nc, eps=1e-5)),
+                                      iters=iters)
         nbytes = 2 * x.numel() * x.element_size() + 2 * shape[0] * shape[-1] * 4
         bound_bytes_ms, bound_ops_ms = nbytes / bandwidth * 1e3, 6 * x.numel() / flops * 1e3
         emit({"phase": phase, **rec, **geometry_record(kernel, shape, dtype), "ms": ms,
@@ -530,18 +616,24 @@ def check_kernels(bandwidth, flops):
     # `F.instance_norm` and the bound.
     for shape, dtype in [(s, torch.bfloat16) for s in VNET_SLABS] + [(VNET_FP32_SLAB,
                                                                      torch.float32)]:
-        timed_5d("kernel_vnet", shape, dtype, "none")
+        timed_slab("kernel_vnet", shape, dtype, "none")
 
     # The RevGAN's slabs (revgan phase), with their activations: timed in
     # bf16, checked in fp32 too.
     for shape, act in REVGAN_SLABS:
-        timed_5d("kernel_revgan", shape, torch.bfloat16, act)
+        timed_slab("kernel_revgan", shape, torch.bfloat16, act)
         x = activations(shape, torch.float32)
         rec = compare_kernel(inorm.pick_kernel(x.shape, x.dtype), x, act)
         summary[rec["kernel"]]["max_abs_err"] = max(summary[rec["kernel"]]["max_abs_err"],
                                                    rec["max_abs_err"])
         emit({"phase": "kernel_revgan", **rec})
         del x
+
+    # The Pix2Pix slabs (pix2pix phase), with their activations: checked and
+    # timed in both dtypes.
+    for shape, act in PIX2PIX_SLABS:
+        for dtype in (torch.bfloat16, torch.float32):
+            timed_slab("kernel_pix2pix", shape, dtype, act, iters=20)
 
     # Channel counts that are not a multiple of the channel block: the
     # wrappers pad them (checked in both dtypes, each form).
@@ -925,14 +1017,17 @@ def plain_forward(ulp_noise=False, kernel_stats=False):
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
     forward = inorm.instance_norm_forward
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    gens = {}
 
     def plain(x, eps, activation, negative_slope):
         out, mean, rstd = inorm.instance_norm_reference(x, eps, activation, negative_slope)
         if kernel_stats:
             mean, rstd = forward(x, eps, activation, negative_slope)[1:]
         if ulp_noise:
-            sign = torch.randint(-1, 2, out.shape, generator=gen, device=out.device)
+            if out.device not in gens:
+                gens[out.device] = torch.Generator(device=out.device).manual_seed(SEED + 10)
+            sign = torch.randint(-1, 2, out.shape, generator=gens[out.device],
+                                 device=out.device)
             out = out * (1 + sign * 2.0 ** -23)
         return out, mean, rstd
 
@@ -1101,8 +1196,9 @@ class Labelled:
 
 def label_step(model):
     """Mark the loss, metric and pool calls of `model`'s train step."""
-    model.criterion_adv = Labelled(model.criterion_adv, "losses")
-    model.criterion_G = Labelled(model.criterion_G, "losses")
+    for name in ("criterion_adv", "criterion_G", "criterion_pix2pix"):
+        if hasattr(model, name):
+            setattr(model, name, Labelled(getattr(model, name), "losses"))
     tm = model.training_metrics
     tm.compute_metrics_G = Labelled(tm.compute_metrics_G, "metrics")
     tm.compute_metrics_D = Labelled(tm.compute_metrics_D, "metrics")
@@ -2449,10 +2545,14 @@ REVGAN_RANGES = ("coupling_recompute", "losses", "metrics", "pool")
 
 
 def revgan_profile(model, batches):
-    """Device time of `REVGAN_PROFILED_STEPS` train steps by family, and the
-    device's idle share. The norm kernels, launched through ctypes, are
-    read from the device events by name (the profiler links them to no
-    host op)."""
+    return profile_steps(model, batches, REVGAN_PROFILED_STEPS, revgan_family, REVGAN_RANGES)
+
+
+def profile_steps(model, batches, n_steps, family_fn, ranges):
+    """Device time of `n_steps` train steps by family (`family_fn`), and the
+    device's idle share; `ranges` are the host ranges that mark families.
+    The norm kernels, launched through ctypes, are read from the device
+    events by name (the profiler links them to no host op)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     label_step(model)
@@ -2461,14 +2561,14 @@ def revgan_profile(model, batches):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(REVGAN_PROFILED_STEPS):
+        for i in range(n_steps):
             model.set_input(batches[i % len(batches)])
             model.optimize_parameters()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     device = [ev for ev in events if "CUDA" in str(getattr(ev, "device_type", ""))
-              and not getattr(ev, "is_user_annotation", False) and ev.name not in REVGAN_RANGES]
+              and not getattr(ev, "is_user_annotation", False) and ev.name not in ranges]
     busy = sum(ev.device_time_total for ev in device) / 1e3
     norms = [ev for ev in device if "inorm" in ev.name]
     fams = {"norm_kernels": sum(ev.device_time_total for ev in norms) / 1e3}
@@ -2483,22 +2583,21 @@ def revgan_profile(model, batches):
         for k in ev.kernels:
             if "inorm" in k.name.lower():
                 continue            # counted from the device events above
-            fam = revgan_family(chain, k.name)
+            fam = family_fn(chain, k.name)
             fams[fam] = fams.get(fam, 0.0) + k.duration / 1e3
             node = next((n.split(": ", 1)[1] for n in chain
                          if n.startswith("autograd::engine::evaluate_function: ")), chain[0])
             key = (fam, node, k.name[:70])
             top[key] = top.get(key, 0.0) + k.duration / 1e3
-    per_step = {k: v / REVGAN_PROFILED_STEPS for k, v in
-                sorted(fams.items(), key=lambda kv: -kv[1])}
-    return {"steps": REVGAN_PROFILED_STEPS, "wall_ms": wall_ms,
-            "device_busy_ms_per_step": busy / REVGAN_PROFILED_STEPS if busy else "not measured",
+    per_step = {k: v / n_steps for k, v in sorted(fams.items(), key=lambda kv: -kv[1])}
+    return {"steps": n_steps, "wall_ms": wall_ms,
+            "device_busy_ms_per_step": busy / n_steps if busy else "not measured",
             "device_idle_share": (1 - busy / wall_ms) if busy else "not measured",
             "device_ms_per_step_by_family": per_step,
-            "device_ms_unattributed_per_step": (busy - sum(fams.values()))
-            / REVGAN_PROFILED_STEPS if busy else "not measured",
+            "device_ms_unattributed_per_step": (busy - sum(fams.values())) / n_steps
+            if busy else "not measured",
             "norm_kernel_launches_seen": len(norms),
-            "top": [[f, n, k, ms / REVGAN_PROFILED_STEPS] for (f, n, k), ms in
+            "top": [[f, n, k, ms / n_steps] for (f, n, k), ms in
                     sorted(top.items(), key=lambda kv: -kv[1])[:25]]}
 
 
@@ -2523,12 +2622,13 @@ def revgan_conv_flops(model):
             "step_recompute": 4 * 2 * core}
 
 
-def revgan_model_steps(model, batches, label):
+def model_steps(model, batches, label, steps=REVGAN_MODEL_STEPS):
     """Timed model-level train steps (CUDA events around each, after
-    warm-up), peak memory over them, and their norm launches."""
+    warm-up; `steps` is (warm, timed)), peak memory over them, and their
+    norm launches."""
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
-    warm, timed = REVGAN_MODEL_STEPS
+    warm, timed = steps
     steps, launches, losses = [], [], []
     for i in range(warm + timed):
         if i == warm:
@@ -2647,7 +2747,7 @@ def revgan_train_run(root, batches):
     gc.collect()
     device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
                        for k, v in b.items()} for b in batches]
-    steps, step_launches = revgan_model_steps(model, device_batches, "memory_saving")
+    steps, step_launches = model_steps(model, device_batches, "memory_saving")
     steps["plain_iteration_over_step"] = rec["plain_iteration_ms"]["median"] \
         / steps["median_step_ms"]
     recompute = revgan_recompute_check(model, batches[0])
@@ -2674,7 +2774,7 @@ def revgan_stored_steps(out_dir, batches):
     model.setup(batches[0])
     device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
                        for k, v in b.items()} for b in batches]
-    steps, launches = revgan_model_steps(model, device_batches, "stored_activations")
+    steps, launches = model_steps(model, device_batches, "stored_activations")
     del model, device_batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -2813,6 +2913,631 @@ def revgan_phase(root):
 
 
 
+# ------------------------------------------------------------- phase 9
+
+
+def pix2pix_images(seed, n, kind):
+    """`n` uint8 (256, 512, 3) images from `seed`: label maps (A: blocks of
+    16 x 16 pixels in colours of a 20-colour palette, as Cityscapes' label
+    renderings) or photos (B: a smooth random field plus noise)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    h, w = PIX2PIX_SIZE
+    if kind == "labels":
+        palette = rng.integers(0, 256, (20, 3))
+        cells = rng.integers(0, 20, (n, h // 16, w // 16))
+        img = palette[np.repeat(np.repeat(cells, 16, axis=1), 16, axis=2)]
+    else:
+        low = rng.uniform(0, 255, (n, h // 16, w // 16, 3))
+        img = np.repeat(np.repeat(low, 16, axis=1), 16, axis=2) + rng.normal(0, 8, (n, h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_pix2pix_data(root):
+    """`train/{A,B}` and `val/{A,B}`: aligned label/photo pairs of (256, 512)
+    PNGs, written by the port's own writer."""
+    from ganslate_tpu_torch.utils.trackers.utils import save_image
+    for split, n, seed in (("train", PIX2PIX_TRAIN_PAIRS, SEED + 50),
+                           ("val", PIX2PIX_VAL_PAIRS, SEED + 52)):
+        for domain, kind in (("A", "labels"), ("B", "photos")):
+            folder = root / split / domain
+            folder.mkdir(parents=True)
+            for i, img in enumerate(pix2pix_images(seed, n, kind)):
+                save_image(img / 255.0, folder / f"{i:04d}.png")
+
+
+def pix2pix_raw(out_dir, data_root, load_iter=None, mixed_precision=True):
+    """The Cityscapes Pix2Pix experiment as a raw config tree, field for
+    field, with the run's cuts (`PIX2PIX_LEFT_OUT`, `PIX2PIX_RUN`); test and
+    infer sections over the validation folder serve its checkpoint."""
+    warm, timed, log_freq, ckpt_freq, val_freq = PIX2PIX_RUN
+    n_iters = warm + timed
+
+    def dataset(split, preprocess, load_size):
+        return {"_target_": "ganslate.data.PairedImageDataset", "root": str(data_root / split),
+                "num_workers": 8, "image_channels": 3, "preprocess": preprocess,
+                "load_size": load_size, "final_size": list(PIX2PIX_SIZE)}
+
+    val = dataset("val", ["resize"], list(PIX2PIX_SIZE))
+    return {
+        "project": str(Path(__file__).resolve().parent / "projects" / "cityscapes_label2photo"),
+        "train": {
+            "output_dir": str(out_dir), "cuda": True,
+            "n_iters": n_iters - n_iters // 2, "n_iters_decay": n_iters // 2,
+            "batch_size": 1, "mixed_precision": mixed_precision, "seed": SEED + 5,
+            "logging": {"freq": log_freq},
+            "checkpointing": {"freq": ckpt_freq},
+            "dataset": dataset("train", ["resize", "random_crop", "random_flip"], [286, 572]),
+            "gan": {
+                "_target_": "ganslate.nn.gans.paired.Pix2PixConditionalGAN",
+                "generator": {"_target_": "ganslate.nn.generators.Unet2D",
+                              "in_out_channels": {"AB": [3, 3]}, "num_downs": 7,
+                              "ngf": 128, "use_dropout": True},
+                "discriminator": {"_target_": "ganslate.nn.discriminators.PatchGAN2D",
+                                  "n_layers": 4, "in_channels": {"B": 6}},
+                "optimizer": {"lr_D": 0.0001, "lr_G": 0.0002, "lambda_pix2pix": 30.0},
+            },
+            "metrics": {"discriminator_evolution": True},
+        },
+        "val": {"freq": val_freq, "dataset": val, "metrics": {"cycle_metrics": False}},
+        "test": {"checkpointing": {"load_iter": load_iter}, "dataset": dict(val)},
+        "infer": {"checkpointing": {"load_iter": load_iter}, "is_deployment": False,
+                  "dataset": dict(val)},
+    }
+
+
+def pix2pix_conf(out_dir, data_root, **kwargs):
+    from ganslate_tpu_torch.configs.config import Config
+    from ganslate_tpu_torch.configs.omega import Conf
+    from ganslate_tpu_torch.configs.utils import init_config
+    return init_config(Conf.create(pix2pix_raw(out_dir, data_root, **kwargs)), Config)
+
+
+def pix2pix_batches(conf, n, seed):
+    """`n` training samples of the config's dataset as host batches of 1,
+    drawn as the loader draws them (a generator per sample)."""
+    import numpy as np
+    from ganslate_tpu_torch.data import PairedImageDataset
+    dataset = PairedImageDataset(conf)
+    return [{k: v[None] for k, v in dataset.__getitem__(
+        i % len(dataset), rng=np.random.default_rng([seed, i])).items()} for i in range(n)]
+
+
+def pix2pix_family(chain, kernel):
+    """`revgan_family`, with dropout (its range, and its `where` backward)
+    and the skip and conditional concats as families of their own."""
+    if "dropout" in chain:
+        return "dropout"
+    node = next((n.split(": ", 1)[1] for n in chain
+                 if n.startswith("autograd::engine::evaluate_function: ")), "")
+    if node.startswith("WhereBackward"):
+        return "dropout"
+    if node.startswith("CatBackward"):
+        return "concat"
+    ops = [n for n in chain if n.startswith("aten::")]
+    if not node and "aten::cat" in ops:
+        return "concat"
+    return revgan_family(chain, kernel)
+
+
+PIX2PIX_RANGES = ("dropout", "losses", "metrics", "pool")
+
+
+def label_dropout(model):
+    """Mark the G's dropout calls with a `dropout` profiler range."""
+    drop = model.networks["G"].dropout
+    drop.forward = Labelled(drop.forward, "dropout")
+
+
+def pix2pix_conv_flops(model):
+    """Conv FLOPs (`conv_flops`) of one G and one D forward at batch 1, and
+    of a train step: G forward and backward (the backward counted as twice
+    the forward: data and weight gradients), D forward and its data
+    gradient in the G step, and D at batch 2 (real and fake) forward and
+    backward in the D step."""
+    import torch
+    h, w = PIX2PIX_SIZE
+    g = sum(conv_flops(model.networks["G"], torch.zeros((1, 3, h, w),
+                                                        device=model.device)).values())
+    d = sum(conv_flops(model.networks["D"], torch.zeros((1, 6, h, w),
+                                                        device=model.device)).values())
+    return {"g_forward": g, "d_forward": d, "step": 3 * g + 2 * d + 3 * 2 * d}
+
+
+def pix2pix_dropout_check(model, batch):
+    """On the trained model, in bf16: a G forward with dropout from one
+    generator state gives fake_B bit for bit twice; the next state gives
+    another; without a generator (serving) dropout is off."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    x = batch["A"]
+    inorm.reset_launches()
+    with torch.no_grad():
+        params = model.compute_params(["G"])
+        state = model.rng.get_state()
+        a = model.apply("G", x, params, model.rng)
+        model.rng.set_state(state)
+        b = model.apply("G", x, params, model.rng)
+        c = model.apply("G", x, params, model.rng)
+        off = model.apply("G", x, params)
+    torch.cuda.synchronize()
+    rec = {"phase": "pix2pix_dropout", "same_state_bit_equal": bool(torch.equal(a, b)),
+           "next_state_max_abs_diff": float((a.float() - c.float()).abs().max()),
+           "no_generator_max_abs_diff": float((a.float() - off.float()).abs().max()),
+           "launches": dict(inorm.LAUNCHES)}
+    emit(rec)
+    check(rec["same_state_bit_equal"] and rec["next_state_max_abs_diff"] > 0
+          and rec["no_generator_max_abs_diff"] > 0, rec)
+    check(rec["launches"] == {k: 4 * v for k, v in PIX2PIX_G_LAUNCHES.items()}, rec)
+    return rec
+
+
+def pix2pix_train_run(root, data_root, batches):
+    """The Cityscapes config from `init_engine("train")` through `run()`;
+    then model-level steps, the dropout check, conv FLOPs and the profile on
+    its model. Returns the run's norm launches, its last checkpoint and
+    output directory, and the records."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    warm, timed, log_freq, ckpt_freq, val_freq = PIX2PIX_RUN
+    n_iters = warm + timed
+    out_dir = root / "pix2pix"
+    t_build = time.perf_counter()
+    raw = pix2pix_raw(out_dir, data_root)
+    trainer, entry = engine("train", raw, root)
+    build_s = time.perf_counter() - t_build
+    n_params = {name: sum(p.numel() for p in net.parameters())
+                for name, net in trainer.model.networks.items()}
+    records = instrument_trainer(trainer)
+    val_metrics = {}
+    tracker = trainer.validator.tracker
+    log_samples = tracker.log_samples
+
+    def keep_metrics(*args, **kwargs):
+        for m in tracker.metrics:
+            for name, values in m.items():
+                val_metrics.setdefault(name, []).extend(values)
+        return log_samples(*args, **kwargs)
+
+    tracker.log_samples = keep_metrics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(inorm.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(sorted(records) == list(range(1, n_iters + 1)), f"iterations run: {sorted(records)}")
+    starts = [records[i]["t0"] for i in range(1, n_iters + 1)] + [t_end]
+    for i in range(1, n_iters + 1):
+        records[i]["ms"] = (starts[i] - starts[i - 1]) * 1e3
+    timed_iters = range(warm + 1, n_iters + 1)
+    plain = [records[i]["ms"] for i in timed_iters if records[i]["plain"]]
+    logged = [i for i in range(1, n_iters + 1) if records[i]["log"]]
+    finite = all(math.isfinite(v) for i in logged for v in records[i]["losses"].values())
+    ckpts = sorted(int(p.stem) for p in (out_dir / "checkpoints").glob("*.pth"))
+    val_runs = n_iters // val_freq
+    want = {k: n_iters * PIX2PIX_LAUNCHES[k] + val_runs * PIX2PIX_VAL_PAIRS
+            * PIX2PIX_G_LAUNCHES[k] for k in PIX2PIX_LAUNCHES}
+    rec = {"phase": "pix2pix_run", "entry": entry, "dataset": "synthetic paired PNG folders",
+           "parameters": n_params, "num_workers": raw["train"]["dataset"]["num_workers"],
+           "cuts": {"from": PIX2PIX_YAML_LENGTHS, "left_out": PIX2PIX_LEFT_OUT,
+                    "to": {"n_iters": raw["train"]["n_iters"],
+                           "n_iters_decay": raw["train"]["n_iters_decay"],
+                           "logging.freq": log_freq, "checkpointing.freq": ckpt_freq,
+                           "val.freq": val_freq, "val.dataset.load_size": list(PIX2PIX_SIZE)}},
+           "build_s": build_s, "run_s": t_end - t0, "iterations": n_iters,
+           "timed_iterations": [timed_iters.start, timed_iters.stop - 1],
+           "timed_wall_s": starts[n_iters] - starts[warm],
+           "images_per_s": timed / (starts[n_iters] - starts[warm]),
+           "plain_iteration_ms": {"median": statistics.median(plain), "n": len(plain),
+                                  **_ms_stats([p / 1e3 for p in plain])},
+           "log_iteration_ms": {i: records[i]["ms"] for i in timed_iters if records[i]["log"]},
+           "checkpoint_iteration_ms": {i: records[i]["ms"] for i in timed_iters
+                                       if records[i]["checkpoint"]},
+           "validation_iteration_ms": {i: records[i]["ms"] for i in timed_iters
+                                       if records[i]["validation"]},
+           "plain_host_ranges_ms": {r: statistics.fmean(records[i]["ranges"].get(r, 0.0)
+                                                        for i in timed_iters
+                                                        if records[i]["plain"]) * 1e3
+                                    for r in TRAINER_RANGES},
+           "t_data_ms": _ms_stats([records[i]["t_data"] for i in timed_iters]),
+           "peak_memory_bytes": peak, "peak_memory_gib": peak / 2 ** 30,
+           "losses_at_logs": {i: records[i]["losses"] for i in logged},
+           "validation_metrics": {k: statistics.fmean(v) for k, v in val_metrics.items()},
+           "checkpoints": ckpts, "launches": launches, "launches_expected": want}
+    emit(rec)
+    check(n_params == PIX2PIX_PARAMS, n_params)
+    check(finite and logged and all(sorted(records[i]["losses"]) == ["D", "G", "pix2pix"]
+                                    for i in logged),
+          f"a logged loss is not finite: {rec['losses_at_logs']}")
+    check(ckpts == [i for i in range(1, n_iters + 1) if i % ckpt_freq == 0]
+          and any(warm < c for c in ckpts), rec)
+    check(any(records[i]["validation"] for i in timed_iters), rec)
+    check(val_metrics and all(math.isfinite(x) for v in val_metrics.values() for x in v)
+          and not any(k.startswith("cycle") for k in val_metrics),
+          f"validation metrics: {val_metrics}")
+    check(launches == want, f"norm launches {launches}, expected {want}")
+
+    model = trainer.model
+    del model.set_input, model.optimize_parameters         # the instrumentation's wrappers
+    tracker.log_samples = log_samples
+    del trainer
+    gc.collect()
+    device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                       for k, v in b.items()} for b in batches]
+    steps, step_launches = model_steps(model, device_batches, "cityscapes",
+                                       PIX2PIX_MODEL_STEPS)
+    steps["plain_iteration_over_step"] = rec["plain_iteration_ms"]["median"] \
+        / steps["median_step_ms"]
+    steps["images_per_s"] = 1e3 / steps["median_step_ms"]
+    check(steps["losses_finite"] and all(s == PIX2PIX_LAUNCHES for s in step_launches),
+          f"model-level steps: {steps}, launches {step_launches}")
+    dropout = pix2pix_dropout_check(model, device_batches[0])
+    flops = pix2pix_conv_flops(model)
+    label_dropout(model)
+    profile = profile_steps(model, device_batches, PIX2PIX_PROFILED_STEPS, pix2pix_family,
+                            PIX2PIX_RANGES)
+    del model, device_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ckpts[-1], out_dir, rec, steps, dropout, flops, profile
+
+
+def pix2pix_loader_check(root, data_root, threaded):
+    """The Cityscapes config's Trainer again with `num_workers: 0` (each
+    batch decoded and transformed in its iteration) and no log,
+    checkpoint or validation inside: the host time of a plain iteration's
+    loader wait and step, beside the threaded run's (`threaded`, its
+    `pix2pix_run` record). Returns the run's norm launches."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    warm, timed = PIX2PIX_SYNC_RUN
+    n_iters = warm + timed
+    raw = pix2pix_raw(root / "pix2pix_sync", data_root)
+    raw["train"]["dataset"]["num_workers"] = 0
+    raw["train"].update(n_iters=n_iters, n_iters_decay=0, logging={"freq": 10 ** 6},
+                        checkpointing={"freq": 10 ** 6})
+    raw["val"]["freq"] = 10 ** 6
+    trainer, _ = engine("train", raw, root)
+    records = instrument_trainer(trainer)
+    inorm.reset_launches()
+    trainer.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(inorm.LAUNCHES)
+    starts = [records[i]["t0"] for i in range(1, n_iters + 1)] + [t_end]
+    timed_iters = range(warm + 1, n_iters + 1)
+    plain = [(starts[i] - starts[i - 1]) * 1e3 for i in timed_iters]
+    rec = {"phase": "pix2pix_loader_check", "num_workers": 0, "iterations": n_iters,
+           "plain_iteration_ms": {"median": statistics.median(plain),
+                                  **_ms_stats([p / 1e3 for p in plain])},
+           "plain_host_ranges_ms": {r: statistics.fmean(records[i]["ranges"].get(r, 0.0)
+                                                        for i in timed_iters) * 1e3
+                                    for r in TRAINER_RANGES},
+           "threaded": {"num_workers": threaded["num_workers"],
+                        "plain_iteration_ms": threaded["plain_iteration_ms"]["median"],
+                        "plain_host_ranges_ms": threaded["plain_host_ranges_ms"]},
+           "launches": launches}
+    emit(rec)
+    check(launches == {k: n_iters * v for k, v in PIX2PIX_LAUNCHES.items()}, rec)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pix2pix_one_step(out_dir, data_root, batch, mixed_precision, norms=None):
+    """Losses, gradients and norm launches of one train step of a fresh
+    Pix2Pix (its state, generator included, made from the seed) on
+    `batch`."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils.builders import build_gan
+    model = build_gan(pix2pix_conf(out_dir, data_root, mixed_precision=mixed_precision))
+    model.setup(batch)
+    model.set_input(batch)
+    inorm.reset_launches()
+    with norms or contextlib.nullcontext():
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    out = ({k: float(v) for k, v in model.losses.items()}, grads_of(model),
+           dict(inorm.LAUNCHES))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pix2pix_grad_checks(out_dir, data_root, batch):
+    """One step with the kernel norms against one with the plain norms from
+    the same state, batch and dropout masks (the generator's seed): fp32
+    (TF32 off, deterministic algorithms where PyTorch has them) losses
+    within `TRAIN_FP32_LOSS_RTOL`, every gradient within
+    `TRAIN_FP32_GRAD_MAX` relative L2, with the train phase's controls
+    (the kernels' run repeated; one-ulp noise on every plain norm output);
+    bf16, each run against the fp32 plain gradient (`TRAIN_BF16_GRAD_RATIO`).
+    Returns the launches of its runs."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses, grads, launches = pix2pix_one_step(out_dir, data_root, batch, False)
+        ref_losses, ref_grads, ref_launches = pix2pix_one_step(out_dir, data_root, batch, False,
+                                                               plain_norms())
+        _, repeat, launches_r = pix2pix_one_step(out_dir, data_root, batch, False)
+        plain_fwd = pix2pix_one_step(out_dir, data_root, batch, False, plain_forward())[1]
+        one_ulp = pix2pix_one_step(out_dir, data_root, batch, False,
+                                   plain_forward(ulp_noise=True))[1]
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved[:3]
+        torch.use_deterministic_algorithms(saved[3], warn_only=saved[4])
+    keys = [k for k, g in ref_grads.items() if g is not None]
+    inert = [k for k, g in ref_grads.items() if g is None]
+    err = {k: rel_l2(grads[k], ref_grads[k]) for k in keys}
+    loss_err = {k: abs(losses[k] - ref_losses[k]) / abs(ref_losses[k]) for k in ref_losses}
+    rec = {"phase": "pix2pix_grad_check", "dtype": "float32", "losses": losses,
+           "losses_plain_norms": ref_losses, "loss_rel_err_vs_plain": loss_err,
+           "loss_rtol": TRAIN_FP32_LOSS_RTOL,
+           "grad_rel_l2_by_network": net_rel_l2(grads, ref_grads),
+           "grad_rel_l2_worst": sorted(err.items(), key=lambda kv: -kv[1])[:5],
+           "grad_rel_l2_median": statistics.median(err.values()), "grad_tol": TRAIN_FP32_GRAD_MAX,
+           "grad_rel_l2_kernel_repeat_by_network": net_rel_l2(repeat, grads),
+           "grad_rel_l2_backward_vs_autograd_by_network": net_rel_l2(plain_fwd, ref_grads),
+           "grad_rel_l2_one_ulp_output_noise_by_network": net_rel_l2(one_ulp, plain_fwd),
+           "n_grads": len(keys), "n_inert_biases": len(inert),
+           "launches": launches, "launches_plain_norms": ref_launches}
+    emit(rec)
+    check(all(grads[k] is None for k in inert), rec)
+    # Inert biases: the convs before a norm, one for each norm of G and D.
+    check(len(inert) == sum(PIX2PIX_G_LAUNCHES.values()) + sum(PIX2PIX_D_LAUNCHES.values()),
+          f"inert biases: {inert}")
+    check(max(err.values()) <= TRAIN_FP32_GRAD_MAX, rec)
+    check(max(loss_err.values()) <= TRAIN_FP32_LOSS_RTOL, rec)
+    check(launches == PIX2PIX_LAUNCHES and sum(ref_launches.values()) == 0, rec)
+
+    losses16, grads16, l16 = pix2pix_one_step(out_dir, data_root, batch, True)
+    ref16_losses, ref16, l16p = pix2pix_one_step(out_dir, data_root, batch, True, plain_norms())
+    kernel = {k: rel_l2(grads16[k], ref_grads[k]) for k in keys}
+    plain = {k: rel_l2(ref16[k], ref_grads[k]) for k in keys}
+    ratio = statistics.median(kernel[k] / plain[k] for k in keys)
+    loss_err16 = {k: abs(losses16[k] - ref16_losses[k]) / abs(ref16_losses[k])
+                  for k in ref16_losses}
+    rec = {"phase": "pix2pix_grad_check", "dtype": "bfloat16", "losses": losses16,
+           "loss_rel_err_vs_plain": loss_err16, "loss_rtol": TRAIN_BF16_LOSS_RTOL,
+           "grad_vs_fp32_kernel_by_network": net_rel_l2(grads16, ref_grads),
+           "grad_vs_fp32_plain_by_network": net_rel_l2(ref16, ref_grads),
+           "grad_vs_fp32_kernel_max": max(kernel.values()),
+           "grad_vs_fp32_plain_max": max(plain.values()),
+           "grad_vs_fp32_median_ratio": ratio, "grad_ratio_tol": TRAIN_BF16_GRAD_RATIO,
+           "launches": l16}
+    emit(rec)
+    check(max(loss_err16.values()) <= TRAIN_BF16_LOSS_RTOL, rec)
+    check(ratio <= TRAIN_BF16_GRAD_RATIO, rec)
+    check(rec["grad_vs_fp32_kernel_max"] <= TRAIN_BF16_GRAD_RATIO
+          * rec["grad_vs_fp32_plain_max"], rec)
+    check(l16 == PIX2PIX_LAUNCHES and sum(l16p.values()) == 0, rec)
+    return [launches, launches_r, l16]
+
+
+def pix2pix_serve(root, data_root, out_dir, load_iter):
+    """From the run's last checkpoint: the `Tester` and `Inferer.run()` over
+    the validation folder, then a deployment `Inferer`'s `infer` against the
+    plain norms. Returns the main path's launches."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.configs.config import Config
+    from ganslate_tpu_torch.configs.omega import Conf
+    from ganslate_tpu_torch.configs.utils import init_config
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    raw = pix2pix_raw(out_dir, data_root, load_iter=load_iter)
+    shape = (PIX2PIX_VAL_PAIRS, *PIX2PIX_SIZE, 3)
+    want = {k: PIX2PIX_VAL_PAIRS * v for k, v in PIX2PIX_G_LAUNCHES.items()}
+    launches = []
+
+    inorm.reset_launches()
+    tester, entry = engine("test", raw, root)
+    metrics = {}
+    log_samples = tester.tracker.log_samples
+
+    def keep_metrics(*args, **kwargs):
+        for m in tester.tracker.metrics:
+            for name, values in m.items():
+                metrics.setdefault(name, []).extend(values)
+        return log_samples(*args, **kwargs)
+
+    tester.tracker.log_samples = keep_metrics
+    t0 = time.perf_counter()
+    tester.run()
+    launches.append(dict(inorm.LAUNCHES))
+    rec = {"phase": "pix2pix_test", "entry": entry, "load_iter": load_iter,
+           "run_s": time.perf_counter() - t0,
+           "metrics_mean": {k: statistics.fmean(v) for k, v in metrics.items()},
+           "launches": launches[-1]}
+    emit(rec)
+    check(metrics and all(len(v) == PIX2PIX_VAL_PAIRS and all(math.isfinite(x) for x in v)
+                          for v in metrics.values()), rec)
+    check(launches[-1] == want, rec)
+    del tester
+    gc.collect()
+
+    inorm.reset_launches()
+    inferer, entry = engine("infer", raw, root)
+    outputs = []
+    save = inferer.save_generated_tensor
+
+    def keep(generated_tensor, **kwargs):
+        outputs.append(np.array(generated_tensor))
+        return save(generated_tensor=generated_tensor, **kwargs)
+
+    inferer.save_generated_tensor = keep
+    t0 = time.perf_counter()
+    inferer.run()
+    launches.append(dict(inorm.LAUNCHES))
+    out = np.concatenate(outputs)
+    rec = {"phase": "pix2pix_infer_run", "entry": entry, "run_s": time.perf_counter() - t0,
+           "shape": list(out.shape), "dtype": str(out.dtype), "out_min": float(out.min()),
+           "out_max": float(out.max()), "out_std": float(out.std()), "launches": launches[-1]}
+    emit(rec)
+    check(out.shape == shape and out.dtype == np.float32 and bool(np.isfinite(out).all())
+          and -1 <= rec["out_min"] <= rec["out_max"] <= 1 and rec["out_std"] > 1e-3, rec)
+    check(launches[-1] == want, rec)
+    x = inferer.data_loader.dataset[0]["A"][None]
+    del inferer
+    gc.collect()
+
+    raw["infer"] = {"is_deployment": True, "wire_dtype": "bfloat16",
+                    "checkpointing": {"load_iter": load_iter}}
+    deployed = Inferer(init_config(Conf.create(raw), Config))
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    y = deployed.infer(x)
+    latency_ms = (time.perf_counter() - t0) * 1e3
+    launches.append(dict(inorm.LAUNCHES))
+    with plain_norms():
+        inorm.reset_launches()
+        ref = deployed.infer(x)
+        check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+    err = (y.float() - ref.float()).abs()
+    rec = {"phase": "pix2pix_serve", "latency_ms_first_call": latency_ms,
+           "max_abs_err_vs_plain": float(err.max()), "mean_abs_err_vs_plain": float(err.mean()),
+           "tol_max": SLICE_BF16_MAX, "tol_mean": SLICE_BF16_MEAN, "launches": launches[-1]}
+    sw_output_check(rec, y, (1, *PIX2PIX_SIZE, 3))
+    emit(rec)
+    check(launches[-1] == PIX2PIX_G_LAUNCHES, rec)
+    check(rec["max_abs_err_vs_plain"] <= SLICE_BF16_MAX, rec)
+    check(rec["mean_abs_err_vs_plain"] <= SLICE_BF16_MEAN, rec)
+    del deployed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hx4_patches(n, seed):
+    """`n` batches of 1 of HX4-shaped patches from `seed`: A two smooth
+    random fields of (32, 128, 128) (the FDG-PET and CT channels), B one,
+    in [-1, 1]."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    rng = np.random.default_rng(seed)
+
+    def fields(c):
+        coarse = rng.normal(size=(1, c, *(d // 8 for d in HX4_PATCH))).astype(np.float32)
+        f = F.interpolate(torch.from_numpy(coarse), size=HX4_PATCH, mode="trilinear",
+                          align_corners=False)
+        return torch.tanh(f).permute(0, 2, 3, 4, 1).contiguous().numpy()
+
+    return [{"A": fields(2), "B": fields(1)} for _ in range(n)]
+
+
+def hx4_phase(out_dir):
+    """The HX4 PET Pix2Pix's networks at full width, model-level: timed
+    bf16 steps through `build_gan` -> `setup` -> `optimize_parameters`
+    (step ms, peak memory, finite losses, the norm launches of every step),
+    then one G forward against the plain norms. Returns the launches of its
+    steps and its forward."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils.builders import build_gan
+    from ganslate_tpu_torch.utils.testing import make_pix2pix_conf
+    t0 = time.perf_counter()
+    conf = make_pix2pix_conf(str(out_dir), seed=1, **HX4_NETS)
+    batches = hx4_patches(2, SEED + 60)
+    model = build_gan(conf)
+    model.setup(batches[0])
+    n_params = {name: sum(p.numel() for p in net.parameters())
+                for name, net in model.networks.items()}
+    device_batches = [{k: torch.from_numpy(v).to(model.device) for k, v in b.items()}
+                      for b in batches]
+    steps, launches = model_steps(model, device_batches, "hx4", HX4_STEPS)
+    x = device_batches[0]["A"]
+    inorm.reset_launches()
+    y = model.infer(x)
+    launches.append(dict(inorm.LAUNCHES))
+    with plain_norms():
+        inorm.reset_launches()
+        ref = model.infer(x)
+        check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+    err = (y - ref).abs()
+    rec = {"phase": "hx4_steps", "parameters": n_params, "patch": list(HX4_PATCH), **steps,
+           "images_per_s": 1e3 / steps["median_step_ms"],
+           "forward_max_abs_err_vs_plain": float(err.max()),
+           "forward_mean_abs_err_vs_plain": float(err.mean()),
+           "tol_max": SW_BF16_MAX, "tol_mean": SW_BF16_MEAN, "forward_launches": launches[-1],
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(n_params == HX4_PARAMS, n_params)
+    check(steps["losses_finite"] and all(s == HX4_LAUNCHES for s in launches[:-1]), rec)
+    check(launches[-1] == HX4_G_LAUNCHES, rec)
+    check(tuple(y.shape) == (1, *HX4_PATCH, 1) and bool(torch.isfinite(y).all()), rec)
+    check(rec["forward_max_abs_err_vs_plain"] <= SW_BF16_MAX
+          and rec["forward_mean_abs_err_vs_plain"] <= SW_BF16_MEAN, rec)
+    del model, device_batches, y, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pix2pix_phase(root):
+    """Phase 9; returns the norm launches of its main path (the Trainer run,
+    the serving from its checkpoint and the HX4 steps)."""
+    import importlib.util
+    import torch
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    check(importlib.util.find_spec("PIL") is not None,
+          "the pix2pix phase reads PNG folders through Pillow")
+    data_root = root / "pix2pix_data"
+    write_pix2pix_data(data_root)
+    batches = pix2pix_batches(pix2pix_conf(root / "pix2pix_conf", data_root), 4, SEED + 53)
+    emit({"phase": "pix2pix_data", "seconds": time.perf_counter() - t0,
+          "train_pairs": PIX2PIX_TRAIN_PAIRS, "val_pairs": PIX2PIX_VAL_PAIRS,
+          "batch_shapes": {k: list(v.shape) for k, v in batches[0].items()}})
+    launches, load_iter, out_dir, run, steps, dropout, flops, profile = \
+        pix2pix_train_run(root, data_root, batches)
+    totals = dict(launches)
+    for step in pix2pix_serve(root, data_root, out_dir, load_iter):
+        for k, v in step.items():
+            totals[k] += v
+    other = [pix2pix_loader_check(root, data_root, run)]
+    other += pix2pix_grad_checks(root / "pix2pix_check", data_root, batches[0])
+    hx4 = hx4_phase(root / "hx4")
+    for step in hx4:
+        for k, v in step.items():
+            totals[k] += v
+
+    fam = profile["device_ms_per_step_by_family"]
+    conv_ms = sum(fam.get(f, 0.0) for f in ("conv_forward", "conv_dgrad", "conv_wgrad",
+                                            "conv_backward_other"))
+    left = torch.cuda.memory_allocated() - allocated
+    rec = {"phase": "pix2pix_summary", "seconds": time.perf_counter() - t0,
+           "images_per_s_trainer": run["images_per_s"], "model_steps": steps,
+           "conv_gflop": {k: v / 1e9 for k, v in flops.items()},
+           "conv_tflop_per_s": flops["step"] / (conv_ms * 1e-3) / 1e12
+           if conv_ms else "not measured",
+           "profile": profile, "dropout": dropout, "launches_main_path": totals,
+           "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other) for k in totals},
+           "device_bytes_left_allocated": left}
+    emit(rec)
+    check(profile["device_busy_ms_per_step"] != "not measured"
+          and fam.get("norm_kernels", 0) > 0 and fam.get("dropout", 0) > 0,
+          "the profile saw no norm kernel or no dropout")
+    check(left < 2 ** 28, f"the pix2pix phase left {left} bytes allocated on the device")
+    return totals
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2882,6 +3607,11 @@ def main() -> int:
         revgan_totals = revgan_phase(Path(tmp))
     torch.cuda.empty_cache()
     phase_done("revgan")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pix2pix_totals = pix2pix_phase(Path(tmp))
+    torch.cuda.empty_cache()
+    phase_done("pix2pix")
     emit({"phase": "phase_seconds", **seconds})
     # Every RevGAN slab takes the split form.
     check(revgan_totals["split"] > 0 and revgan_totals["onepass"] == 0,
@@ -2891,15 +3621,20 @@ def main() -> int:
     for name, replaces in (("onepass", "ganslate_tpu/ops/instance_norm.py:66"),
                            ("split", "ganslate_tpu/ops/instance_norm.py:105")):
         s = summary[name]
+        by_path = {"slice": totals[name], "train": train_totals[name],
+                   "trainer": trainer_totals[name], "sliding_window": sw_totals[name],
+                   "revgan": revgan_totals[name], "pix2pix": pix2pix_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
         check(sw_totals[name] > 0, f"the sliding-window requests never launched {name}")
+        check(pix2pix_totals[name] > 0, f"the pix2pix phase never launched {name}")
         totals[name] += (train_totals[name] + trainer_totals[name] + sw_totals[name]
-                         + revgan_totals[name])
+                         + revgan_totals[name] + pix2pix_totals[name])
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
-                        "replaces": replaces, "launches": totals[name], **s})
+                        "replaces": replaces, "launches": totals[name],
+                        "launches_by_path": by_path, **s})
     emit(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,12 +46,12 @@ class PatchGAN(nn.Module):
             setattr(self, f"down{n}", Conv(feats, out, kw, strides=2, padding=1,
                                            use_bias=use_bias, bias_inert=inert,
                                            kernel_init=init, generator=generator))
-            setattr(self, f"down{n}_norm", NormAct(norm_type, "leaky_relu"))
+            setattr(self, f"down{n}_norm", NormAct(norm_type, "leaky_relu", features=out))
             feats = out
         out = ndf * min(2 ** n_layers, 8)
         self.penultimate = Conv(feats, out, kw, strides=1, padding=1, use_bias=use_bias,
                                 bias_inert=inert, kernel_init=init, generator=generator)
-        self.penultimate_norm = NormAct(norm_type, "leaky_relu")
+        self.penultimate_norm = NormAct(norm_type, "leaky_relu", features=out)
         self.head = Conv(out, 1, kw, strides=1, padding=1, kernel_init=init,
                          generator=generator)
 

@@ -12,7 +12,14 @@ compiles it into one program; the order of the updates is the same.
 Checkpoints are `<output_dir>/checkpoints/<iter>.pth`, the original
 ganslate's layout: one state dict per network and `optimizer_<group>` per
 optimizer, plus `pool_<name>` per image pool (its images, count and
-generator state), which the JAX package saves too and the original does not.
+generator state) and, for a model with dropout, `rng` (the state of its
+per-apply generator), which the JAX package saves too (its `pools` and
+`rng`) and the original does not.
+
+Train-time randomness (dropout) is the JAX package's per-apply key: a train
+step passes the model's device generator `rng`, seeded from `_seed()`, to
+each `apply` of a network that has dropout; `infer`, the Validator and the
+Tester pass none, so dropout is off there.
 
 Mixed precision is the JAX package's bf16 compute policy, not autocast: the
 fp32 master parameters and the input are cast to bf16 at each network
@@ -83,6 +90,8 @@ class BaseGAN(ABC):
         self.visuals: Dict[str, torch.Tensor] = {}
         self.metrics: Dict[str, torch.Tensor] = {}
         self.pools: Dict[str, object] = {}
+        # The per-apply generator of train-time randomness (`init_rng`).
+        self.rng: Optional[torch.Generator] = None
         self._drawn_seed: Optional[int] = None
 
         if self.is_train:
@@ -168,6 +177,7 @@ class BaseGAN(ABC):
             self.init_optimizers()
             self.init_metrics()
             self.init_pools(example_batch)
+            self.init_rng()
             load_iter = self.conf.train.checkpointing.load_iter
             if load_iter:
                 self.load_networks(load_iter)
@@ -175,6 +185,15 @@ class BaseGAN(ABC):
             self.load_networks(self.conf[self.conf.mode].checkpointing.load_iter)
 
     # ------------------------------------------------------------- training
+
+    def init_rng(self):
+        """The model's generator of train-time randomness, on its device,
+        seeded from `_seed()`; train steps pass it to `apply`."""
+        self.rng = torch.Generator(device=self.device).manual_seed(self._seed())
+
+    def _stochastic(self) -> bool:
+        """Does a network of the model draw from `rng` (dropout)?"""
+        return any(getattr(net, "use_dropout", False) for net in self.networks.values())
 
     def make_adam(self, group: str, lr: float) -> torch.optim.Adam:
         """Adam over the parameters of `group`'s networks, with the original
@@ -213,12 +232,17 @@ class BaseGAN(ABC):
                        for k, p in self.networks[name].named_parameters()}
                 for name in names}
 
-    def apply(self, name: str, x: torch.Tensor, params: Optional[Dict] = None, **kwargs):
+    def apply(self, name: str, x: torch.Tensor, params: Optional[Dict] = None,
+              generator: Optional[torch.Generator] = None, **kwargs):
         """Run network `name` on a channels-last `(N, *spatial, C)` batch
         under the compute-dtype policy (`params` from `compute_params`);
-        returns `(N, *spatial, C)` in the compute dtype. `kwargs` go to the
+        returns `(N, *spatial, C)` in the compute dtype. `generator` turns on
+        the network's train-time randomness for this call (dropout, where the
+        network has it), as the JAX package's `rng`. `kwargs` go to the
         network's forward (`inverse=True` runs a RevGAN generator BA)."""
         net = self.networks[name]
+        if generator is not None and getattr(net, "use_dropout", False):
+            kwargs["generator"] = generator
         x = x.to(self.compute_dtype)
         # (N, *spatial, C) -> (N, C, *spatial): a view, channels-last in memory.
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
@@ -227,14 +251,17 @@ class BaseGAN(ABC):
         return y.permute(0, *range(2, y.ndim), 1)
 
     def apply_batched(self, name: str, xs: Sequence[torch.Tensor],
-                      params: Optional[Dict] = None):
+                      params: Optional[Dict] = None,
+                      generator: Optional[torch.Generator] = None):
         """Apply network `name` to several same-shaped batches as one
         concatenated forward where that computes the same numbers (a
-        per-sample network: see `_batch_fusable`), else one apply each."""
+        per-sample network: see `_batch_fusable`), else one apply each, in
+        order, each drawing from `generator`."""
         if not self._batch_fusable(self.networks[name]):
-            return [self.apply(name, x, params) for x in xs]
+            return [self.apply(name, x, params, generator) for x in xs]
         b = xs[0].shape[0]
-        out = self.apply(name, torch.cat([x.to(self.compute_dtype) for x in xs]), params)
+        out = self.apply(name, torch.cat([x.to(self.compute_dtype) for x in xs]), params,
+                         generator)
         return list(out.split(b))
 
     @staticmethod
@@ -330,7 +357,7 @@ class BaseGAN(ABC):
         name = f"G_{direction}"
         kwargs = {}
         if name not in self.networks and "G" in self.networks:
-            name, kwargs = "G", {"inverse": direction == "BA"}
+            name, kwargs = "G", ({"inverse": True} if direction == "BA" else {})
         if name not in self.networks:
             raise KeyError(f"The model has no generator for direction {direction}; "
                            f"networks: {list(self.networks)}")
@@ -349,9 +376,9 @@ class BaseGAN(ABC):
 
     def save_checkpoint(self, iter_idx: int):
         """Save `<output_dir>/checkpoints/<iter>.pth`: each network's state
-        dict, each optimizer's as `optimizer_<group>`, and each image pool's
-        as `pool_<name>`, so that a resumed run continues the uninterrupted
-        one."""
+        dict, each optimizer's as `optimizer_<group>`, each image pool's as
+        `pool_<name>`, and for a model with dropout its generator's state as
+        `rng`, so that a resumed run continues the uninterrupted one."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
         path.parent.mkdir(parents=True, exist_ok=True)
         logger.info(f"Saving checkpoint at iteration {iter_idx} -> {path}")
@@ -360,6 +387,8 @@ class BaseGAN(ABC):
                         for group, optimizer in self.optimizers.items()})
         payload.update({f"pool_{name}": pool.state_dict()
                         for name, pool in self._saved_pools().items()})
+        if self.rng is not None and self._stochastic():
+            payload["rng"] = self.rng.get_state()
         torch.save(payload, path)
 
     def _saved_pools(self):
@@ -369,9 +398,9 @@ class BaseGAN(ABC):
     def load_networks(self, iter_idx: int):
         """Load `<output_dir>/checkpoints/<iter>.pth`, a dict of per-network
         state dicts (`{"G_AB": state_dict, ...}`), the original ganslate's
-        layout. In train mode, also the image pools where the checkpoint has
-        them, and with `load_optimizers` the optimizers' states where it has
-        them."""
+        layout. In train mode, also the image pools and the generator of a
+        model with dropout where the checkpoint has them, and with
+        `load_optimizers` the optimizers' states where it has them."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
         if not path.is_file():
             raise FileNotFoundError(f"No checkpoint at {path}")
@@ -399,3 +428,9 @@ class BaseGAN(ABC):
         else:
             logger.info("Checkpoint holds no image pools (one of the original ganslate); "
                         "pools start fresh.")
+        if self._stochastic():
+            if "rng" in checkpoint:
+                self.rng.set_state(checkpoint["rng"])
+            else:
+                logger.info("Checkpoint holds no generator state; train-time randomness "
+                            "starts fresh from the seed.")

@@ -223,20 +223,52 @@ def _channels_first_view(y):
     return y.permute(0, y.ndim - 1, *range(1, y.ndim - 1))
 
 
+class BatchNorm(nn.Module):
+    """Affine batch norm over (N, *spatial) per channel (the JAX package's
+    `layers.BatchNorm`): torch's BatchNorm with `track_running_stats=False`,
+    so batch statistics serve in training and in evaluation alike and a
+    train step keeps no running state. Statistics are fp32; `scale` (ones)
+    and `bias` (zeros) are applied in fp32 and the result is cast back to
+    x's dtype. Plain PyTorch: the JAX package's version is XLA, not a
+    kernel."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.epsilon = epsilon
+
+    def forward(self, x):
+        axes = (0, *range(2, x.ndim))
+        x32 = x.float()
+        mean = x32.mean(dim=axes, keepdim=True)
+        var = (x32 - mean).square().mean(dim=axes, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        return (y * self.scale.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
 class NormAct(nn.Module):
-    """Instance norm fused with the following activation
+    """A norm fused with the following activation
     (`activation` in {'none', 'relu', 'leaky_relu'}).
 
-    Matches torch InstanceNorm2d/3d defaults (affine=False,
-    track_running_stats=False, eps=1e-5); statistics are fp32 under a bf16
-    compute policy. Other norm types run norm, then activation."""
+    Instance norm matches torch InstanceNorm2d/3d defaults (affine=False,
+    track_running_stats=False, eps=1e-5) and runs the norm kernels;
+    statistics are fp32 under a bf16 compute policy. Batch norm holds its
+    per-channel parameters in a `BatchNorm_0` submodule (flax's name for it
+    inside the JAX package's `NormAct`), so it needs `features`. Other norm
+    types run norm, then activation."""
 
     def __init__(self, norm_type: str = "instance", activation: str = "none",
-                 negative_slope: float = 0.2, epsilon: float = 1e-5):
+                 negative_slope: float = 0.2, epsilon: float = 1e-5,
+                 features: Optional[int] = None):
         super().__init__()
-        if norm_type not in ("instance", "none", None):
-            raise NotImplementedError(
-                f"Normalization layer `{norm_type}` is not ported yet")
+        if norm_type not in ("instance", "batch", "none", None):
+            raise NotImplementedError(f"Normalization layer `{norm_type}` not supported")
+        if norm_type == "batch":
+            if features is None:
+                raise ValueError("batch norm holds per-channel parameters: give `features`")
+            self.BatchNorm_0 = BatchNorm(features, epsilon)
         self.norm_type = norm_type
         self.activation = activation
         self.negative_slope = negative_slope
@@ -247,6 +279,8 @@ class NormAct(nn.Module):
             y = instance_norm(_channels_last_view(x), self.epsilon, self.activation,
                               self.negative_slope)
             return _channels_first_view(y)
+        if self.norm_type == "batch":
+            x = self.BatchNorm_0(x)
         if self.activation == "relu":
             return F.relu(x)
         if self.activation == "leaky_relu":
@@ -255,35 +289,51 @@ class NormAct(nn.Module):
 
 
 class InstanceNorm(NormAct):
-    """Instance norm without activation."""
+    """Instance norm without activation. `features` is accepted, as every
+    norm constructor of `get_norm_layer` takes it, and unused: the norm has
+    no parameters."""
 
-    def __init__(self, epsilon: float = 1e-5):
+    def __init__(self, features: Optional[int] = None, epsilon: float = 1e-5):
         super().__init__("instance", "none", epsilon=epsilon)
 
 
 class IdentityNorm(NormAct):
     """`norm_type='none'`: a pass-through."""
 
-    def __init__(self):
+    def __init__(self, features: Optional[int] = None):
         super().__init__("none", "none")
 
 
 def get_norm_layer(norm_type: str = "instance"):
-    """Config `norm_type` -> norm module constructor."""
+    """Config `norm_type` -> norm module constructor, called with the
+    channel count: `get_norm_layer(norm_type)(features)`."""
     if norm_type == "instance":
         return InstanceNorm
+    if norm_type == "batch":
+        return BatchNorm
     if norm_type in ("none", None):
         return IdentityNorm
-    raise NotImplementedError(f"Normalization layer `{norm_type}` is not ported yet")
+    raise NotImplementedError(f"Normalization layer `{norm_type}` not supported")
 
 
-def apply_norm_s2d(norm_type: str, h, channels: Optional[int] = None, s2d: int = 0):
+def apply_norm_s2d(norm_type: str, h, channels: Optional[int] = None, s2d: int = 0,
+                   norm: Optional[nn.Module] = None):
     """Norm dispatch of the s2d-capable generators (the JAX package's
     `layers.apply_norm_s2d`). There, `s2d > 1` selects the grouped norm of
     its space-to-depth execution form, which computes the same function; the
-    port runs the plain computation, so every `s2d` gives the plain norm."""
-    del channels, s2d
-    return get_norm_layer(norm_type)()(h)
+    port runs the plain computation, so every `s2d` gives the plain norm.
+    `norm` is the network's own norm module, which a norm with parameters
+    (batch norm) needs; as in the JAX package, the s2d form takes instance
+    and no norm only."""
+    if s2d > 1 and norm_type not in ("instance", "none", None):
+        raise ValueError(f"the s2d execution space supports instance and no norm, "
+                         f"got {norm_type!r}")
+    if norm is None:
+        if norm_type == "batch":
+            raise ValueError("batch norm holds per-channel parameters: pass the "
+                             "network's `BatchNorm` module as `norm`")
+        norm = get_norm_layer(norm_type)()
+    return norm(h)
 
 
 def is_bias_before_norm(norm_type: str = "instance") -> bool:
@@ -326,3 +376,37 @@ class PReLU(nn.Module):
 
     def forward(self, x):
         return F.prelu(x, self.slope.to(x.dtype))
+
+
+# ------------------------------------------------------------------ dropout
+
+
+def dropout_mask(shape: Sequence[int], keep: float, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Boolean keep-mask of `shape` (a channels-last `(N, *spatial, C)`
+    activation): each element True with probability `keep`, drawn from
+    `generator` on `device`."""
+    return torch.rand(tuple(shape), generator=generator, device=device) < keep
+
+
+class Dropout(nn.Module):
+    """Dropout with flax's formula, `where(mask, x / keep, 0)` in x's dtype,
+    keep = 1 - rate. The mask comes from the generator the caller passes
+    (`BaseGAN.apply`'s per-apply randomness, as the JAX package passes a key
+    per apply), drawn in the channels-last order of the activation, so that
+    the masked output keeps its memory format. In eval mode, and in any call
+    without a generator, it is the identity."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if generator is None or not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = dropout_mask((x.shape[0], *x.shape[2:], x.shape[1]), keep, generator, x.device)
+        mask = mask.permute(0, mask.ndim - 1, *range(1, mask.ndim - 1))
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -8,7 +8,9 @@ copies it into the port module whose submodules carry the same names.
 
 - Conv kernel `(*k, I, O)` -> `(O, I, *k)`.
 - ConvTranspose kernel `(*k, I, O)` -> spatial flip -> `(I, O, *k)`.
-- Biases and PReLU slopes are copied as they are.
+- Biases, PReLU slopes and batch norms' `scale` and `bias` are copied as
+  they are. A U-Net's norms carry flax's automatic names (`BatchNorm_0`,
+  ...) in the port too, so its tree needs no mapping.
 - A subtree stacked on a leading block axis (the JAX package's invertible
   couplings, e.g. `downs_0/core/blocks/F/conv/kernel` of shape
   `(n_blocks, 5, 5, 5, C, C)`, or Piresnet3D's `core/blocks/G/conv/kernel`
@@ -28,8 +30,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, PReLU, conv_kernel_to_torch,
-                                          conv_transpose_kernel_to_torch)
+from ganslate_tpu_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, PReLU,
+                                          conv_kernel_to_torch, conv_transpose_kernel_to_torch)
 
 
 def _layers(tree, path=()):
@@ -90,16 +92,19 @@ def load_flax_params(module: torch.nn.Module, params) -> torch.nn.Module:
             convert = conv_transpose_kernel_to_torch
         elif isinstance(layer, Conv):
             convert = conv_kernel_to_torch
-        elif not isinstance(layer, PReLU):
-            raise KeyError(f"`{name}` is a {type(layer).__name__}, not a conv or PReLU layer")
+        elif not isinstance(layer, (PReLU, BatchNorm)):
+            raise KeyError(f"`{name}` is a {type(layer).__name__}, not a conv, PReLU or "
+                           f"batch norm layer")
         for leaf, value in leaves.items():
             value = torch.from_numpy(np.array(value, dtype=np.float32))
-            if leaf == "kernel" and not isinstance(layer, PReLU):
+            if leaf == "kernel" and isinstance(layer, (Conv, ConvTranspose)):
                 target, value, attr = layer.weight, convert(value), "weight"
             elif leaf == "bias" and getattr(layer, "bias", None) is not None:
                 target, attr = layer.bias, "bias"
             elif leaf == "slope" and isinstance(layer, PReLU):
                 target, attr = layer.slope, "slope"
+            elif leaf == "scale" and isinstance(layer, BatchNorm):
+                target, attr = layer.scale, "scale"
             else:
                 raise KeyError(f"unexpected flax parameter `{'/'.join(path + (leaf,))}`")
             if tuple(value.shape) != tuple(target.shape):

@@ -17,7 +17,14 @@ built with `Conf.create` + `init_config`, as `chip_smoke.py` does).
   Piresnet3D of depth 5, 32 first-layer channels, memory saving on;
   PatchGAN3D with 2 layers; lambda 5/5, lr_G 4e-4, lr_D 2e-4), with an
   infer section that serves `<output_dir>/checkpoints/<load_iter>.pth`
-  through a sliding window of the patch size."""
+  through a sliding window of the patch size.
+- `make_pix2pix_conf`: training the Cityscapes label->photo Pix2Pix
+  (`projects/cityscapes_label2photo/experiments/pix2pix.yaml`: Unet2D with
+  7 levels, ngf 128 and dropout; the conditional PatchGAN2D with 4 layers
+  and 6 input channels; lr_G 2e-4, lr_D 1e-4, lambda 30); `spatial_dims=3`
+  with its overrides gives the HX4 PET Pix2Pix's
+  networks (`projects/maastro_hx4_pet_translation/experiments/
+  pix2pix.yaml`)."""
 
 from ganslate_tpu_torch.configs.config import Config
 from ganslate_tpu_torch.configs.omega import Conf
@@ -179,6 +186,64 @@ def make_revgan_conf(output_dir: str,
             "is_deployment": True,
             "checkpointing": {"load_iter": load_iter},
             "sliding_window": {"window_size": list(patch), "batch_size": 1},
+        },
+    }
+    return init_config(Conf.create(raw), config_class=Config)
+
+
+def make_pix2pix_conf(output_dir: str,
+                      spatial_dims: int = 2,
+                      num_downs: int = 7,
+                      ngf: int = 128,
+                      use_dropout: bool = True,
+                      ndf: int = 64,
+                      n_layers_D: int = 4,
+                      kernel_size_D=None,
+                      in_out_channels=(3, 3),
+                      lambda_pix2pix: float = 30.0,
+                      cuda: bool = True,
+                      mixed_precision: bool = True,
+                      batch_size: int = 1,
+                      n_iters: int = 297500,
+                      n_iters_decay: int = 5000,
+                      seed: int = 0):
+    """The discriminator is conditional: it sees A and B concatenated, so
+    its input channels are the sum of the generator's."""
+    unet, patchgan = ("Unet2D", "PatchGAN2D") if spatial_dims == 2 else ("Unet3D",
+                                                                        "PatchGAN3D")
+    discriminator = {
+        "_target_": f"ganslate.nn.discriminators.{patchgan}",
+        "ndf": ndf,
+        "n_layers": n_layers_D,
+        "in_channels": {"B": int(sum(in_out_channels))},
+    }
+    if kernel_size_D is not None:
+        discriminator["kernel_size"] = list(kernel_size_D)
+    raw = {
+        "train": {
+            "output_dir": output_dir,
+            "batch_size": batch_size,
+            "cuda": cuda,
+            "mixed_precision": mixed_precision,
+            "n_iters": n_iters,
+            "n_iters_decay": n_iters_decay,
+            "logging": {"freq": 1000000},
+            "checkpointing": {"freq": 1000000},
+            "gan": {
+                "_target_": "ganslate.nn.gans.paired.Pix2PixConditionalGAN",
+                "generator": {
+                    "_target_": f"ganslate.nn.generators.{unet}",
+                    "num_downs": num_downs,
+                    "ngf": ngf,
+                    "use_dropout": use_dropout,
+                    "in_out_channels": {"AB": list(in_out_channels)},
+                },
+                "discriminator": discriminator,
+                "optimizer": {"lr_D": 0.0001, "lr_G": 0.0002,
+                              "lambda_pix2pix": lambda_pix2pix},
+            },
+            "metrics": {"discriminator_evolution": True},
+            "seed": seed,
         },
     }
     return init_config(Conf.create(raw), config_class=Config)

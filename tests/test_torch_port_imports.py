@@ -51,7 +51,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "ganslate_tpu_torch.nn.generators.resnet.piresnet3d",
             "ganslate_tpu_torch.nn.discriminators.patchgan.patchgan3d",
             "ganslate_tpu_torch.nn.gans.unpaired.revgan",
-            "ganslate_tpu_torch.data.utils.stochastic_focal_patching"} <= names
+            "ganslate_tpu_torch.data.utils.stochastic_focal_patching",
+            "ganslate_tpu_torch.nn.generators.unet.unet",
+            "ganslate_tpu_torch.nn.generators.unet.unet2d",
+            "ganslate_tpu_torch.nn.generators.unet.unet3d",
+            "ganslate_tpu_torch.nn.gans.paired.pix2pix",
+            "ganslate_tpu_torch.nn.losses.pix2pix_losses"} <= names
     # The data plane, the engines and the trackers.
     assert {f"ganslate_tpu_torch.{m}" for m in (
         "data", "data.samplers", "data.loaders", "data.image_folder",
@@ -152,7 +157,7 @@ def test_import_attr_aliases_to_the_port(prefix):
 
 @pytest.mark.parametrize("target, missing", [
     ("ganslate.nn.discriminators.MultiScalePatchGAN3D", "MultiScalePatchGAN3D"),
-    ("ganslate.nn.gans.paired.Pix2PixConditionalGAN", "ganslate_tpu_torch.nn.gans.paired"),
+    ("ganslate.utils.metrics.fid.FID", "ganslate_tpu_torch.utils.metrics.fid"),
     ("ganslate.nn.generators.Resnet3D", "Resnet3D"),
 ])
 def test_import_attr_names_what_the_port_lacks(target, missing):
@@ -174,6 +179,17 @@ def test_import_attr_resolves_the_vnets(name):
     "nn.discriminators.PatchGAN3D", "nn.discriminators.PatchGAN3DConfig"))
 def test_import_attr_resolves_the_revgan_slice(target):
     """The BRaTS RevGAN experiment's `_target_`s resolve to the port's."""
+    module, name = f"ganslate_tpu_torch.{target}".rsplit(".", 1)
+    import importlib
+    assert import_attr(f"ganslate.{target}") is getattr(importlib.import_module(module), name)
+
+
+@pytest.mark.parametrize("target", (
+    "nn.gans.paired.Pix2PixConditionalGAN", "nn.gans.paired.Pix2PixConditionalGANConfig",
+    "nn.generators.Unet2D", "nn.generators.Unet2DConfig",
+    "nn.generators.Unet3D", "nn.generators.Unet3DConfig"))
+def test_import_attr_resolves_the_pix2pix_slice(target):
+    """The Pix2Pix experiments' `_target_`s resolve to the port's."""
     module, name = f"ganslate_tpu_torch.{target}".rsplit(".", 1)
     import importlib
     assert import_attr(f"ganslate.{target}") is getattr(importlib.import_module(module), name)

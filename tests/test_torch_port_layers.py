@@ -126,7 +126,7 @@ def test_norm_act_keeps_layout_and_matches_reference():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(tl.IdentityNorm()(x), x)
     with pytest.raises(NotImplementedError):
-        tl.get_norm_layer("batch")
+        tl.get_norm_layer("group")
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))

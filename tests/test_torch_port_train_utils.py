@@ -140,7 +140,7 @@ class _Model:
     def __init__(self, net):
         self.networks = {"D": net}
 
-    def apply(self, name, x, params=None):
+    def apply(self, name, x, params=None, generator=None):
         return self.networks[name](x)
 
 
