@@ -128,9 +128,38 @@ and prints no result line):
    of 3 layers, k4) model-level on synthetic (32, 128, 128) patches at
    batch 1 in bf16: steps, peak memory, finite losses, norm launches, one
    forward against the plain norms.
+10. cut: the BRaTS CUT experiment (`projects/brats_mri_sequence_translation/
+   experiments/cut.yaml` field for field, built in Python: Vnet3D, down
+   blocks (2, 2, 3), up blocks (3, 3, 3), 8,070,257 parameters; PatchGAN3D
+   with 2 layers; PatchNCE on the encoder taps [0, 1, 2, 3], 256 patches, an
+   MLP of 256; (32, 176, 176) patches, batch 1, bf16), with its loop lengths
+   and frequencies cut, a seed set and the revgan phase's synthetic
+   datasets (`CUT_LEFT_OUT`). (a) The port's command line in a subprocess:
+   `python -m ganslate_tpu_torch train config=<yaml>` for 4 iterations with
+   a checkpoint and one validation through the sliding window, then
+   `infer config=<yaml>` from the checkpoint; exit codes, the losses D, G,
+   NCE and NCE_idt finite at every log, finite validation metrics, and G,
+   D and mlp in the checkpoint. (b) The same experiment through
+   `init_engine("train")` in this process, measured: patches/s, plain
+   iterations against log, checkpoint and validation ones, t_data, peak
+   memory, the norm launches of every step and validation; then on its
+   model: model-level steps, conv FLOPs, and 3 steps under
+   `torch.profiler` by family (convs, norm kernels, the plain norm
+   backward, the NCE work, Adam, casts, layout copies) with the idle
+   share. (c) One step against the plain norms from the same state, batch
+   and patch ids, in fp32 (losses 1e-4, gradients 1e-2) and bf16 (each
+   against the fp32 gradient). (d) From (b)'s checkpoint,
+   `init_engine("infer")`: `run()` over the volume and `infer` A->B
+   through the sliding window against the plain norms; B->A raises. (e)
+   The 2D CUT and FastCUT at the CUT paper's width, model-level (Resnet2D
+   of 9 blocks, ngf 64, PatchGAN2D of 3 layers, taps (0, 4, 8, 12, 16),
+   256x256, batch 1, bf16): steps, peak memory, finite losses, the flips
+   drawn, the norm launches of every step, and one tap call at index 8,
+   whose norms run the kernels without their ReLU.
 
 The kernels phase also checks and times both kernels at the V-Net's, the
-RevGAN's and the Pix2Pix's norm slabs (in both dtypes for the last), and
+RevGAN's, the Pix2Pix's and the CUT's norm slabs (in both dtypes for the
+Pix2Pix's), and
 checks a channel count that is not a multiple of the kernels' channel
 block (C = 20), which the wrappers pad.
 
@@ -386,6 +415,66 @@ HX4_D_LAUNCHES = {"onepass": 2, "split": 1}
 HX4_LAUNCHES = {k: HX4_G_LAUNCHES[k] + 2 * HX4_D_LAUNCHES[k] for k in HX4_G_LAUNCHES}
 HX4_PARAMS = {"G": 24_659_329, "D": 11_056_065}
 
+# The cut phase: the BRaTS CUT experiment
+# (`projects/brats_mri_sequence_translation/experiments/cut.yaml`: the BRaTS
+# Vnet3D, PatchNCE on its 4 encoder taps, PatchGAN3D with 2 layers, (32,
+# 176, 176) patches, batch 1, bf16) at full width through the port's
+# command line, on the synthetic BRaTS-shaped volumes of the revgan phase.
+CUT_YAML_LENGTHS = {"n_iters": 20000, "n_iters_decay": 20000, "logging.freq": 50,
+                    "checkpointing.freq": 5000, "val.freq": 40000}
+# The command line's run in a subprocess: (iterations, logging.freq,
+# checkpointing.freq, val.freq): a checkpoint and one validation at its end.
+CUT_CLI_RUN = (4, 2, 4, 4)
+# The measured run in this process: (warm-up iterations, timed iterations,
+# logging.freq, checkpointing.freq, val.freq).
+CUT_RUN = (5, 20, 5, 20, 15)
+CUT_MODEL_STEPS = (2, 5)
+CUT_PROFILED_STEPS = 3
+CUT_LEFT_OUT = {
+    "project": "the project's datasets import the JAX package and SimpleITK",
+    "train.dataset._target_": "chip_smoke.SyntheticBratsDataset (no BRaTS volumes here)",
+    "val.dataset._target_": "chip_smoke.SyntheticBratsValDataset",
+    "train.seed": "unset in the YAML (drawn) -> the script's seed, so that a run repeats"}
+# Norm launches of one Vnet3D pass (`SW_LAUNCHES` per window: 7 one-pass at
+# level 3, 33 split), of its tap pass at nce_layers [0, 1, 2, 3] (the input
+# block and the 3 down blocks: 7 one-pass, 11 split) and of one PatchGAN3D
+# pass (2 split). A train step: G on real_A (fake_B) and on real_B (idt_B);
+# 4 tap passes (the sources and targets of NCE and identity NCE); D on real
+# and fake as one forward in the D step, and on fake_B in the G step.
+CUT_G_LAUNCHES = {"onepass": 7, "split": 33}
+CUT_TAP_LAUNCHES = {"onepass": 7, "split": 11}
+CUT_D_LAUNCHES = {"onepass": 0, "split": 2}
+CUT_LAUNCHES = {k: 2 * CUT_G_LAUNCHES[k] + 4 * CUT_TAP_LAUNCHES[k] + 2 * CUT_D_LAUNCHES[k]
+                for k in CUT_G_LAUNCHES}
+CUT_PARAMS = {"G": 8_070_257, "D": 2_642_369, "mlp": 325_632}
+# The BRaTS CUT's Vnet3D norm slabs (N, D, H, W, C) at batch 1 in
+# training: level 0 (16 channels; the out block's 32), levels 1 and 2, and
+# level 3 (the one-pass slab); level 0 in fp32 too (the step check).
+CUT_SLABS = tuple((s, "bfloat16") for s in (
+    (1, 32, 176, 176, 16), (1, 32, 176, 176, 32), (1, 16, 88, 88, 32), (1, 8, 44, 44, 64),
+    (1, 4, 22, 22, 128))) + (((1, 32, 176, 176, 16), "float32"),)
+# Backward nodes of the NCE work (`cut_family`).
+CUT_NCE_BACKWARD = ("AddmmBackward", "MmBackward", "BmmBackward", "LogSoftmaxBackward",
+                    "MaskedFillBackward", "IndexSelectBackward", "ReluBackward",
+                    "SqrtBackward", "DivBackward")
+# The 2D CUT and FastCUT at the CUT paper's width (Park et al., ECCV 2020):
+# Resnet2D of 9 blocks, ngf 64, 3 -> 3; PatchGAN2D, ndf 64, 3 layers; taps
+# (0, 4, 8, 12, 16), 256 patches, an MLP of 256; 256x256, batch 1, bf16.
+# CUT with identity NCE at 0.5; FastCUT with the flip, no identity NCE and
+# lambda_nce 10.
+CUT2D_SIZE = 256
+CUT2D_NETS = dict(
+    generator={"_target_": "ganslate.nn.generators.Resnet2D", "n_residual_blocks": 9,
+               "ngf": 64, "in_out_channels": {"AB": [3, 3]}},
+    discriminator={"_target_": "ganslate.nn.discriminators.PatchGAN2D", "ndf": 64,
+                   "n_layers": 3, "in_channels": {"B": 3}},
+    nce_layers=(0, 4, 8, 12, 16), num_patches=256, mlp_nc=256)
+CUT2D_CONFIGS = {
+    "cut": dict(use_equivariance_flip=False, lambda_nce=1.0, lambda_nce_idt=0.5),
+    "fastcut": dict(use_equivariance_flip=True, lambda_nce=10.0, lambda_nce_idt=0.0)}
+CUT2D_STEPS = (2, 6)
+CUT2D_PARAMS = {"G": 11_378_179, "D": 2_764_737}
+
 # Published peaks (NVIDIA data sheets): HBM bytes/s, fp32 (non-tensor)
 # FLOP/s and dense bf16 tensor FLOP/s, by card.
 CARDS = (("H100 PCIe", 2.0e12, 51e12, 756e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
@@ -634,6 +723,11 @@ def check_kernels(bandwidth, flops):
     for shape, act in PIX2PIX_SLABS:
         for dtype in (torch.bfloat16, torch.float32):
             timed_slab("kernel_pix2pix", shape, dtype, act, iters=20)
+
+    # The BRaTS CUT's Vnet3D slabs at batch 1 in training (cut phase):
+    # checked and timed, level 0 in fp32 too.
+    for shape, dtype in CUT_SLABS:
+        timed_slab("kernel_cut", shape, getattr(torch, dtype), "none")
 
     # Channel counts that are not a multiple of the channel block: the
     # wrappers pad them (checked in both dtypes, each form).
@@ -1922,11 +2016,11 @@ def trainer_phase(root):
 # ------------------------------------------------------------- phase 7
 
 
-def conv_flops(net, x):
+def conv_flops(net, x, **kwargs):
     """FLOPs of the convolutions and transposed convolutions of one forward
-    of `net` on `x` (N, C, *spatial): 2 x (output elements x input channels
-    x kernel volume), and for a transposed conv 2 x (input elements x output
-    channels x kernel volume)."""
+    of `net` on `x` (N, C, *spatial), `kwargs` to its forward: 2 x (output
+    elements x input channels x kernel volume), and for a transposed conv 2
+    x (input elements x output channels x kernel volume)."""
     import torch
     from ganslate_tpu_torch.nn.layers import Conv, ConvTranspose
     counts = {"conv": 0, "conv_transpose": 0}
@@ -1942,7 +2036,7 @@ def conv_flops(net, x):
                if isinstance(m, (Conv, ConvTranspose))]
     try:
         with torch.inference_mode():
-            net(x)
+            net(x, **kwargs)
     finally:
         for h in handles:
             h.remove()
@@ -2388,16 +2482,16 @@ def net_rel_l2(grads, ref):
     return out
 
 
-def revgan_one_step(out_dir, batch, memory_saving, mixed_precision, norms=None,
-                    inspect=None):
+def fresh_step(conf, batch, norms=None, inspect=None):
     """Losses, gradients and norm launches of one train step of a fresh
-    RevGAN (its state made from the seed) on `batch`; then `inspect(model)`,
-    where given."""
+    model of `conf` (its state and generator, hence its dropout masks or
+    patch ids, made from the seed) on `batch`, inside `norms` where given
+    (a context that may swap the norms); then `inspect(model)`, where
+    given."""
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
     from ganslate_tpu_torch.utils.builders import build_gan
-    model = build_gan(revgan_conf(out_dir, memory_saving=memory_saving,
-                                  mixed_precision=mixed_precision))
+    model = build_gan(conf)
     model.setup(batch)
     model.set_input(batch)
     inorm.reset_launches()
@@ -2412,6 +2506,13 @@ def revgan_one_step(out_dir, batch, memory_saving, mixed_precision, norms=None,
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def revgan_one_step(out_dir, batch, memory_saving, mixed_precision, norms=None,
+                    inspect=None):
+    """`fresh_step` of the RevGAN config, with or without memory saving."""
+    return fresh_step(revgan_conf(out_dir, memory_saving=memory_saving,
+                                  mixed_precision=mixed_precision), batch, norms, inspect)
 
 
 def revgan_grad_checks(out_dir, batch):
@@ -2653,21 +2754,28 @@ def model_steps(model, batches, label, steps=REVGAN_MODEL_STEPS):
         launches
 
 
-def revgan_train_run(root, batches):
-    """Run (a): the memory-saving config from `init_engine("train")` through
-    `run()`; then model-level steps and the profile on its model. Returns
-    the run's norm launches, its last checkpoint, its output directory, the
-    model-level record and the profile."""
-    import numpy as np
+def trainer_run(root, raw, label, run, want, unit, **extra):
+    """Phase `label`'s Trainer run: `init_engine("train")` from `raw`
+    through `run()`, its iterations timed (`instrument_trainer`), its
+    validation metrics kept and its norm launches counted from 0. `run` is
+    (warm-up iterations, timed iterations, logging.freq, checkpointing.freq,
+    val.freq), `want` the launches the run must make, `unit` what a batch
+    holds ("images" or "patches"); `extra` joins the record (a `cuts`
+    entry is completed with the run's loop lengths and frequencies). Emits
+    the `<label>_run` record and checks the iterations, finite losses at
+    every log, the checkpoints, a validation inside the timed span with
+    finite metrics, and the launches. Returns the record and the trained
+    model, its instrumentation removed."""
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
-    warm, timed, log_freq, ckpt_freq, val_freq = REVGAN_RUN
+    warm, timed, log_freq, ckpt_freq, val_freq = run
     n_iters = warm + timed
-    out_dir = root / "revgan"
+    out_dir = Path(raw["train"]["output_dir"])
     t_build = time.perf_counter()
-    raw = revgan_raw(out_dir)
     trainer, entry = engine("train", raw, root)
     build_s = time.perf_counter() - t_build
+    n_params = {name: sum(p.numel() for p in net.parameters())
+                for name, net in trainer.model.networks.items()}
     records = instrument_trainer(trainer)
     val_metrics = {}
     tracker = trainer.validator.tracker
@@ -2699,20 +2807,16 @@ def revgan_train_run(root, batches):
     logged = [i for i in range(1, n_iters + 1) if records[i]["log"]]
     finite = all(math.isfinite(v) for i in logged for v in records[i]["losses"].values())
     ckpts = sorted(int(p.stem) for p in (out_dir / "checkpoints").glob("*.pth"))
-    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
-    val_runs = n_iters // val_freq
-    want = {k: n_iters * v + val_runs * 2 * windows * piresnet_launches()[k]
-            for k, v in revgan_launches(True).items()}
-    rec = {"phase": "revgan_run", "entry": entry, "dataset": "synthetic BRaTS volumes",
-           "cuts": {"from": REVGAN_YAML_LENGTHS, "left_out": REVGAN_LEFT_OUT,
-                    "to": {"n_iters": raw["train"]["n_iters"],
-                           "n_iters_decay": raw["train"]["n_iters_decay"],
-                           "logging.freq": log_freq, "checkpointing.freq": ckpt_freq,
-                           "val.freq": val_freq}},
+    if "cuts" in extra:
+        extra["cuts"] = {**extra["cuts"], "to": {
+            "n_iters": raw["train"]["n_iters"], "n_iters_decay": raw["train"]["n_iters_decay"],
+            "logging.freq": log_freq, "checkpointing.freq": ckpt_freq, "val.freq": val_freq,
+            **extra["cuts"].get("to", {})}}
+    rec = {"phase": f"{label}_run", "entry": entry, **extra, "parameters": n_params,
            "build_s": build_s, "run_s": t_end - t0, "iterations": n_iters,
            "timed_iterations": [timed_iters.start, timed_iters.stop - 1],
            "timed_wall_s": starts[n_iters] - starts[warm],
-           "patches_per_s": timed / (starts[n_iters] - starts[warm]),
+           f"{unit}_per_s": timed / (starts[n_iters] - starts[warm]),
            "plain_iteration_ms": {"median": statistics.median(plain), "n": len(plain),
                                   **_ms_stats([p / 1e3 for p in plain])},
            "log_iteration_ms": {i: records[i]["ms"] for i in timed_iters if records[i]["log"]},
@@ -2727,7 +2831,6 @@ def revgan_train_run(root, batches):
            "t_data_ms": _ms_stats([records[i]["t_data"] for i in timed_iters]),
            "peak_memory_bytes": peak, "peak_memory_gib": peak / 2 ** 30,
            "losses_at_logs": {i: records[i]["losses"] for i in logged},
-           "validation_windows_per_volume": windows,
            "validation_metrics": {k: statistics.fmean(v) for k, v in val_metrics.items()},
            "checkpoints": ckpts, "launches": launches, "launches_expected": want}
     emit(rec)
@@ -2735,8 +2838,7 @@ def revgan_train_run(root, batches):
     check(ckpts == [i for i in range(1, n_iters + 1) if i % ckpt_freq == 0]
           and any(warm < c for c in ckpts), rec)
     check(any(records[i]["validation"] for i in timed_iters), rec)
-    check(val_metrics and all(math.isfinite(x) for v in val_metrics.values() for x in v)
-          and "cycle_SSIM" in val_metrics,
+    check(val_metrics and all(math.isfinite(x) for v in val_metrics.values() for x in v),
           f"validation metrics: {val_metrics}")
     check(launches == want, f"norm launches {launches}, expected {want}")
 
@@ -2745,6 +2847,27 @@ def revgan_train_run(root, batches):
     tracker.log_samples = log_samples
     del trainer
     gc.collect()
+    return rec, model
+
+
+def revgan_train_run(root, batches):
+    """Run (a): the memory-saving config from `init_engine("train")` through
+    `run()` (`trainer_run`); then model-level steps and the profile on its
+    model. Returns the run's norm launches, its last checkpoint, its output
+    directory, the model-level record and the profile."""
+    import numpy as np
+    import torch
+    warm, timed, _, _, val_freq = REVGAN_RUN
+    out_dir = root / "revgan"
+    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
+    val_runs = (warm + timed) // val_freq
+    want = {k: (warm + timed) * v + val_runs * 2 * windows * piresnet_launches()[k]
+            for k, v in revgan_launches(True).items()}
+    rec, model = trainer_run(root, revgan_raw(out_dir), "revgan", REVGAN_RUN, want, "patches",
+                             dataset="synthetic BRaTS volumes",
+                             cuts={"from": REVGAN_YAML_LENGTHS, "left_out": REVGAN_LEFT_OUT},
+                             validation_windows_per_volume=windows)
+    check("cycle_SSIM" in rec["validation_metrics"], rec["validation_metrics"])
     device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
                        for k, v in b.items()} for b in batches]
     steps, step_launches = model_steps(model, device_batches, "memory_saving")
@@ -2756,7 +2879,8 @@ def revgan_train_run(root, batches):
     del model, device_batches
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, ckpts[-1], out_dir, steps, step_launches, recompute, flops, profile
+    return (rec["launches"], rec["checkpoints"][-1], out_dir, steps, step_launches, recompute,
+            flops, profile)
 
 
 def sw_windows(spatial, roi, overlap=0.25):
@@ -3073,101 +3197,30 @@ def pix2pix_dropout_check(model, batch):
 
 
 def pix2pix_train_run(root, data_root, batches):
-    """The Cityscapes config from `init_engine("train")` through `run()`;
-    then model-level steps, the dropout check, conv FLOPs and the profile on
-    its model. Returns the run's norm launches, its last checkpoint and
-    output directory, and the records."""
+    """The Cityscapes config from `init_engine("train")` through `run()`
+    (`trainer_run`); then model-level steps, the dropout check, conv FLOPs
+    and the profile on its model. Returns the run's norm launches, its last
+    checkpoint and output directory, and the records."""
     import numpy as np
     import torch
-    from ganslate_tpu_torch.ops import instance_norm as inorm
-    warm, timed, log_freq, ckpt_freq, val_freq = PIX2PIX_RUN
+    warm, timed, _, _, val_freq = PIX2PIX_RUN
     n_iters = warm + timed
     out_dir = root / "pix2pix"
-    t_build = time.perf_counter()
     raw = pix2pix_raw(out_dir, data_root)
-    trainer, entry = engine("train", raw, root)
-    build_s = time.perf_counter() - t_build
-    n_params = {name: sum(p.numel() for p in net.parameters())
-                for name, net in trainer.model.networks.items()}
-    records = instrument_trainer(trainer)
-    val_metrics = {}
-    tracker = trainer.validator.tracker
-    log_samples = tracker.log_samples
-
-    def keep_metrics(*args, **kwargs):
-        for m in tracker.metrics:
-            for name, values in m.items():
-                val_metrics.setdefault(name, []).extend(values)
-        return log_samples(*args, **kwargs)
-
-    tracker.log_samples = keep_metrics
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    inorm.reset_launches()
-    t0 = time.perf_counter()
-    trainer.run()
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
-    launches = dict(inorm.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-
-    check(sorted(records) == list(range(1, n_iters + 1)), f"iterations run: {sorted(records)}")
-    starts = [records[i]["t0"] for i in range(1, n_iters + 1)] + [t_end]
-    for i in range(1, n_iters + 1):
-        records[i]["ms"] = (starts[i] - starts[i - 1]) * 1e3
-    timed_iters = range(warm + 1, n_iters + 1)
-    plain = [records[i]["ms"] for i in timed_iters if records[i]["plain"]]
-    logged = [i for i in range(1, n_iters + 1) if records[i]["log"]]
-    finite = all(math.isfinite(v) for i in logged for v in records[i]["losses"].values())
-    ckpts = sorted(int(p.stem) for p in (out_dir / "checkpoints").glob("*.pth"))
     val_runs = n_iters // val_freq
     want = {k: n_iters * PIX2PIX_LAUNCHES[k] + val_runs * PIX2PIX_VAL_PAIRS
             * PIX2PIX_G_LAUNCHES[k] for k in PIX2PIX_LAUNCHES}
-    rec = {"phase": "pix2pix_run", "entry": entry, "dataset": "synthetic paired PNG folders",
-           "parameters": n_params, "num_workers": raw["train"]["dataset"]["num_workers"],
-           "cuts": {"from": PIX2PIX_YAML_LENGTHS, "left_out": PIX2PIX_LEFT_OUT,
-                    "to": {"n_iters": raw["train"]["n_iters"],
-                           "n_iters_decay": raw["train"]["n_iters_decay"],
-                           "logging.freq": log_freq, "checkpointing.freq": ckpt_freq,
-                           "val.freq": val_freq, "val.dataset.load_size": list(PIX2PIX_SIZE)}},
-           "build_s": build_s, "run_s": t_end - t0, "iterations": n_iters,
-           "timed_iterations": [timed_iters.start, timed_iters.stop - 1],
-           "timed_wall_s": starts[n_iters] - starts[warm],
-           "images_per_s": timed / (starts[n_iters] - starts[warm]),
-           "plain_iteration_ms": {"median": statistics.median(plain), "n": len(plain),
-                                  **_ms_stats([p / 1e3 for p in plain])},
-           "log_iteration_ms": {i: records[i]["ms"] for i in timed_iters if records[i]["log"]},
-           "checkpoint_iteration_ms": {i: records[i]["ms"] for i in timed_iters
-                                       if records[i]["checkpoint"]},
-           "validation_iteration_ms": {i: records[i]["ms"] for i in timed_iters
-                                       if records[i]["validation"]},
-           "plain_host_ranges_ms": {r: statistics.fmean(records[i]["ranges"].get(r, 0.0)
-                                                        for i in timed_iters
-                                                        if records[i]["plain"]) * 1e3
-                                    for r in TRAINER_RANGES},
-           "t_data_ms": _ms_stats([records[i]["t_data"] for i in timed_iters]),
-           "peak_memory_bytes": peak, "peak_memory_gib": peak / 2 ** 30,
-           "losses_at_logs": {i: records[i]["losses"] for i in logged},
-           "validation_metrics": {k: statistics.fmean(v) for k, v in val_metrics.items()},
-           "checkpoints": ckpts, "launches": launches, "launches_expected": want}
-    emit(rec)
-    check(n_params == PIX2PIX_PARAMS, n_params)
-    check(finite and logged and all(sorted(records[i]["losses"]) == ["D", "G", "pix2pix"]
-                                    for i in logged),
-          f"a logged loss is not finite: {rec['losses_at_logs']}")
-    check(ckpts == [i for i in range(1, n_iters + 1) if i % ckpt_freq == 0]
-          and any(warm < c for c in ckpts), rec)
-    check(any(records[i]["validation"] for i in timed_iters), rec)
-    check(val_metrics and all(math.isfinite(x) for v in val_metrics.values() for x in v)
-          and not any(k.startswith("cycle") for k in val_metrics),
-          f"validation metrics: {val_metrics}")
-    check(launches == want, f"norm launches {launches}, expected {want}")
-
-    model = trainer.model
-    del model.set_input, model.optimize_parameters         # the instrumentation's wrappers
-    tracker.log_samples = log_samples
-    del trainer
-    gc.collect()
+    rec, model = trainer_run(
+        root, raw, "pix2pix", PIX2PIX_RUN, want, "images",
+        dataset="synthetic paired PNG folders",
+        num_workers=raw["train"]["dataset"]["num_workers"],
+        cuts={"from": PIX2PIX_YAML_LENGTHS, "left_out": PIX2PIX_LEFT_OUT,
+              "to": {"val.dataset.load_size": list(PIX2PIX_SIZE)}})
+    check(rec["parameters"] == PIX2PIX_PARAMS, rec["parameters"])
+    check(all(sorted(v) == ["D", "G", "pix2pix"] for v in rec["losses_at_logs"].values()),
+          rec["losses_at_logs"])
+    check(not any(k.startswith("cycle") for k in rec["validation_metrics"]),
+          rec["validation_metrics"])
     device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
                        for k, v in b.items()} for b in batches]
     steps, step_launches = model_steps(model, device_batches, "cityscapes",
@@ -3185,7 +3238,7 @@ def pix2pix_train_run(root, data_root, batches):
     del model, device_batches
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, ckpts[-1], out_dir, rec, steps, dropout, flops, profile
+    return rec["launches"], rec["checkpoints"][-1], out_dir, rec, steps, dropout, flops, profile
 
 
 def pix2pix_loader_check(root, data_root, threaded):
@@ -3231,37 +3284,16 @@ def pix2pix_loader_check(root, data_root, threaded):
     return launches
 
 
-def pix2pix_one_step(out_dir, data_root, batch, mixed_precision, norms=None):
-    """Losses, gradients and norm launches of one train step of a fresh
-    Pix2Pix (its state, generator included, made from the seed) on
-    `batch`."""
-    import torch
-    from ganslate_tpu_torch.ops import instance_norm as inorm
-    from ganslate_tpu_torch.utils.builders import build_gan
-    model = build_gan(pix2pix_conf(out_dir, data_root, mixed_precision=mixed_precision))
-    model.setup(batch)
-    model.set_input(batch)
-    inorm.reset_launches()
-    with norms or contextlib.nullcontext():
-        model.optimize_parameters()
-    torch.cuda.synchronize()
-    out = ({k: float(v) for k, v in model.losses.items()}, grads_of(model),
-           dict(inorm.LAUNCHES))
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
-
-
-def pix2pix_grad_checks(out_dir, data_root, batch):
+def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert):
     """One step with the kernel norms against one with the plain norms from
-    the same state, batch and dropout masks (the generator's seed): fp32
-    (TF32 off, deterministic algorithms where PyTorch has them) losses
-    within `TRAIN_FP32_LOSS_RTOL`, every gradient within
-    `TRAIN_FP32_GRAD_MAX` relative L2, with the train phase's controls
-    (the kernels' run repeated; one-ulp noise on every plain norm output);
-    bf16, each run against the fp32 plain gradient (`TRAIN_BF16_GRAD_RATIO`).
-    Returns the launches of its runs."""
+    the same state, batch and draws (`fresh_step` of `conf_of(mixed_
+    precision)`): fp32 (TF32 off, deterministic algorithms where PyTorch has
+    them) losses within `TRAIN_FP32_LOSS_RTOL`, every gradient within
+    `TRAIN_FP32_GRAD_MAX` relative L2, with the train phase's controls (the
+    kernels' run repeated; one-ulp noise on every plain norm output); the
+    `n_inert` inert biases without a gradient; bf16, each run against the
+    fp32 plain gradient (`TRAIN_BF16_GRAD_RATIO`). Emits `<label>_grad_check`
+    records; returns the launches of its runs."""
     import torch
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled(),
@@ -3270,13 +3302,11 @@ def pix2pix_grad_checks(out_dir, data_root, batch):
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        losses, grads, launches = pix2pix_one_step(out_dir, data_root, batch, False)
-        ref_losses, ref_grads, ref_launches = pix2pix_one_step(out_dir, data_root, batch, False,
-                                                               plain_norms())
-        _, repeat, launches_r = pix2pix_one_step(out_dir, data_root, batch, False)
-        plain_fwd = pix2pix_one_step(out_dir, data_root, batch, False, plain_forward())[1]
-        one_ulp = pix2pix_one_step(out_dir, data_root, batch, False,
-                                   plain_forward(ulp_noise=True))[1]
+        losses, grads, launches = fresh_step(conf_of(False), batch)
+        ref_losses, ref_grads, ref_launches = fresh_step(conf_of(False), batch, plain_norms())
+        _, repeat, launches_r = fresh_step(conf_of(False), batch)
+        plain_fwd = fresh_step(conf_of(False), batch, plain_forward())[1]
+        one_ulp = fresh_step(conf_of(False), batch, plain_forward(ulp_noise=True))[1]
     finally:
         (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved[:3]
@@ -3285,7 +3315,7 @@ def pix2pix_grad_checks(out_dir, data_root, batch):
     inert = [k for k, g in ref_grads.items() if g is None]
     err = {k: rel_l2(grads[k], ref_grads[k]) for k in keys}
     loss_err = {k: abs(losses[k] - ref_losses[k]) / abs(ref_losses[k]) for k in ref_losses}
-    rec = {"phase": "pix2pix_grad_check", "dtype": "float32", "losses": losses,
+    rec = {"phase": f"{label}_grad_check", "dtype": "float32", "losses": losses,
            "losses_plain_norms": ref_losses, "loss_rel_err_vs_plain": loss_err,
            "loss_rtol": TRAIN_FP32_LOSS_RTOL,
            "grad_rel_l2_by_network": net_rel_l2(grads, ref_grads),
@@ -3298,21 +3328,19 @@ def pix2pix_grad_checks(out_dir, data_root, batch):
            "launches": launches, "launches_plain_norms": ref_launches}
     emit(rec)
     check(all(grads[k] is None for k in inert), rec)
-    # Inert biases: the convs before a norm, one for each norm of G and D.
-    check(len(inert) == sum(PIX2PIX_G_LAUNCHES.values()) + sum(PIX2PIX_D_LAUNCHES.values()),
-          f"inert biases: {inert}")
+    check(len(inert) == n_inert, f"inert biases: {inert}")
     check(max(err.values()) <= TRAIN_FP32_GRAD_MAX, rec)
     check(max(loss_err.values()) <= TRAIN_FP32_LOSS_RTOL, rec)
-    check(launches == PIX2PIX_LAUNCHES and sum(ref_launches.values()) == 0, rec)
+    check(launches == launches_per_step and sum(ref_launches.values()) == 0, rec)
 
-    losses16, grads16, l16 = pix2pix_one_step(out_dir, data_root, batch, True)
-    ref16_losses, ref16, l16p = pix2pix_one_step(out_dir, data_root, batch, True, plain_norms())
+    losses16, grads16, l16 = fresh_step(conf_of(True), batch)
+    ref16_losses, ref16, l16p = fresh_step(conf_of(True), batch, plain_norms())
     kernel = {k: rel_l2(grads16[k], ref_grads[k]) for k in keys}
     plain = {k: rel_l2(ref16[k], ref_grads[k]) for k in keys}
     ratio = statistics.median(kernel[k] / plain[k] for k in keys)
     loss_err16 = {k: abs(losses16[k] - ref16_losses[k]) / abs(ref16_losses[k])
                   for k in ref16_losses}
-    rec = {"phase": "pix2pix_grad_check", "dtype": "bfloat16", "losses": losses16,
+    rec = {"phase": f"{label}_grad_check", "dtype": "bfloat16", "losses": losses16,
            "loss_rel_err_vs_plain": loss_err16, "loss_rtol": TRAIN_BF16_LOSS_RTOL,
            "grad_vs_fp32_kernel_by_network": net_rel_l2(grads16, ref_grads),
            "grad_vs_fp32_plain_by_network": net_rel_l2(ref16, ref_grads),
@@ -3325,7 +3353,7 @@ def pix2pix_grad_checks(out_dir, data_root, batch):
     check(ratio <= TRAIN_BF16_GRAD_RATIO, rec)
     check(rec["grad_vs_fp32_kernel_max"] <= TRAIN_BF16_GRAD_RATIO
           * rec["grad_vs_fp32_plain_max"], rec)
-    check(l16 == PIX2PIX_LAUNCHES and sum(l16p.values()) == 0, rec)
+    check(l16 == launches_per_step and sum(l16p.values()) == 0, rec)
     return [launches, launches_r, l16]
 
 
@@ -3512,7 +3540,11 @@ def pix2pix_phase(root):
         for k, v in step.items():
             totals[k] += v
     other = [pix2pix_loader_check(root, data_root, run)]
-    other += pix2pix_grad_checks(root / "pix2pix_check", data_root, batches[0])
+    # Inert biases: the convs before a norm, one for each norm of G and D.
+    other += kernel_vs_plain_steps(
+        "pix2pix", lambda mp: pix2pix_conf(root / "pix2pix_check", data_root, mixed_precision=mp),
+        batches[0], PIX2PIX_LAUNCHES,
+        sum(PIX2PIX_G_LAUNCHES.values()) + sum(PIX2PIX_D_LAUNCHES.values()))
     hx4 = hx4_phase(root / "hx4")
     for step in hx4:
         for k, v in step.items():
@@ -3536,6 +3568,443 @@ def pix2pix_phase(root):
           "the profile saw no norm kernel or no dropout")
     check(left < 2 ** 28, f"the pix2pix phase left {left} bytes allocated on the device")
     return totals
+
+
+# ------------------------------------------------------------ phase 10
+
+
+def cut_norm_launches(g, taps, d):
+    """Norm launches of `g` generator passes, `taps` tap passes and `d`
+    discriminator passes of the BRaTS CUT."""
+    return {k: g * CUT_G_LAUNCHES[k] + taps * CUT_TAP_LAUNCHES[k] + d * CUT_D_LAUNCHES[k]
+            for k in CUT_G_LAUNCHES}
+
+
+def cut_raw(out_dir, mixed_precision=True, load_iter=None, run=None):
+    """The BRaTS CUT experiment as a raw config tree, field for field, with
+    the run's cut loop lengths and frequencies (`run`: iterations,
+    logging.freq, checkpointing.freq, val.freq; `CUT_RUN`'s by default), a
+    seed and this script's datasets (`CUT_LEFT_OUT`); an infer section over
+    the validation volume serves checkpoint `load_iter`."""
+    if run is None:
+        warm, timed, *freqs = CUT_RUN
+        run = (warm + timed, *freqs)
+    n_iters, log_freq, ckpt_freq, val_freq = run
+    val_dataset = {"_target_": "chip_smoke.SyntheticBratsValDataset",
+                   "root": "/workspace/Task01_BrainTumour/imagesTs"}
+    raw = {
+        "train": {
+            "output_dir": str(out_dir), "cuda": True,
+            "n_iters": n_iters - n_iters // 2, "n_iters_decay": n_iters // 2,
+            "batch_size": 1, "mixed_precision": mixed_precision, "seed": SEED + 70,
+            "logging": {"freq": log_freq},
+            "checkpointing": {"freq": ckpt_freq},
+            "dataset": {"_target_": "chip_smoke.SyntheticBratsDataset",
+                        "root": "/workspace/Task01_BrainTumour/imagesTr", "num_workers": 8,
+                        "patch_size": list(REVGAN_PATCH)},
+            "gan": {
+                "_target_": "ganslate.nn.gans.unpaired.CUT",
+                "nce_layers": [0, 1, 2, 3],
+                "generator": {"_target_": "ganslate.nn.generators.Vnet3D",
+                              "use_memory_saving": False, "use_inverse": False,
+                              "in_out_channels": {"AB": [1, 1]},
+                              "down_blocks": [2, 2, 3], "up_blocks": [3, 3, 3]},
+                "discriminator": {"_target_": "ganslate.nn.discriminators.PatchGAN3D",
+                                  "n_layers": 2, "in_channels": {"B": 1}},
+                "optimizer": {"lr_D": 0.0002, "lr_G": 0.0004},
+            },
+        },
+        "val": {"freq": val_freq, "dataset": val_dataset,
+                "sliding_window": {"window_size": "${train.dataset.patch_size}"},
+                "metrics": {"cycle_metrics": False}},
+    }
+    if load_iter is not None:
+        raw["infer"] = {"checkpointing": {"load_iter": load_iter}, "is_deployment": False,
+                        "dataset": dict(val_dataset),
+                        "sliding_window": {"window_size": list(REVGAN_PATCH)}}
+    return raw
+
+
+def cut_conf(out_dir, **kwargs):
+    from ganslate_tpu_torch.configs.config import Config
+    from ganslate_tpu_torch.configs.omega import Conf
+    from ganslate_tpu_torch.configs.utils import init_config
+    return init_config(Conf.create(cut_raw(out_dir, **kwargs)), Config)
+
+
+def logged_values(log, head):
+    """{iteration: {name: value}} of the lines that follow the `head` lines
+    of a training log (`(iter:` for the losses, `(Val at iter` for the
+    validation metrics)."""
+    import re
+    found = re.findall(re.escape(head) + r" (\d+)\D[^\n]*\n([^\n]*)", log)
+    return {int(i): {k: float(v) for k, v in re.findall(r"(\S+): (\S+)", line)}
+            for i, line in found}
+
+
+def cut_cli_run(root):
+    """Run (a): `python -m ganslate_tpu_torch train config=<yaml>` in a
+    subprocess, then `infer config=<yaml>` from its last checkpoint; the
+    YAML written by the port's `Conf.to_yaml`. Checks the exit codes, the
+    losses at every log, the validation metrics and the checkpoint's
+    networks."""
+    import os
+    import torch
+    n_iters, log_freq, ckpt_freq, val_freq = CUT_CLI_RUN
+    out_dir = root / "cut_cli"
+    conf = cut_conf(out_dir, run=CUT_CLI_RUN, load_iter=n_iters)
+    path = root / "cut_cli.yaml"
+    path.write_text(conf.to_yaml())
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(here)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    records = {}
+    for command in ("train", "infer"):
+        argv = [sys.executable, "-m", "ganslate_tpu_torch", command, f"config={path}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=here, env=env, capture_output=True, text=True,
+                              timeout=600)
+        records[command] = {"argv": argv[1:], "returncode": proc.returncode,
+                            "seconds": time.perf_counter() - t0}
+        if proc.returncode:
+            emit({"phase": "cut_cli", **records, "stderr_tail": proc.stderr[-4000:]})
+            raise AssertionError(f"`{' '.join(argv[1:4])}` exited {proc.returncode}")
+    log = (out_dir / "train_log.txt").read_text()
+    losses = logged_values(log, "(iter:")
+    metrics = logged_values(log, "(Val at iter")
+    checkpoint = torch.load(out_dir / "checkpoints" / f"{n_iters}.pth", map_location="cpu",
+                            weights_only=True)
+    infer_log = (out_dir / "infer_log.txt").read_text()
+    rec = {"phase": "cut_cli", **records, "yaml": path.name, "iterations": n_iters,
+           "cuts": {"from": CUT_YAML_LENGTHS, "left_out": CUT_LEFT_OUT,
+                    "to": {"n_iters": conf.train.n_iters, "n_iters_decay":
+                           conf.train.n_iters_decay, "logging.freq": log_freq,
+                           "checkpointing.freq": ckpt_freq, "val.freq": val_freq}},
+           "losses_at_logs": losses, "validation_metrics": metrics,
+           "checkpoint_keys": sorted(checkpoint),
+           "inference_done": "Inference started." in infer_log}
+    emit(rec)
+    check(sorted(losses) == list(range(log_freq, n_iters + 1, log_freq))
+          and all(sorted(v) == ["D", "G", "NCE", "NCE_idt"] for v in losses.values())
+          and all(math.isfinite(x) for v in losses.values() for x in v.values()),
+          f"the logged losses: {losses}")
+    check(sorted(metrics) == list(range(val_freq, n_iters + 1, val_freq))
+          and all(v and all(math.isfinite(x) for x in v.values()) for v in metrics.values()),
+          f"the validation metrics: {metrics}")
+    check({"G", "D", "mlp", "optimizer_mlp"} <= set(checkpoint), rec["checkpoint_keys"])
+    check(rec["inference_done"], "the infer command did not run the Inferer")
+    return rec
+
+
+def cut_family(chain, kernel):
+    """`pix2pix_family`, with the NCE work as a family of its own: the patch
+    draws, gathers, MLP and loss (host ranges `nce`) and their backward
+    nodes (linear layers, the batched product, log-softmax, the diagonal's
+    fill, the gathers' scatter, the MLP's ReLU and the L2 normalisation,
+    which the V-Net and PatchGAN3D do not use)."""
+    if "nce" in chain:
+        return "nce"
+    node = next((n.split(": ", 1)[1] for n in chain
+                 if n.startswith("autograd::engine::evaluate_function: ")), "")
+    if node.startswith(CUT_NCE_BACKWARD):
+        return "nce"
+    return pix2pix_family(chain, kernel)
+
+
+def label_nce(model):
+    """Mark the NCE work of `model`'s train step with `nce` ranges."""
+    from ganslate_tpu_torch.nn.gans.unpaired import cut
+    for name in ("draw_patch_ids", "select_patches"):
+        setattr(cut, name, Labelled(getattr(cut, name), "nce"))
+    mlp = model.networks["mlp"]
+    mlp.forward = Labelled(mlp.forward, "nce")
+    model.criterion_nce = Labelled(model.criterion_nce, "nce")
+
+
+@contextlib.contextmanager
+def unlabelled_nce():
+    from ganslate_tpu_torch.nn.gans.unpaired import cut
+    saved = cut.draw_patch_ids, cut.select_patches
+    try:
+        yield
+    finally:
+        cut.draw_patch_ids, cut.select_patches = saved
+
+
+def cut_conv_flops(model):
+    """Conv FLOPs (`conv_flops`) of one Vnet3D pass, of its tap pass and of
+    one PatchGAN3D pass at batch 1, and of a train step: 2 G passes
+    (fake_B, idt_B) and 2 tap passes (the targets) forward and backward (the
+    backward counted as twice the forward), 2 tap passes forward only (the
+    sources, without a graph), D on fake_B with its data gradient in the G
+    step, and D at batch 2 (real and fake) forward and backward."""
+    import torch
+    g, d = model.networks["G"], model.networks["D"]
+    x = torch.zeros((1, 1, *REVGAN_PATCH), device=model.device)
+    g_pass = sum(conv_flops(g, x).values())
+    tap = sum(conv_flops(g, x, extract_features=list(model.nce_layers)).values())
+    d_pass = sum(conv_flops(d, x).values())
+    return {"g_pass": g_pass, "tap_pass": tap, "d_pass": d_pass,
+            "step": 2 * 3 * g_pass + 2 * 3 * tap + 2 * tap + 2 * d_pass + 2 * 3 * d_pass}
+
+
+def cut_train_run(root, batches):
+    """Run (b): the same experiment from `init_engine("train")` through
+    `run()` in this process (`trainer_run`); then model-level steps, conv
+    FLOPs and the profile on its model. Returns the run's norm launches,
+    its last checkpoint and output directory, and the records."""
+    import numpy as np
+    import torch
+    warm, timed, _, _, val_freq = CUT_RUN
+    n_iters = warm + timed
+    out_dir = root / "cut"
+    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
+    want = {k: n_iters * CUT_LAUNCHES[k] + n_iters // val_freq * windows * CUT_G_LAUNCHES[k]
+            for k in CUT_LAUNCHES}
+    rec, model = trainer_run(root, cut_raw(out_dir), "cut", CUT_RUN, want, "patches",
+                             dataset="synthetic BRaTS volumes",
+                             cuts={"from": CUT_YAML_LENGTHS, "left_out": CUT_LEFT_OUT},
+                             validation_windows_per_volume=windows)
+    check(rec["parameters"] == CUT_PARAMS, rec["parameters"])
+    check(all(sorted(v) == ["D", "G", "NCE", "NCE_idt"] for v in rec["losses_at_logs"].values()),
+          rec["losses_at_logs"])
+    check(not any(k.startswith("cycle") for k in rec["validation_metrics"]),
+          rec["validation_metrics"])
+    device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                       for k, v in b.items()} for b in batches]
+    steps, step_launches = model_steps(model, device_batches, "brats_cut", CUT_MODEL_STEPS)
+    steps["plain_iteration_over_step"] = rec["plain_iteration_ms"]["median"] \
+        / steps["median_step_ms"]
+    steps["patches_per_s"] = 1e3 / steps["median_step_ms"]
+    check(steps["losses_finite"] and all(s == CUT_LAUNCHES for s in step_launches),
+          f"model-level steps: {steps}, launches {step_launches}")
+    flops = cut_conv_flops(model)
+    with unlabelled_nce():
+        label_nce(model)
+        profile = profile_steps(model, device_batches, CUT_PROFILED_STEPS, cut_family,
+                                PIX2PIX_RANGES + ("nce",))
+    del model, device_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (rec["launches"], rec["checkpoints"][-1], out_dir, rec, steps, step_launches, flops,
+            profile)
+
+
+def cut_serve(root, out_dir, load_iter):
+    """Run (d): `init_engine("infer")` (not a deployment) from run (b)'s
+    last checkpoint: `run()` over the validation volume through the sliding
+    window, then `infer` AB on it, with the kernels and with the plain
+    norms; `infer` BA raises. Returns the main path's launches."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    raw = cut_raw(out_dir, load_iter=load_iter)
+    inferer, entry = engine("infer", raw, root)
+    check(list(inferer.model.networks) == ["G"], list(inferer.model.networks))
+    outputs = []
+    save = inferer.save_generated_tensor
+
+    def keep(generated_tensor, **kwargs):
+        outputs.append(np.array(generated_tensor))
+        return save(generated_tensor=generated_tensor, **kwargs)
+
+    inferer.save_generated_tensor = keep
+    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
+    want = {k: windows * v for k, v in CUT_G_LAUNCHES.items()}
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    inferer.run()
+    run_s = time.perf_counter() - t0
+    launches = [dict(inorm.LAUNCHES)]
+    out = np.concatenate(outputs)
+    shape = (1, *REVGAN_VOLUME[1:], 1)
+    rec = {"phase": "cut_infer_run", "entry": entry, "load_iter": load_iter,
+           "shape": list(out.shape), "dtype": str(out.dtype), "run_s": run_s,
+           "out_min": float(out.min()), "out_max": float(out.max()),
+           "out_std": float(out.std()), "launches": launches[0]}
+    emit(rec)
+    check(out.shape == shape and bool(np.isfinite(out).all())
+          and -1 <= rec["out_min"] <= rec["out_max"] <= 1 and rec["out_std"] > 1e-3, rec)
+    check(launches[0] == want, rec)
+
+    x = inferer.data_loader.dataset[0]["A"][None]
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    y = inferer.infer(x)
+    latency_ms = (time.perf_counter() - t0) * 1e3
+    launches.append(dict(inorm.LAUNCHES))
+    with plain_norms():
+        inorm.reset_launches()
+        ref = inferer.infer(x)
+        check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+    err = (y.float() - ref.float()).abs()
+    rec = {"phase": "cut_serve", "direction": "AB", "latency_ms": latency_ms,
+           "windows": windows, "launches": launches[-1],
+           "max_abs_err_vs_plain": float(err.max()), "mean_abs_err_vs_plain": float(err.mean()),
+           "tol_max": SW_BF16_MAX, "tol_mean": SW_BF16_MEAN}
+    sw_output_check(rec, y, shape)
+    try:
+        inferer.model.infer(torch.from_numpy(x), direction="BA")
+        rec["ba_raises"] = False
+    except ValueError as e:
+        rec["ba_raises"] = str(e)
+    emit(rec)
+    check(launches[-1] == want, rec)
+    check(rec["max_abs_err_vs_plain"] <= SW_BF16_MAX, rec)
+    check(rec["mean_abs_err_vs_plain"] <= SW_BF16_MEAN, rec)
+    check(rec["ba_raises"], "infer BA of a CUT did not raise")
+    del inferer, y, ref, err
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cut2d_launches(idt):
+    """Norm launches of one 2D CUT step at 256x256: G passes (fake_B, and
+    idt_B under identity NCE) of 19 one-pass and 4 split norms; tap passes
+    up to tap 16 (the stem and down0 norms split, down1's and 7 residual
+    blocks' one-pass), 2 for NCE and 2 more for identity NCE; PatchGAN2D's
+    3 one-pass norms in the D step (real and fake in one forward) and on
+    fake_B in the G step."""
+    g, taps = (2, 4) if idt else (1, 2)
+    return {"onepass": 19 * g + 15 * taps + 3 * 2, "split": 4 * g + 2 * taps}
+
+
+def cut2d_phase(out_dir):
+    """(e) The 2D CUT and FastCUT at the CUT paper's width, model-level:
+    timed bf16 steps through `build_gan` -> `setup` ->
+    `optimize_parameters` (step ms, peak memory, finite losses, the norm
+    launches of every step, the flips drawn), and one tap call at index 8
+    (down1's norm before its ReLU) with the kernels' launches recorded.
+    Returns the launches of its steps and tap calls."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.nn.gans.unpaired import cut
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils.builders import build_gan
+    from ganslate_tpu_torch.utils.testing import make_cut_conf
+    rng = np.random.default_rng(SEED + 80)
+    batches = [{k: rng.uniform(-1, 1, (1, CUT2D_SIZE, CUT2D_SIZE, 3)).astype(np.float32)
+                for k in ("A", "B")} for _ in range(2)]
+    all_launches, records = [], {}
+    for label, kw in CUT2D_CONFIGS.items():
+        t0 = time.perf_counter()
+        conf = make_cut_conf(str(out_dir / label), patch=(CUT2D_SIZE, CUT2D_SIZE), seed=2,
+                             **CUT2D_NETS, **kw)
+        model = build_gan(conf)
+        model.setup(batches[0])
+        n_params = {name: sum(p.numel() for p in net.parameters())
+                    for name, net in model.networks.items()}
+        device_batches = [{k: torch.from_numpy(v).to(model.device) for k, v in b.items()}
+                          for b in batches]
+        flips = []
+        draw_flip = cut.draw_flip
+
+        def record_flip(generator):
+            flips.append(draw_flip(generator))
+            return flips[-1]
+
+        cut.draw_flip = record_flip
+        try:
+            steps, launches = model_steps(model, device_batches, label, CUT2D_STEPS)
+        finally:
+            cut.draw_flip = draw_flip
+        idt = kw["lambda_nce_idt"] > 0
+        rec = {"phase": "cut2d_steps", "parameters": n_params, "size": CUT2D_SIZE, **steps,
+               "images_per_s": 1e3 / steps["median_step_ms"],
+               "nce_layers": list(model.nce_layers),
+               "mlp_channels": list(model.feature_channels()),
+               "flips": [bool(f) for f in flips], "launches_expected": cut2d_launches(idt),
+               "seconds": time.perf_counter() - t0}
+        if label == "cut":
+            calls = []
+            kernels = dict(inorm.KERNELS)
+
+            def recording(name):
+                def launch(x, eps, activation, negative_slope):
+                    calls.append([name, list(x.shape), activation])
+                    return kernels[name](x, eps, activation, negative_slope)
+                return launch
+
+            inorm.KERNELS.update({name: recording(name) for name in kernels})
+            inorm.reset_launches()
+            try:
+                with torch.no_grad():
+                    tap = model.apply("G", device_batches[0]["A"], model.compute_params(["G"]),
+                                      extract_features=[8])[0]
+                torch.cuda.synchronize()
+            finally:
+                inorm.KERNELS.update(kernels)
+            launches.append(dict(inorm.LAUNCHES))
+            rec["tap8"] = {"shape": list(tap.shape), "dtype": str(tap.dtype),
+                           "min": float(tap.min()), "kernel_calls": calls,
+                           "launches": launches[-1]}
+            # The stem's, down0's and down1's norms, each before its ReLU.
+            width = CUT2D_SIZE // 4
+            check(len(calls) == 3 and all(c[2] == "none" for c in calls)
+                  and calls[-1][1] == [1, width, width, 4 * CUT2D_NETS["generator"]["ngf"]]
+                  and float(tap.min()) < 0, rec["tap8"])
+        emit(rec)
+        check(n_params["G"] == CUT2D_PARAMS["G"] and n_params["D"] == CUT2D_PARAMS["D"],
+              n_params)
+        check(steps["losses_finite"]
+              and all(s == cut2d_launches(idt) for s in launches[:sum(CUT2D_STEPS)]), rec)
+        check(not kw["use_equivariance_flip"] or (any(rec["flips"]) and not all(rec["flips"])),
+              f"the flip was not both taken and not taken: {rec['flips']}")
+        records[label] = rec
+        all_launches += launches
+        del model, device_batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    return all_launches, records
+
+
+def cut_phase(root):
+    """Phase 10; returns the norm launches of its main path (the measured
+    Trainer run and the serving from its checkpoint) and of the 2D CUT's
+    (its steps and tap call)."""
+    import torch
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)
+    batches = revgan_batches(cut_conf(root / "cut_data"), 4, SEED + 71)
+    cli = cut_cli_run(root)
+    launches, load_iter, out_dir, run, steps, step_launches, flops, profile = \
+        cut_train_run(root, batches)
+    totals = dict(launches)
+    for step in cut_serve(root, out_dir, load_iter):
+        for k, v in step.items():
+            totals[k] += v
+    other = list(step_launches)
+    # Inert biases: the convs before a norm, one for each norm of G and D.
+    other += kernel_vs_plain_steps(
+        "cut", lambda mp: cut_conf(root / "cut_check", mixed_precision=mp), batches[0],
+        CUT_LAUNCHES, sum(CUT_G_LAUNCHES.values()) + sum(CUT_D_LAUNCHES.values()))
+    _BRATS_VOLUMES.clear()
+    launches_2d, records_2d = cut2d_phase(root / "cut2d")
+    totals_2d = {k: sum(s[k] for s in launches_2d) for k in totals}
+
+    fam = profile["device_ms_per_step_by_family"]
+    conv_ms = sum(fam.get(f, 0.0) for f in ("conv_forward", "conv_dgrad", "conv_wgrad",
+                                            "conv_backward_other"))
+    left = torch.cuda.memory_allocated() - allocated
+    rec = {"phase": "cut_summary", "seconds": time.perf_counter() - t0,
+           "cli_seconds": {k: cli[k]["seconds"] for k in ("train", "infer")},
+           "patches_per_s_trainer": run["patches_per_s"], "model_steps": steps,
+           "conv_gflop": {k: v / 1e9 for k, v in flops.items()},
+           "conv_tflop_per_s": flops["step"] / (conv_ms * 1e-3) / 1e12
+           if conv_ms else "not measured",
+           "profile": profile, "launches_main_path": totals,
+           "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other) for k in totals},
+           "launches_cut2d": totals_2d,
+           "cut2d_median_step_ms": {k: r["median_step_ms"] for k, r in records_2d.items()},
+           "device_bytes_left_allocated": left}
+    emit(rec)
+    check(profile["device_busy_ms_per_step"] != "not measured"
+          and fam.get("norm_kernels", 0) > 0 and fam.get("nce", 0) > 0,
+          "the profile saw no norm kernel or no NCE work")
+    check(left < 2 ** 28, f"the cut phase left {left} bytes allocated on the device")
+    return totals, totals_2d
 
 
 # ------------------------------------------------------------------ main
@@ -3612,6 +4081,11 @@ def main() -> int:
         pix2pix_totals = pix2pix_phase(Path(tmp))
     torch.cuda.empty_cache()
     phase_done("pix2pix")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cut_totals, cut2d_totals = cut_phase(Path(tmp))
+    torch.cuda.empty_cache()
+    phase_done("cut")
     emit({"phase": "phase_seconds", **seconds})
     # Every RevGAN slab takes the split form.
     check(revgan_totals["split"] > 0 and revgan_totals["onepass"] == 0,
@@ -3623,14 +4097,18 @@ def main() -> int:
         s = summary[name]
         by_path = {"slice": totals[name], "train": train_totals[name],
                    "trainer": trainer_totals[name], "sliding_window": sw_totals[name],
-                   "revgan": revgan_totals[name], "pix2pix": pix2pix_totals[name]}
+                   "revgan": revgan_totals[name], "pix2pix": pix2pix_totals[name],
+                   "cut": cut_totals[name], "cut2d": cut2d_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
         check(sw_totals[name] > 0, f"the sliding-window requests never launched {name}")
         check(pix2pix_totals[name] > 0, f"the pix2pix phase never launched {name}")
+        check(cut_totals[name] > 0, f"the cut phase never launched {name}")
+        check(cut2d_totals[name] > 0, f"the 2D CUT steps never launched {name}")
         totals[name] += (train_totals[name] + trainer_totals[name] + sw_totals[name]
-                         + revgan_totals[name] + pix2pix_totals[name])
+                         + revgan_totals[name] + pix2pix_totals[name] + cut_totals[name]
+                         + cut2d_totals[name])
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
                         "replaces": replaces, "launches": totals[name],

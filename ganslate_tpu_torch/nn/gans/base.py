@@ -2,7 +2,9 @@
 
 Networks are built by naming convention (generators `G`, `G_AB`, `G_BA`;
 discriminators `D`, `D_B`, `D_A`) on the device that the config's `cuda`
-field selects. Optimizer groups are `G` and `D`.
+field selects; a model builds any other network itself (CUT's `mlp`), and
+every network in `networks` is checkpointed. Optimizer groups are `G` and
+`D`, and any the model adds (CUT's `mlp`).
 
 Training runs the JAX package's entry points: `setup(example_batch)`,
 `set_input(batch)`, `optimize_parameters()` (one train step, which a
@@ -12,14 +14,15 @@ compiles it into one program; the order of the updates is the same.
 Checkpoints are `<output_dir>/checkpoints/<iter>.pth`, the original
 ganslate's layout: one state dict per network and `optimizer_<group>` per
 optimizer, plus `pool_<name>` per image pool (its images, count and
-generator state) and, for a model with dropout, `rng` (the state of its
-per-apply generator), which the JAX package saves too (its `pools` and
-`rng`) and the original does not.
+generator state) and, for a model whose train step draws from it, `rng`
+(the state of its generator), which the JAX package saves too (its `pools`
+and `rng`) and the original does not.
 
-Train-time randomness (dropout) is the JAX package's per-apply key: a train
-step passes the model's device generator `rng`, seeded from `_seed()`, to
-each `apply` of a network that has dropout; `infer`, the Validator and the
-Tester pass none, so dropout is off there.
+Train-time randomness is the JAX package's per-apply key: a train step
+passes the model's device generator `rng`, seeded from `_seed()`, to each
+`apply` of a network that has dropout (CUT also draws its patch ids and
+flip from it); `infer`, the Validator and the Tester pass none, so dropout
+is off there.
 
 Mixed precision is the JAX package's bf16 compute policy, not autocast: the
 fp32 master parameters and the input are cast to bf16 at each network
@@ -119,8 +122,9 @@ class BaseGAN(ABC):
     # ------------------------------------------------------------- networks
 
     def init_networks(self):
-        """Instantiate networks by naming convention, initialised from
-        `_seed()`, on the model's device. On the GPU the parameters are kept
+        """Instantiate networks by naming convention (any other through
+        `build_network`), initialised from `_seed()`, on the model's device.
+        On the GPU the generators' and discriminators' parameters are kept
         channels-last (`torch.channels_last_3d` for a 3D network), so that
         cuDNN's convolutions return channels-last activations for the
         instance-norm kernels."""
@@ -128,17 +132,21 @@ class BaseGAN(ABC):
         generator = torch.Generator().manual_seed(self._seed())
         for name in list(self.networks):
             if name.startswith("G"):
-                direction = "BA" if name.endswith("_BA") else "AB"
-                net = build_G(self.conf, direction, generator)
+                net = build_G(self.conf, "BA" if name.endswith("_BA") else "AB", generator)
             elif name.startswith("D"):
-                domain = "A" if name.endswith("_A") else "B"
-                net = build_D(self.conf, domain, generator)
+                net = build_D(self.conf, "A" if name.endswith("_A") else "B", generator)
             else:
-                continue
+                net = self.build_network(name, generator)
             net = net.to(self.device)
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and name.startswith(("G", "D")):
                 net = net.to(memory_format=channels_last_format(net))
             self.networks[name] = net.train(self.is_train)
+
+    def build_network(self, name: str, generator: torch.Generator) -> torch.nn.Module:
+        """A network that is neither a generator nor a discriminator (CUT's
+        `mlp`), initialised from `generator` after the networks before it in
+        `networks`; the model that names one builds it here."""
+        raise NotImplementedError(f"{type(self).__name__} has no builder for network `{name}`")
 
     @abstractmethod
     def init_criterions(self):
@@ -192,7 +200,8 @@ class BaseGAN(ABC):
         self.rng = torch.Generator(device=self.device).manual_seed(self._seed())
 
     def _stochastic(self) -> bool:
-        """Does a network of the model draw from `rng` (dropout)?"""
+        """Does the train step draw from `rng`? Here: does a network of the
+        model have dropout."""
         return any(getattr(net, "use_dropout", False) for net in self.networks.values())
 
     def make_adam(self, group: str, lr: float) -> torch.optim.Adam:
@@ -236,10 +245,12 @@ class BaseGAN(ABC):
               generator: Optional[torch.Generator] = None, **kwargs):
         """Run network `name` on a channels-last `(N, *spatial, C)` batch
         under the compute-dtype policy (`params` from `compute_params`);
-        returns `(N, *spatial, C)` in the compute dtype. `generator` turns on
-        the network's train-time randomness for this call (dropout, where the
-        network has it), as the JAX package's `rng`. `kwargs` go to the
-        network's forward (`inverse=True` runs a RevGAN generator BA)."""
+        returns `(N, *spatial, C)` in the compute dtype (a list of them for a
+        network that returns a list: CUT's feature taps). `generator` turns
+        on the network's train-time randomness for this call (dropout, where
+        the network has it), as the JAX package's `rng`. `kwargs` go to the
+        network's forward (`inverse=True` runs a RevGAN generator BA,
+        `extract_features=[...]` returns a generator's encoder taps)."""
         net = self.networks[name]
         if generator is not None and getattr(net, "use_dropout", False):
             kwargs["generator"] = generator
@@ -248,6 +259,8 @@ class BaseGAN(ABC):
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
         y = net(x, **kwargs) if params is None \
             else functional_call(net, params[name], (x,), kwargs)
+        if isinstance(y, list):
+            return [t.permute(0, *range(2, t.ndim), 1) for t in y]
         return y.permute(0, *range(2, y.ndim), 1)
 
     def apply_batched(self, name: str, xs: Sequence[torch.Tensor],
@@ -377,8 +390,9 @@ class BaseGAN(ABC):
     def save_checkpoint(self, iter_idx: int):
         """Save `<output_dir>/checkpoints/<iter>.pth`: each network's state
         dict, each optimizer's as `optimizer_<group>`, each image pool's as
-        `pool_<name>`, and for a model with dropout its generator's state as
-        `rng`, so that a resumed run continues the uninterrupted one."""
+        `pool_<name>`, and for a model whose train step draws from its
+        generator (`_stochastic`) that generator's state as `rng`, so that a
+        resumed run continues the uninterrupted one."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
         path.parent.mkdir(parents=True, exist_ok=True)
         logger.info(f"Saving checkpoint at iteration {iter_idx} -> {path}")
@@ -399,7 +413,7 @@ class BaseGAN(ABC):
         """Load `<output_dir>/checkpoints/<iter>.pth`, a dict of per-network
         state dicts (`{"G_AB": state_dict, ...}`), the original ganslate's
         layout. In train mode, also the image pools and the generator of a
-        model with dropout where the checkpoint has them, and with
+        `_stochastic` model where the checkpoint has them, and with
         `load_optimizers` the optimizers' states where it has them."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
         if not path.is_file():

@@ -14,11 +14,23 @@ of the original ganslate's modules, so an order-based importer maps its
 Every norm here runs fused with the ReLU that follows it. The JAX package
 applies a separate ReLU after the stem and down norms; fusing it is exact,
 because ReLU commutes with the monotone cast from fp32 to the compute dtype.
+
+`forward(x, extract_features=[...])` returns CUT's encoder taps instead of
+the image, at the flattened layer indices of the original's encoder
+(`nce_layers` in the experiment YAMLs): 0 pad | 1 conv | 2 norm | 3 relu |
+4, 5, 6 and 7, 8, 9 the same for the two stride-2 convs | 10 + k residual
+block k. A tap call splits the stem and down norms from their ReLUs (taps
+2, 5 and 8 are norm outputs; the split is exact by the same argument),
+gives the stem and down convs' biases their gradient (taps 1, 4 and 7 are
+raw conv outputs, bias included, as in the JAX package), and stops after
+the last requested tap.
 """
 
-from typing import Optional
+import itertools
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, NormAct, inert_bias,
@@ -57,13 +69,16 @@ class ResnetGenerator(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, norm_type: str = "instance",
                  n_residual_blocks: int = 9, ngf: int = 64,
                  weight_init_type: str = "normal", weight_init_gain: float = 0.02,
-                 use_cells_boundary: bool = False,
+                 use_cells_boundary: bool = False, use_s2d_exec: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        # `use_cells_boundary` selects a TPU execution form in the JAX package
-        # that computes the same function with the same parameters; the port
-        # accepts it and runs the plain path.
+        # `use_cells_boundary` (2D) and `use_s2d_exec` (3D) select TPU
+        # execution forms in the JAX package that compute the same function
+        # with the same parameters; the port accepts them and runs the plain
+        # path, keeping the checks of `use_s2d_exec`, so that the same calls
+        # are refused.
         del use_cells_boundary
+        self.use_s2d_exec = use_s2d_exec
         init = make_initializer(weight_init_type, weight_init_gain)
         # Every conv but the last feeds an instance norm: their biases are
         # inert (`layers.inert_bias`).
@@ -99,7 +114,42 @@ class ResnetGenerator(nn.Module):
         self.out = Conv(feats, out_channels, k7, padding=3, pad_mode=self.pad_mode,
                         use_bias=use_bias, kernel_init=init, generator=generator)
 
-    def forward(self, x):
+    @property
+    def num_feature_levels(self) -> int:
+        """Encoder taps: 4 of the stem, 3 of each down conv, one per block."""
+        return 10 + self.n_residual_blocks
+
+    def _encoder(self, x):
+        """The encoder's activations in tap order, computed as they are read."""
+        h = pad_spatial(x, (3,) * self.spatial_dims, self.pad_mode)
+        yield h
+        for conv, norm in [("initial", "initial_norm"), ("down0", "down0_norm"),
+                           ("down1", "down1_norm")]:
+            h = getattr(self, conv)(h, live_bias=True)
+            yield h
+            h = getattr(self, norm)(h, activation="none")
+            yield h
+            h = F.relu(h)
+            yield h
+        for i in range(self.n_residual_blocks):
+            h = getattr(self, f"res{i}")(h)
+            yield h
+
+    def forward(self, x, extract_features: Optional[Sequence[int]] = None):
+        if self.use_s2d_exec:
+            if extract_features is not None:
+                raise ValueError("use_s2d_exec does not support CUT feature taps; run plain "
+                                 "execution for CUT")
+            if any(d % 8 for d in x.shape[2:]):
+                raise ValueError(f"use_s2d_exec needs spatial extents divisible by 8 (two "
+                                 f"stride-2 levels on r=2 cells), got {tuple(x.shape[2:])}")
+        if extract_features is not None:
+            indices = list(extract_features)
+            if any(not 0 <= i < self.num_feature_levels for i in indices):
+                raise ValueError(f"feature taps {indices} out of range: the encoder has "
+                                 f"{self.num_feature_levels}")
+            taps = list(itertools.islice(self._encoder(x), max(indices, default=-1) + 1))
+            return [taps[i] for i in indices]
         h = pad_spatial(x, (3,) * self.spatial_dims, self.pad_mode)
         h = self.initial_norm(self.initial(h))
         for i in range(2):

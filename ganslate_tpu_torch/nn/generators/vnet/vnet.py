@@ -17,6 +17,10 @@ registered in the original ganslate's order (the JAX package's
 the up blocks, and inside a block its AB conv, its BA conv, the core, the
 PReLU.
 
+`forward(x, extract_features=[...])` returns CUT's encoder taps instead of
+the image: 0 is the input block's output, 1 + i down block i's; the call
+stops after the last requested tap, and the decoder does not run.
+
 `use_s2d_exec` selects the JAX package's space-to-depth execution form,
 which computes the same function with the same parameters; the port runs
 the plain computation and keeps its check of the input's extents, so that
@@ -227,7 +231,13 @@ class VnetGenerator(nn.Module):
             setattr(self, f"ups_{i}", UpBlock(in_w, out_w, n_convs, norm_type, sd,
                                               use_memory_saving, use_inverse, init, generator))
 
-    def forward(self, x, inverse: bool = False):
+    @property
+    def num_feature_levels(self) -> int:
+        """Encoder taps: the input block and each down block."""
+        return 1 + self.n_levels
+
+    def forward(self, x, inverse: bool = False,
+                extract_features: Optional[Sequence[int]] = None):
         if inverse and not self.use_inverse:
             raise ValueError(
                 "Trying to perform inverse forward while `use_inverse` flag is turned off.")
@@ -237,10 +247,21 @@ class VnetGenerator(nn.Module):
                 raise ValueError(f"use_s2d_exec needs spatial extents divisible by "
                                  f"2^(levels+1)={multiple}, got {tuple(x.shape[2:])}.")
         suffix = "ba" if inverse else "ab"
+        depth = self.n_levels
+        if extract_features is not None:
+            indices = list(extract_features)
+            if any(not 0 <= i < self.num_feature_levels for i in indices):
+                raise ValueError(f"feature taps {indices} out of range: the encoder has "
+                                 f"{self.num_feature_levels}")
+            if not indices:
+                return []
+            depth = max(indices)
         # The input block's output is also the last up block's skip.
         skips = [getattr(self, f"in_{suffix}")(x)]
-        for i in range(self.n_levels):
+        for i in range(depth):
             skips.append(getattr(self, f"downs_{i}")(skips[-1], inverse))
+        if extract_features is not None:
+            return [skips[i] for i in indices]
         out = skips.pop()
         for i in range(self.n_levels):
             out = getattr(self, f"ups_{i}")(out, skips.pop(), inverse)

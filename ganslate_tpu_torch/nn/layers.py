@@ -138,10 +138,13 @@ def inert_bias(norm_type: Optional[str]) -> bool:
     return norm_type == "instance"
 
 
-def _bias(layer) -> Optional[torch.Tensor]:
+def _bias(layer, live: bool = False) -> Optional[torch.Tensor]:
     """The bias to add: detached for an inert bias, so its gradient is
-    exactly zero (no gradient at all) instead of rounding noise."""
-    if layer.bias is None or not layer.bias_inert:
+    exactly zero (no gradient at all) instead of rounding noise. `live`
+    keeps an inert bias's gradient for one call: a CUT feature tap reads a
+    conv's raw output, bias included (the JAX package turns `bias_inert`
+    off on its tap path)."""
+    if layer.bias is None or not layer.bias_inert or live:
         return layer.bias
     return layer.bias.detach()
 
@@ -152,7 +155,8 @@ class Conv(nn.Module):
     `pad_mode` in {'zeros', 'reflect', 'replicate'}: a non-zero mode pads
     with `pad_spatial` first and runs the conv unpadded, as the original
     ganslate's ReflectionPad / ReplicationPad layers do. `bias_inert`: see
-    `inert_bias`."""
+    `inert_bias`; `forward(x, live_bias=True)` gives the bias its gradient
+    for that call (`_bias`)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  strides: Union[int, Sequence[int]] = 1,
@@ -172,13 +176,13 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.bias_inert = bias_inert
 
-    def forward(self, x):
+    def forward(self, x, live_bias: bool = False):
         if self.pad_mode == "zeros":
             padding = self.padding
         else:
             x = pad_spatial(x, self.padding, self.pad_mode)
             padding = 0
-        return self._conv(x, self.weight, _bias(self), self.strides, padding)
+        return self._conv(x, self.weight, _bias(self, live_bias), self.strides, padding)
 
 
 class ConvTranspose(nn.Module):
@@ -257,7 +261,9 @@ class NormAct(nn.Module):
     statistics are fp32 under a bf16 compute policy. Batch norm holds its
     per-channel parameters in a `BatchNorm_0` submodule (flax's name for it
     inside the JAX package's `NormAct`), so it needs `features`. Other norm
-    types run norm, then activation."""
+    types run norm, then activation. `forward(x, activation=...)` overrides
+    the activation for one call (a CUT feature tap reads a norm's output
+    before its ReLU)."""
 
     def __init__(self, norm_type: str = "instance", activation: str = "none",
                  negative_slope: float = 0.2, epsilon: float = 1e-5,
@@ -274,16 +280,17 @@ class NormAct(nn.Module):
         self.negative_slope = negative_slope
         self.epsilon = epsilon
 
-    def forward(self, x):
+    def forward(self, x, activation: Optional[str] = None):
+        activation = activation or self.activation
         if self.norm_type == "instance":
-            y = instance_norm(_channels_last_view(x), self.epsilon, self.activation,
+            y = instance_norm(_channels_last_view(x), self.epsilon, activation,
                               self.negative_slope)
             return _channels_first_view(y)
         if self.norm_type == "batch":
             x = self.BatchNorm_0(x)
-        if self.activation == "relu":
+        if activation == "relu":
             return F.relu(x)
-        if self.activation == "leaky_relu":
+        if activation == "leaky_relu":
             return leaky_relu(x, self.negative_slope)
         return x
 

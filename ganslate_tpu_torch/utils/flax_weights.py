@@ -8,6 +8,8 @@ copies it into the port module whose submodules carry the same names.
 
 - Conv kernel `(*k, I, O)` -> `(O, I, *k)`.
 - ConvTranspose kernel `(*k, I, O)` -> spatial flip -> `(I, O, *k)`.
+- Dense kernel `(I, O)` (CUT's `mlp{i}_fc1` and `mlp{i}_fc2`) -> `Linear`
+  weight `(O, I)`.
 - Biases, PReLU slopes and batch norms' `scale` and `bias` are copied as
   they are. A U-Net's norms carry flax's automatic names (`BatchNorm_0`,
   ...) in the port too, so its tree needs no mapping.
@@ -92,12 +94,14 @@ def load_flax_params(module: torch.nn.Module, params) -> torch.nn.Module:
             convert = conv_transpose_kernel_to_torch
         elif isinstance(layer, Conv):
             convert = conv_kernel_to_torch
+        elif isinstance(layer, torch.nn.Linear):
+            convert = torch.Tensor.t
         elif not isinstance(layer, (PReLU, BatchNorm)):
-            raise KeyError(f"`{name}` is a {type(layer).__name__}, not a conv, PReLU or "
-                           f"batch norm layer")
+            raise KeyError(f"`{name}` is a {type(layer).__name__}, not a conv, dense, PReLU "
+                           f"or batch norm layer")
         for leaf, value in leaves.items():
             value = torch.from_numpy(np.array(value, dtype=np.float32))
-            if leaf == "kernel" and isinstance(layer, (Conv, ConvTranspose)):
+            if leaf == "kernel" and isinstance(layer, (Conv, ConvTranspose, torch.nn.Linear)):
                 target, value, attr = layer.weight, convert(value), "weight"
             elif leaf == "bias" and getattr(layer, "bias", None) is not None:
                 target, attr = layer.bias, "bias"

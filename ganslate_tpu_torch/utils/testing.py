@@ -24,7 +24,16 @@ built with `Conf.create` + `init_config`, as `chip_smoke.py` does).
   and 6 input channels; lr_G 2e-4, lr_D 1e-4, lambda 30); `spatial_dims=3`
   with its overrides gives the HX4 PET Pix2Pix's
   networks (`projects/maastro_hx4_pet_translation/experiments/
-  pix2pix.yaml`)."""
+  pix2pix.yaml`).
+- `make_cut_conf`: training the BRaTS CUT
+  (`projects/brats_mri_sequence_translation/experiments/cut.yaml`: the
+  BRaTS Vnet3D, PatchNCE on its 4 encoder taps, PatchGAN3D with 2 layers,
+  lr_G 4e-4, lr_D 2e-4), with an infer section that serves
+  `<output_dir>/checkpoints/<load_iter>.pth` through a sliding window of
+  the patch size; `generator` and `discriminator` replace its networks (a
+  2D CUT)."""
+
+from typing import Optional
 
 from ganslate_tpu_torch.configs.config import Config
 from ganslate_tpu_torch.configs.omega import Conf
@@ -244,6 +253,79 @@ def make_pix2pix_conf(output_dir: str,
             },
             "metrics": {"discriminator_evolution": True},
             "seed": seed,
+        },
+    }
+    return init_config(Conf.create(raw), config_class=Config)
+
+
+def make_cut_conf(output_dir: str,
+                  first_layer_channels: int = 16,
+                  down_blocks=(2, 2, 3),
+                  up_blocks=(3, 3, 3),
+                  ndf: int = 64,
+                  n_layers_D: int = 2,
+                  generator: Optional[dict] = None,
+                  discriminator: Optional[dict] = None,
+                  patch=(32, 176, 176),
+                  nce_layers=(0, 1, 2, 3),
+                  mlp_nc: int = 256,
+                  num_patches: int = 256,
+                  use_equivariance_flip: bool = False,
+                  lambda_adv: float = 1.0,
+                  lambda_nce: float = 1.0,
+                  lambda_nce_idt: float = 0.5,
+                  nce_T: float = 0.07,
+                  cuda: bool = True,
+                  mixed_precision: bool = True,
+                  batch_size: int = 1,
+                  n_iters: int = 20000,
+                  n_iters_decay: int = 20000,
+                  seed: int = 0,
+                  load_iter: int = 1):
+    """`generator` / `discriminator`: a network node (`_target_` and its
+    fields, `in_out_channels` / `in_channels` included) in place of the
+    Vnet3D / PatchGAN3D of the given widths."""
+    if generator is None:
+        generator = {"_target_": "ganslate.nn.generators.Vnet3D",
+                     "use_memory_saving": False,
+                     "use_inverse": False,
+                     "first_layer_channels": first_layer_channels,
+                     "down_blocks": list(down_blocks),
+                     "up_blocks": list(up_blocks),
+                     "in_out_channels": {"AB": [1, 1]}}
+    if discriminator is None:
+        discriminator = {"_target_": "ganslate.nn.discriminators.PatchGAN3D",
+                         "ndf": ndf,
+                         "n_layers": n_layers_D,
+                         "in_channels": {"B": 1}}
+    raw = {
+        "train": {
+            "output_dir": output_dir,
+            "batch_size": batch_size,
+            "cuda": cuda,
+            "mixed_precision": mixed_precision,
+            "n_iters": n_iters,
+            "n_iters_decay": n_iters_decay,
+            "logging": {"freq": 1000000},
+            "checkpointing": {"freq": 1000000},
+            "gan": {
+                "_target_": "ganslate.nn.gans.unpaired.CUT",
+                "nce_layers": list(nce_layers),
+                "mlp_nc": mlp_nc,
+                "num_patches": num_patches,
+                "use_equivariance_flip": use_equivariance_flip,
+                "generator": generator,
+                "discriminator": discriminator,
+                "optimizer": {"lr_D": 0.0002, "lr_G": 0.0004, "lambda_adv": lambda_adv,
+                              "lambda_nce": lambda_nce, "lambda_nce_idt": lambda_nce_idt,
+                              "nce_T": nce_T},
+            },
+            "seed": seed,
+        },
+        "infer": {
+            "is_deployment": True,
+            "checkpointing": {"load_iter": load_iter},
+            "sliding_window": {"window_size": list(patch), "batch_size": 1},
         },
     }
     return init_config(Conf.create(raw), config_class=Config)

@@ -56,7 +56,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "ganslate_tpu_torch.nn.generators.unet.unet2d",
             "ganslate_tpu_torch.nn.generators.unet.unet3d",
             "ganslate_tpu_torch.nn.gans.paired.pix2pix",
-            "ganslate_tpu_torch.nn.losses.pix2pix_losses"} <= names
+            "ganslate_tpu_torch.nn.losses.pix2pix_losses",
+            "ganslate_tpu_torch.nn.gans.unpaired.cut",
+            "ganslate_tpu_torch.nn.losses.cut_losses",
+            "ganslate_tpu_torch.nn.generators.resnet.resnet3d",
+            "ganslate_tpu_torch.__main__",
+            "ganslate_tpu_torch.utils.cli.interface",
+            "ganslate_tpu_torch.utils.cli.scaffold"} <= names
     # The data plane, the engines and the trackers.
     assert {f"ganslate_tpu_torch.{m}" for m in (
         "data", "data.samplers", "data.loaders", "data.image_folder",
@@ -81,7 +87,9 @@ def test_port_sources_import_nothing_of_jax():
     assert {"data/loaders.py", "data/image_folder.py", "data/utils/transforms.py",
             "engines/trainer.py", "engines/validator_tester.py",
             "utils/trackers/base.py", "utils/trackers/training.py",
-            "utils/environment.py", "utils/summary.py"} <= scanned
+            "utils/environment.py", "utils/summary.py", "nn/gans/unpaired/cut.py",
+            "nn/losses/cut_losses.py", "nn/generators/resnet/resnet3d.py", "__main__.py",
+            "utils/cli/interface.py", "utils/cli/scaffold.py"} <= scanned
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders
@@ -158,7 +166,7 @@ def test_import_attr_aliases_to_the_port(prefix):
 @pytest.mark.parametrize("target, missing", [
     ("ganslate.nn.discriminators.MultiScalePatchGAN3D", "MultiScalePatchGAN3D"),
     ("ganslate.utils.metrics.fid.FID", "ganslate_tpu_torch.utils.metrics.fid"),
-    ("ganslate.nn.generators.Resnet3D", "Resnet3D"),
+    ("ganslate.nn.generators.SelfAttentionVnet3D", "SelfAttentionVnet3D"),
 ])
 def test_import_attr_names_what_the_port_lacks(target, missing):
     with pytest.raises(ImportError, match=re.escape(missing)):
@@ -190,6 +198,16 @@ def test_import_attr_resolves_the_revgan_slice(target):
     "nn.generators.Unet3D", "nn.generators.Unet3DConfig"))
 def test_import_attr_resolves_the_pix2pix_slice(target):
     """The Pix2Pix experiments' `_target_`s resolve to the port's."""
+    module, name = f"ganslate_tpu_torch.{target}".rsplit(".", 1)
+    import importlib
+    assert import_attr(f"ganslate.{target}") is getattr(importlib.import_module(module), name)
+
+
+@pytest.mark.parametrize("target", (
+    "nn.gans.unpaired.CUT", "nn.gans.unpaired.CUTConfig",
+    "nn.generators.Resnet3D", "nn.generators.Resnet3DConfig"))
+def test_import_attr_resolves_the_cut_slice(target):
+    """The CUT experiments' `_target_`s, and Resnet3D, resolve to the port's."""
     module, name = f"ganslate_tpu_torch.{target}".rsplit(".", 1)
     import importlib
     assert import_attr(f"ganslate.{target}") is getattr(importlib.import_module(module), name)
