@@ -79,15 +79,22 @@ and prints no result line):
    alone in two layouts with and without the autotuner, and one request
    under `torch.profiler`: device time by family and the idle share.
 
+Before phase 8, the BRaTS NIfTI root of phases 8, 10 and 11: 4 synthetic
+BRaTS-shaped scans (4 sequences of (155, 240, 240), float32) from the seed,
+written by the port's `medio.write` as 4-D `.nii.gz` files (3 for
+training, 1 for validation) into a temporary directory, each write timed,
+one read back bit for bit. Those phases read them through the BRaTS
+project's datasets, which the port's config loader takes from its twin
+(`ganslate_tpu_torch/projects/brats_mri_sequence_translation/`).
+
 8. revgan: the BRaTS RevGAN experiment (`projects/brats_mri_sequence_
    translation/experiments/revgan.yaml` field for field, built in Python:
    Piresnet3D of depth 5 with 32 first-layer channels and memory saving,
    PatchGAN3D with 2 layers, (32, 176, 176) patches, batch 1, bf16), with
-   its loop lengths and frequencies cut and this script's datasets in place
-   of the project's: 3 synthetic BRaTS-shaped scans (4 sequences of (155,
-   240, 240)) from the seed, flair -> t1w patch pairs through the port's
-   `StochasticFocalPatchSampler`, and one whole scan for validation through
-   the sliding window with cycle metrics (the inverted generator). (a) The
+   its loop lengths and frequencies cut and its datasets' roots on the
+   NIfTI root: flair -> t1w patch pairs through the project's
+   `BratsDataset`, and the validation scan through the sliding window with
+   cycle metrics (the inverted generator). (a) The
    memory-saving config from `init_engine("train", ...)`: plain iterations,
    log, checkpoint and validation ones, finite losses and validation
    metrics, the norm launches of every step and validation; then
@@ -133,8 +140,8 @@ and prints no result line):
    blocks (2, 2, 3), up blocks (3, 3, 3), 8,070,257 parameters; PatchGAN3D
    with 2 layers; PatchNCE on the encoder taps [0, 1, 2, 3], 256 patches, an
    MLP of 256; (32, 176, 176) patches, batch 1, bf16), with its loop lengths
-   and frequencies cut, a seed set and the revgan phase's synthetic
-   datasets (`CUT_LEFT_OUT`). (a) The port's command line in a subprocess:
+   and frequencies cut, a seed set and its datasets' roots on the NIfTI
+   root (`CUT_LEFT_OUT`). (a) The port's command line in a subprocess:
    `python -m ganslate_tpu_torch train config=<yaml>` for 4 iterations with
    a checkpoint and one validation through the sliding window, then
    `infer config=<yaml>` from the checkpoint; exit codes, the losses D, G,
@@ -156,10 +163,32 @@ and prints no result line):
    256x256, batch 1, bf16): steps, peak memory, finite losses, the flips
    drawn, the norm launches of every step, and one tap call at index 8,
    whose norms run the kernels without their ReLU.
+11. brats_cyclegan: the BRaTS CycleGAN experiment loaded from its YAML
+   (`projects/brats_mri_sequence_translation/experiments/cyclegan.yaml`:
+   two Vnet3Ds of 8,070,257 parameters, two PatchGAN3Ds with 2 layers,
+   (32, 176, 176) patches, batch 1, bf16, lambda 5) by
+   `init_engine("train", ["config=<yaml>", ...])` with only these
+   overrides: the datasets' roots (the NIfTI root), the loop lengths, the
+   logging, checkpoint and validation frequencies, a seed and
+   `logging.wandb` off; from a working directory whose `projects` links to
+   the checkout's, so that the YAML's relative paths resolve. Patches/s
+   over the timed iterations, plain iterations against log, checkpoint and
+   validation ones, t_data and the loader's wait against one sample's time
+   on one thread, peak memory, finite losses at every log, one validation
+   with cycle metrics, the norm launches of every step and validation;
+   model-level steps, conv FLOPs and 3 steps under `torch.profiler` by
+   family (convs, norm kernels, the plain norm backward, PReLU, the rest)
+   with the idle share. The checkpoint's `G_AB` served by the deployment
+   `Inferer` through the sliding window against the plain norms. One step
+   against the plain norms from the same state and batch (fp32 losses 1e-4,
+   gradients 1e-2; bf16 each against the fp32 gradient). A step of
+   `cyclegan_s2d.yaml` equal bit for bit to the plain YAML's from the same
+   seed and batch, and a shorter Trainer run from that YAML.
 
 The kernels phase also checks and times both kernels at the V-Net's, the
 RevGAN's, the Pix2Pix's and the CUT's norm slabs (in both dtypes for the
-Pix2Pix's), and
+Pix2Pix's; the BRaTS CycleGAN's are the CUT's Vnet3D slabs and the
+RevGAN's PatchGAN3D ones), and
 checks a channel count that is not a multiple of the kernels' channel
 block (C = 20), which the wrappers pad.
 
@@ -329,19 +358,19 @@ SW_FP32_MAX = 1e-3
 # width through the port's Trainer, on synthetic BRaTS-shaped volumes.
 REVGAN_PATCH = (32, 176, 176)
 REVGAN_VOLUME = (4, 155, 240, 240)      # 4 MRI sequences of one BRaTS scan
-REVGAN_VOLUMES = 3
+REVGAN_VOLUMES = 3                      # training scans; one more for validation
 REVGAN_NETS = {"depth": 5, "n_layers_D": 2}     # the YAML's; widths are defaults
 REVGAN_YAML_LENGTHS = {"n_iters": 20000, "n_iters_decay": 20000, "logging.freq": 50,
                        "checkpointing.freq": 5000, "val.freq": 40000}
 # (warm-up iterations, timed iterations, logging.freq, checkpointing.freq,
 #  val.freq): one validation and one checkpoint inside the timed span.
-REVGAN_RUN = (5, 20, 5, 20, 15)
+REVGAN_RUN = (5, 10, 5, 15, 10)
 REVGAN_MODEL_STEPS = (2, 5)             # (warm, timed) model-level steps a config
 REVGAN_PROFILED_STEPS = 3
 REVGAN_LEFT_OUT = {
-    "project": "the project's datasets import the JAX package and SimpleITK",
-    "train.dataset._target_": "chip_smoke.SyntheticBratsDataset (no BRaTS volumes here)",
-    "val.dataset._target_": "chip_smoke.SyntheticBratsValDataset"}
+    "train.dataset.root, val.dataset.root": "synthetic BRaTS-shaped 4-D NIfTI scans that the "
+                                            "port's medio wrote (no BRaTS volumes in the "
+                                            "repo)"}
 # Memory saving against stored activations, one step from the same state
 # and batch: fp32 (TF32 off, cuDNN deterministic) differs only by the
 # rebuilt core inputs' rounding, a few fp32 ulps (max 2.9e-5 at values up
@@ -427,13 +456,11 @@ CUT_YAML_LENGTHS = {"n_iters": 20000, "n_iters_decay": 20000, "logging.freq": 50
 CUT_CLI_RUN = (4, 2, 4, 4)
 # The measured run in this process: (warm-up iterations, timed iterations,
 # logging.freq, checkpointing.freq, val.freq).
-CUT_RUN = (5, 20, 5, 20, 15)
+CUT_RUN = (5, 10, 5, 15, 10)
 CUT_MODEL_STEPS = (2, 5)
 CUT_PROFILED_STEPS = 3
 CUT_LEFT_OUT = {
-    "project": "the project's datasets import the JAX package and SimpleITK",
-    "train.dataset._target_": "chip_smoke.SyntheticBratsDataset (no BRaTS volumes here)",
-    "val.dataset._target_": "chip_smoke.SyntheticBratsValDataset",
+    **REVGAN_LEFT_OUT,
     "train.seed": "unset in the YAML (drawn) -> the script's seed, so that a run repeats"}
 # Norm launches of one Vnet3D pass (`SW_LAUNCHES` per window: 7 one-pass at
 # level 3, 33 split), of its tap pass at nce_layers [0, 1, 2, 3] (the input
@@ -474,6 +501,51 @@ CUT2D_CONFIGS = {
     "fastcut": dict(use_equivariance_flip=True, lambda_nce=10.0, lambda_nce_idt=0.0)}
 CUT2D_STEPS = (2, 6)
 CUT2D_PARAMS = {"G": 11_378_179, "D": 2_764_737}
+
+# The BRaTS NIfTI root of the revgan, cut and brats_cyclegan phases: the
+# synthetic scans of `brats_volumes` (4 sequences of (155, 240, 240),
+# float32), written once per run as 4-D `.nii.gz` files by the port's
+# `medio.write` (`write_brats_root`): REVGAN_VOLUMES in `imagesTr/`, one in
+# `imagesTs/`. The phases read them through the project's datasets, which
+# the port's config loader takes from its twin
+# (`ganslate_tpu_torch/projects/brats_mri_sequence_translation/`).
+HERE = Path(__file__).resolve().parent
+BRATS_PROJECT = HERE / "projects" / "brats_mri_sequence_translation"
+BRATS_DATASETS = {"train": "project.datasets.train_dataset.BratsDataset",
+                  "val": "project.datasets.val_test_dataset.BratsValTestDataset"}
+BRATS_SPLITS = {"train": "imagesTr", "val": "imagesTs"}
+_BRATS_ROOT = []
+# The training batches that the revgan, cut and brats_cyclegan phases hold
+# their model-level steps and checks on: 4, drawn once per run from the
+# NIfTI root (`brats_batches`).
+BRATS_BATCHES = (4, SEED + 41)
+_BRATS_BATCHES = {}
+
+# The brats_cyclegan phase: the BRaTS CycleGAN experiment
+# (`projects/brats_mri_sequence_translation/experiments/cyclegan.yaml`: two
+# Vnet3Ds, down blocks (2, 2, 3), up blocks (3, 3, 3), 16 first-layer
+# channels; two PatchGAN3Ds with 2 layers; (32, 176, 176) patches, batch 1,
+# bf16, lambda_AB and lambda_BA 5), loaded from its YAML by `init_engine`
+# with only the overrides of `brats_cyclegan_overrides`, on the NIfTI root.
+# Runs: (warm-up iterations, timed iterations, logging.freq,
+# checkpointing.freq, val.freq); `cyclegan_s2d.yaml` repeats it shorter.
+BRATS_CYCLEGAN_YAML_LENGTHS = {"n_iters": 20000, "n_iters_decay": 20000, "logging.freq": 50,
+                               "checkpointing.freq": 5000, "val.freq": 40000}
+BRATS_CYCLEGAN_RUN = (5, 10, 5, 15, 10)
+BRATS_CYCLEGAN_S2D_RUN = (2, 4, 2, 6, 6)
+BRATS_CYCLEGAN_MODEL_STEPS = (2, 5)
+BRATS_CYCLEGAN_PROFILED_STEPS = 3
+# Norm launches of a CycleGAN step: 4 Vnet3D passes (fake_B, rec_A, fake_A,
+# rec_B) of `CUT_G_LAUNCHES`; PatchGAN3D on fake_B and fake_A in the G step
+# and, in the D step, each D on real and fake as one forward, of
+# `CUT_D_LAUNCHES`. A validation runs G_AB and, for the cycle metrics, G_BA
+# over every window.
+BRATS_CYCLEGAN_LAUNCHES = {k: 4 * CUT_G_LAUNCHES[k] + 4 * CUT_D_LAUNCHES[k]
+                           for k in CUT_G_LAUNCHES}
+BRATS_CYCLEGAN_PARAMS = {"G_AB": 8_070_257, "G_BA": 8_070_257, "D_B": 2_642_369,
+                         "D_A": 2_642_369}
+# Inert biases: the conv before each norm of both Gs and both Ds.
+BRATS_CYCLEGAN_INERT = 2 * sum(CUT_G_LAUNCHES.values()) + 2 * sum(CUT_D_LAUNCHES.values())
 
 # Published peaks (NVIDIA data sheets): HBM bytes/s, fp32 (non-tensor)
 # FLOP/s and dense bf16 tensor FLOP/s, by card.
@@ -1132,6 +1204,42 @@ def plain_forward(ulp_noise=False, kernel_stats=False):
         inorm.instance_norm_forward = forward
 
 
+@contextlib.contextmanager
+def plain_reordered(kind):
+    """The port's norms with another correct plain forward, which rounds
+    in another order than `instance_norm_reference`: its statistics summed
+    over the rows in reverse (`kind` "reversed"), or taken in float64
+    ("float64"). In bf16 each flips some outputs to the neighbouring value,
+    as the kernels do: the controls of a bf16 comparison."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    forward = inorm.instance_norm_forward
+
+    def plain(x, eps, activation, negative_slope):
+        if kind == "reversed":
+            rows = x.flatten(1, -2).flip(1).reshape(x.shape)
+            out, mean, rstd = inorm.instance_norm_reference(rows, eps, activation,
+                                                            negative_slope)
+            return out.flatten(1, -2).flip(1).reshape(x.shape), mean, rstd
+        x64 = x.double()
+        axes = tuple(range(1, x.ndim - 1))
+        mean = x64.mean(axes, keepdim=True)
+        rstd = torch.rsqrt((x64 - mean).square().mean(axes, keepdim=True) + eps)
+        out = ((x64 - mean) * rstd).float()
+        if activation == "relu":
+            out = out.clamp_min(0)
+        elif activation == "leaky_relu":
+            out = torch.where(out >= 0, out, out * negative_slope)
+        n = x.shape[0]
+        return out.to(x.dtype), mean.float().reshape(n, -1), rstd.float().reshape(n, -1)
+
+    inorm.instance_norm_forward = plain
+    try:
+        yield
+    finally:
+        inorm.instance_norm_forward = forward
+
+
 def one_step(conf, batch, norms):
     """Losses, gradients and norm launches of one train step of a fresh
     model (its state made from the seed) on `batch`, inside the context
@@ -1562,32 +1670,12 @@ def write_trainer_data(root, kind):
 
 
 def __getattr__(name):
-    """`SyntheticUnpairedDatasetConfig`, `SyntheticPairedDatasetConfig` and
-    the `SyntheticBrats*DatasetConfig`s, the schemas that the config loader
-    reads for `_target_: chip_smoke.Synthetic*Dataset`; made on request,
-    because they need the port, which this file does not import at module
-    level."""
+    """`SyntheticUnpairedDatasetConfig` and `SyntheticPairedDatasetConfig`,
+    the schemas that the config loader reads for `_target_:
+    chip_smoke.Synthetic*Dataset`; made on request, because they need the
+    port, which this file does not import at module level."""
     from dataclasses import dataclass, field
     from typing import Tuple
-    if name == "SyntheticBratsDatasetConfig":
-        from ganslate_tpu_torch import configs
-
-        @dataclass
-        class SyntheticBratsDatasetConfig(configs.base.BaseDatasetConfig):
-            # `projects/brats_mri_sequence_translation/datasets/train_dataset.py`'s.
-            patch_size: Tuple[int, int, int] = (32, 32, 32)
-            focal_region_proportion: float = 0
-            source_sequence: str = "flair"
-            target_sequence: str = "t1w"
-        return SyntheticBratsDatasetConfig
-    if name == "SyntheticBratsValDatasetConfig":
-        from ganslate_tpu_torch import configs
-
-        @dataclass
-        class SyntheticBratsValDatasetConfig(configs.base.BaseDatasetConfig):
-            source_sequence: str = "flair"
-            target_sequence: str = "t1w"
-        return SyntheticBratsValDatasetConfig
     if name not in ("SyntheticUnpairedDatasetConfig", "SyntheticPairedDatasetConfig"):
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     from ganslate_tpu_torch import configs
@@ -2328,106 +2416,121 @@ def piresnet_launches():
     return {"onepass": 0, "split": 2 + 4 * REVGAN_NETS["depth"] + 1}
 
 
-_BRATS_VOLUMES = {}
-
-
 def brats_volumes(seed, n, shape):
     """`n` BRaTS-shaped scans (`shape`: 4 MRI sequences of (155, 240, 240),
-    float32) from `seed`, made once per run: per sequence a smooth random
-    field (a coarse normal field, trilinearly upsampled 8x) of positive
-    MR-like intensities inside an ellipsoidal head, and a zero background."""
-    key = (seed, n, shape)
-    if key not in _BRATS_VOLUMES:
-        import numpy as np
-        import torch
-        import torch.nn.functional as F
-        rng = np.random.default_rng(seed)
-        c, *spatial = shape
-        grid = np.ogrid[tuple(slice(0, d) for d in spatial)]
-        head = sum(((g - d / 2) / (0.45 * d)) ** 2 for g, d in zip(grid, spatial)) <= 1
-        volumes = []
-        for _ in range(n):
-            coarse = rng.normal(size=(1, c, *(-(-d // 8) for d in spatial))).astype(np.float32)
-            field = F.interpolate(torch.from_numpy(coarse), size=tuple(spatial),
-                                  mode="trilinear", align_corners=False)[0].numpy()
-            volumes.append(np.maximum(300 + 100 * field, 0) * head)
-        _BRATS_VOLUMES.clear()
-        _BRATS_VOLUMES[key] = volumes
-    return _BRATS_VOLUMES[key]
+    float32) from `seed`, one at a time: per sequence a smooth random field
+    (a coarse normal field, trilinearly upsampled 8x) of positive MR-like
+    intensities inside an ellipsoidal head, and a zero background."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    rng = np.random.default_rng(seed)
+    c, *spatial = shape
+    grid = np.ogrid[tuple(slice(0, d) for d in spatial)]
+    head = sum(((g - d / 2) / (0.45 * d)) ** 2 for g, d in zip(grid, spatial)) <= 1
+    for _ in range(n):
+        coarse = rng.normal(size=(1, c, *(-(-d // 8) for d in spatial))).astype(np.float32)
+        field = F.interpolate(torch.from_numpy(coarse), size=tuple(spatial),
+                              mode="trilinear", align_corners=False)[0].numpy()
+        yield np.maximum(300 + 100 * field, 0) * head
 
 
-class SyntheticBratsDataset:
-    """The training samples of the BRaTS dataset
-    (`projects/brats_mri_sequence_translation/datasets/train_dataset.py`)
-    over `brats_volumes`: A's sequence from scan `index`, B's from a scan
-    drawn with the loader's per-sample `rng`, a corresponding patch pair
-    through the port's `StochasticFocalPatchSampler` (drawn from the same
-    `rng`), each patch z-scored to [-1, 1] by the port's
-    `z_score_normalize`, channels-last (*patch_size, 1)."""
+def write_brats_root(root):
+    """The BRaTS NIfTI root of this run: `brats_volumes` written by the
+    port's `medio.write` as 4-D `.nii.gz` files, REVGAN_VOLUMES training
+    scans in `imagesTr/` and one validation scan in `imagesTs/`; each file's
+    write timed, and one read back by `medio.load`, which must give the
+    same array bit for bit."""
+    import numpy as np
+    from ganslate_tpu_torch.utils import medio
+    t0 = time.perf_counter()
+    writes, sizes, generate_s = [], [], 0.0
+    first = None
+    volumes = brats_volumes(SEED + 40, REVGAN_VOLUMES + 1, REVGAN_VOLUME)
+    for i in range(REVGAN_VOLUMES + 1):
+        t = time.perf_counter()
+        volume = next(volumes)
+        generate_s += time.perf_counter() - t
+        split = BRATS_SPLITS["train" if i < REVGAN_VOLUMES else "val"]
+        path = root / split / f"BRATS_{i:03d}.nii.gz"
+        t = time.perf_counter()
+        medio.write(medio.MedicalImage(volume), path)
+        writes.append(time.perf_counter() - t)
+        sizes.append(path.stat().st_size)
+        if first is None:
+            first = (path, volume)
+    t = time.perf_counter()
+    back = medio.load(first[0])
+    read_s = time.perf_counter() - t
+    rec = {"phase": "brats_data", "root": str(root), "splits": BRATS_SPLITS,
+           "volumes": [REVGAN_VOLUMES + 1, *REVGAN_VOLUME], "dtype": str(first[1].dtype),
+           "generate_s": generate_s, "write_s": writes, "write_s_total": sum(writes),
+           "file_bytes": sizes, "raw_bytes": int(first[1].nbytes),
+           "read_back_s": read_s, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(back.array.dtype == first[1].dtype and back.array.shape == first[1].shape
+          and np.array_equal(back.array, first[1]), "medio.load did not give back the scan")
+    _BRATS_ROOT[:] = [root]
+    return rec
 
-    def __init__(self, conf):
-        from ganslate_tpu_torch.data.utils.stochastic_focal_patching import \
-            StochasticFocalPatchSampler
-        dataset_conf = conf[conf.mode].dataset
-        self.volumes = brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)
-        self.sampler = StochasticFocalPatchSampler(tuple(dataset_conf.patch_size),
-                                                   dataset_conf.focal_region_proportion)
-        self.source = BRATS_SEQUENCES[dataset_conf.source_sequence]
-        self.target = BRATS_SEQUENCES[dataset_conf.target_sequence]
 
-    def __len__(self):
-        return len(self.volumes)
-
-    def __getitem__(self, index, rng=None):
-        from ganslate_tpu_torch.data.utils.normalization import z_score_normalize
-        a = self.volumes[index % len(self.volumes)][self.source]
-        b = self.volumes[int(rng.integers(0, len(self.volumes)))][self.target]
-        a, b = self.sampler.get_patch_pair(a, b, rng=rng)
-        return {"A": z_score_normalize(a, scale_to_range=(-1, 1))[..., None],
-                "B": z_score_normalize(b, scale_to_range=(-1, 1))[..., None]}
+def brats_root(split):
+    """The directory of the NIfTI root's `split` ("train" or "val")."""
+    check(bool(_BRATS_ROOT), "the BRaTS NIfTI root is not written yet")
+    return _BRATS_ROOT[0] / BRATS_SPLITS[split]
 
 
-class SyntheticBratsValDataset:
-    """The BRaTS validation samples
-    (`projects/brats_mri_sequence_translation/datasets/val_test_dataset.py`):
-    the whole source and target volumes of one scan, z-scored to [-1, 1],
-    channels-last; metrics in [0, 1] (`denormalize`)."""
+def brats_datasets():
+    """The BRaTS project's training and validation datasets over the NIfTI
+    root, as a raw config's `dataset` entries."""
+    return ({"_target_": BRATS_DATASETS["train"], "root": str(brats_root("train")),
+             "num_workers": 8, "patch_size": list(REVGAN_PATCH)},
+            {"_target_": BRATS_DATASETS["val"], "root": str(brats_root("val"))})
 
-    def __init__(self, conf):
-        dataset_conf = conf[conf.mode].dataset
-        self.volume = brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)[0]
-        self.source = BRATS_SEQUENCES[dataset_conf.source_sequence]
-        self.target = BRATS_SEQUENCES[dataset_conf.target_sequence]
 
-    def __len__(self):
-        return 1
-
-    def __getitem__(self, index):
-        from ganslate_tpu_torch.data.utils.normalization import z_score_normalize
-        return {"A": z_score_normalize(self.volume[self.source], scale_to_range=(-1, 1))[..., None],
-                "B": z_score_normalize(self.volume[self.target], scale_to_range=(-1, 1))[..., None]}
-
-    def denormalize(self, tensor):
-        import numpy as np
-        return (np.asarray(tensor) + 1) / 2
+def brats_batches(conf):
+    """`BRATS_BATCHES` training samples (n, seed) of the config's dataset
+    (the project twin's `BratsDataset` over the NIfTI root) as batches of
+    1, drawn once per run for a given dataset: sample `i` after seeding
+    Python's `random` (domain B's scan) and the patch sampler's generator
+    (the patch pair) from (`seed`, `i`); with the mean seconds a sample
+    takes (two scans read and gunzipped, a patch pair cut and z-scored)."""
+    import random
+    import numpy as np
+    from ganslate_tpu_torch.utils.io import import_attr
+    n, seed = BRATS_BATCHES
+    d = conf.train.dataset
+    key = (d._target_, d.root, tuple(d.patch_size), d.source_sequence, d.target_sequence)
+    if key in _BRATS_BATCHES:
+        return _BRATS_BATCHES[key]
+    dataset = import_attr(d._target_)(conf)
+    batches = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        random.seed(seed * 1000 + i)
+        dataset.patch_sampler.rng = np.random.default_rng([seed, i])
+        batches.append({k: v[None] for k, v in dataset[i % len(dataset)].items()})
+    _BRATS_BATCHES[key] = batches, (time.perf_counter() - t0) / n
+    return _BRATS_BATCHES[key]
 
 
 def revgan_raw(out_dir, memory_saving=True, mixed_precision=True):
-    """The BRaTS RevGAN experiment as a raw config tree, field for field,
-    with the run's cut loop lengths and frequencies and this script's
-    datasets (`REVGAN_LEFT_OUT`)."""
+    """The BRaTS RevGAN experiment as a raw config tree, field for field
+    (its project, by the directory's absolute path), with the run's cut loop
+    lengths and frequencies and the datasets' roots on the NIfTI root
+    (`REVGAN_LEFT_OUT`)."""
     warm, timed, log_freq, ckpt_freq, val_freq = REVGAN_RUN
     n_iters = warm + timed
+    train_dataset, val_dataset = brats_datasets()
     return {
+        "project": str(BRATS_PROJECT),
         "train": {
             "output_dir": str(out_dir), "cuda": True,
             "n_iters": n_iters - n_iters // 2, "n_iters_decay": n_iters // 2,
             "batch_size": 1, "mixed_precision": mixed_precision, "seed": SEED + 3,
             "logging": {"freq": log_freq},
             "checkpointing": {"freq": ckpt_freq},
-            "dataset": {"_target_": "chip_smoke.SyntheticBratsDataset",
-                        "root": "/workspace/Task01_BrainTumour/imagesTr", "num_workers": 8,
-                        "patch_size": list(REVGAN_PATCH)},
+            "dataset": train_dataset,
             "gan": {
                 "_target_": "ganslate.nn.gans.unpaired.RevGAN",
                 "generator": {"_target_": "ganslate.nn.generators.Piresnet3D",
@@ -2441,9 +2544,7 @@ def revgan_raw(out_dir, memory_saving=True, mixed_precision=True):
                               "lambda_BA": 5.0, "lambda_identity": 0, "proportion_ssim": 0},
             },
         },
-        "val": {"freq": val_freq,
-                "dataset": {"_target_": "chip_smoke.SyntheticBratsValDataset",
-                            "root": "/workspace/Task01_BrainTumour/imagesTs"},
+        "val": {"freq": val_freq, "dataset": val_dataset,
                 "sliding_window": {"window_size": "${train.dataset.patch_size}"}},
     }
 
@@ -2453,15 +2554,6 @@ def revgan_conf(out_dir, **kwargs):
     from ganslate_tpu_torch.configs.omega import Conf
     from ganslate_tpu_torch.configs.utils import init_config
     return init_config(Conf.create(revgan_raw(out_dir, **kwargs)), Config)
-
-
-def revgan_batches(conf, n, seed):
-    """`n` training samples of the config's dataset as batches of 1, drawn
-    as the loader draws them (a generator per sample)."""
-    import numpy as np
-    dataset = SyntheticBratsDataset(conf)
-    return [{k: v[None] for k, v in dataset.__getitem__(
-        i % len(dataset), rng=np.random.default_rng([seed, i])).items()} for i in range(n)]
 
 
 def grads_of(model):
@@ -2755,8 +2847,9 @@ def model_steps(model, batches, label, steps=REVGAN_MODEL_STEPS):
 
 
 def trainer_run(root, raw, label, run, want, unit, **extra):
-    """Phase `label`'s Trainer run: `init_engine("train")` from `raw`
-    through `run()`, its iterations timed (`instrument_trainer`), its
+    """Phase `label`'s Trainer run: `init_engine("train")` from `raw` (a
+    raw config tree, through `engine`; or `init_engine`'s arguments, a YAML
+    and its overrides) through `run()`, its iterations timed (`instrument_trainer`), its
     validation metrics kept and its norm launches counted from 0. `run` is
     (warm-up iterations, timed iterations, logging.freq, checkpointing.freq,
     val.freq), `want` the launches the run must make, `unit` what a batch
@@ -2768,12 +2861,17 @@ def trainer_run(root, raw, label, run, want, unit, **extra):
     model, its instrumentation removed."""
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.engines.utils import init_engine
     warm, timed, log_freq, ckpt_freq, val_freq = run
     n_iters = warm + timed
-    out_dir = Path(raw["train"]["output_dir"])
     t_build = time.perf_counter()
-    trainer, entry = engine("train", raw, root)
+    if isinstance(raw, dict):
+        trainer, entry = engine("train", raw, root)
+    else:
+        trainer, entry = init_engine("train", raw), "init_engine"
     build_s = time.perf_counter() - t_build
+    conf = trainer.conf
+    out_dir = Path(conf.train.output_dir).resolve()
     n_params = {name: sum(p.numel() for p in net.parameters())
                 for name, net in trainer.model.networks.items()}
     records = instrument_trainer(trainer)
@@ -2809,7 +2907,7 @@ def trainer_run(root, raw, label, run, want, unit, **extra):
     ckpts = sorted(int(p.stem) for p in (out_dir / "checkpoints").glob("*.pth"))
     if "cuts" in extra:
         extra["cuts"] = {**extra["cuts"], "to": {
-            "n_iters": raw["train"]["n_iters"], "n_iters_decay": raw["train"]["n_iters_decay"],
+            "n_iters": conf.train.n_iters, "n_iters_decay": conf.train.n_iters_decay,
             "logging.freq": log_freq, "checkpointing.freq": ckpt_freq, "val.freq": val_freq,
             **extra["cuts"].get("to", {})}}
     rec = {"phase": f"{label}_run", "entry": entry, **extra, "parameters": n_params,
@@ -2864,7 +2962,7 @@ def revgan_train_run(root, batches):
     want = {k: (warm + timed) * v + val_runs * 2 * windows * piresnet_launches()[k]
             for k, v in revgan_launches(True).items()}
     rec, model = trainer_run(root, revgan_raw(out_dir), "revgan", REVGAN_RUN, want, "patches",
-                             dataset="synthetic BRaTS volumes",
+                             dataset="synthetic BRaTS NIfTI scans, the project twin",
                              cuts={"from": REVGAN_YAML_LENGTHS, "left_out": REVGAN_LEFT_OUT},
                              validation_windows_per_volume=windows)
     check("cycle_SSIM" in rec["validation_metrics"], rec["validation_metrics"])
@@ -2984,11 +3082,11 @@ def revgan_phase(root):
     import torch
     t0 = time.perf_counter()
     allocated = torch.cuda.memory_allocated()
-    brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)
     conf = revgan_conf(root / "revgan_data")
-    batches = revgan_batches(conf, 4, SEED + 41)
+    batches, sample_s = brats_batches(conf)
     emit({"phase": "revgan_data", "seconds": time.perf_counter() - t0,
-          "volumes": [REVGAN_VOLUMES, *REVGAN_VOLUME], "patch": list(REVGAN_PATCH),
+          "dataset": conf.train.dataset._target_, "root": conf.train.dataset.root,
+          "sample_s": sample_s, "patch": list(REVGAN_PATCH),
           "batch_shapes": {k: list(v.shape) for k, v in batches[0].items()}})
     launches, load_iter, out_dir, steps_a, launches_a, recompute, flops, profile = \
         revgan_train_run(root, batches)
@@ -3026,7 +3124,6 @@ def revgan_phase(root):
           and fam.get("norm_kernels", 0) > 0 and fam.get("coupling_recompute", 0) > 0,
           "the profile saw no norm kernel or no recompute")
     other += revgan_grad_checks(root / "revgan_check", batches[0])
-    _BRATS_VOLUMES.clear()
     left = torch.cuda.memory_allocated() - allocated
     emit({"phase": "revgan_phase", "seconds": time.perf_counter() - t0,
           "launches_main_path": totals,
@@ -3284,7 +3381,8 @@ def pix2pix_loader_check(root, data_root, threaded):
     return launches
 
 
-def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert):
+def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert,
+                          bf16_controls=False):
     """One step with the kernel norms against one with the plain norms from
     the same state, batch and draws (`fresh_step` of `conf_of(mixed_
     precision)`): fp32 (TF32 off, deterministic algorithms where PyTorch has
@@ -3292,7 +3390,13 @@ def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert):
     `TRAIN_FP32_GRAD_MAX` relative L2, with the train phase's controls (the
     kernels' run repeated; one-ulp noise on every plain norm output); the
     `n_inert` inert biases without a gradient; bf16, each run against the
-    fp32 plain gradient (`TRAIN_BF16_GRAD_RATIO`). Emits `<label>_grad_check`
+    fp32 plain gradient (`TRAIN_BF16_GRAD_RATIO`). With `bf16_controls`, two
+    more correct plain forwards that round in another order
+    (`plain_reordered`) run in bf16 too, and the kernels' worst tensor and
+    each network are held against the farthest of the correct plain
+    forwards: a gradient that is a sum of ~10^6 terms cancelling to a small
+    value (a 1-channel output conv's bias) lands anywhere in a wide range
+    for any one-ulp change of the bf16 forward. Emits `<label>_grad_check`
     records; returns the launches of its runs."""
     import torch
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
@@ -3340,6 +3444,13 @@ def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert):
     ratio = statistics.median(kernel[k] / plain[k] for k in keys)
     loss_err16 = {k: abs(losses16[k] - ref16_losses[k]) / abs(ref16_losses[k])
                   for k in ref16_losses}
+    controls = {}
+    if bf16_controls:
+        for kind in ("reversed", "float64"):
+            grads_c = fresh_step(conf_of(True), batch, plain_reordered(kind))[1]
+            err_c = {k: rel_l2(grads_c[k], ref_grads[k]) for k in keys}
+            controls[kind] = {"worst": max(err_c.items(), key=lambda kv: kv[1]),
+                              "by_network": net_rel_l2(grads_c, ref_grads)}
     rec = {"phase": f"{label}_grad_check", "dtype": "bfloat16", "losses": losses16,
            "loss_rel_err_vs_plain": loss_err16, "loss_rtol": TRAIN_BF16_LOSS_RTOL,
            "grad_vs_fp32_kernel_by_network": net_rel_l2(grads16, ref_grads),
@@ -3347,12 +3458,20 @@ def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert):
            "grad_vs_fp32_kernel_max": max(kernel.values()),
            "grad_vs_fp32_plain_max": max(plain.values()),
            "grad_vs_fp32_median_ratio": ratio, "grad_ratio_tol": TRAIN_BF16_GRAD_RATIO,
-           "launches": l16}
+           "grad_vs_fp32_kernel_worst": max(kernel.items(), key=lambda kv: kv[1]),
+           "grad_vs_fp32_plain_worst": max(plain.items(), key=lambda kv: kv[1]),
+           "plain_controls": controls, "launches": l16}
     emit(rec)
     check(max(loss_err16.values()) <= TRAIN_BF16_LOSS_RTOL, rec)
     check(ratio <= TRAIN_BF16_GRAD_RATIO, rec)
-    check(rec["grad_vs_fp32_kernel_max"] <= TRAIN_BF16_GRAD_RATIO
-          * rec["grad_vs_fp32_plain_max"], rec)
+    worst_plain = max([rec["grad_vs_fp32_plain_max"]]
+                      + [c["worst"][1] for c in controls.values()])
+    check(rec["grad_vs_fp32_kernel_max"] <= TRAIN_BF16_GRAD_RATIO * worst_plain, rec)
+    for net, dist in rec["grad_vs_fp32_kernel_by_network"].items():
+        if controls:
+            farthest = max([rec["grad_vs_fp32_plain_by_network"][net]]
+                           + [c["by_network"][net] for c in controls.values()])
+            check(dist <= TRAIN_BF16_GRAD_RATIO * farthest, rec)
     check(l16 == launches_per_step and sum(l16p.values()) == 0, rec)
     return [launches, launches_r, l16]
 
@@ -3584,24 +3703,23 @@ def cut_raw(out_dir, mixed_precision=True, load_iter=None, run=None):
     """The BRaTS CUT experiment as a raw config tree, field for field, with
     the run's cut loop lengths and frequencies (`run`: iterations,
     logging.freq, checkpointing.freq, val.freq; `CUT_RUN`'s by default), a
-    seed and this script's datasets (`CUT_LEFT_OUT`); an infer section over
-    the validation volume serves checkpoint `load_iter`."""
+    seed and the datasets' roots on the NIfTI root (`CUT_LEFT_OUT`); an
+    infer section over the validation volume serves checkpoint
+    `load_iter`."""
     if run is None:
         warm, timed, *freqs = CUT_RUN
         run = (warm + timed, *freqs)
     n_iters, log_freq, ckpt_freq, val_freq = run
-    val_dataset = {"_target_": "chip_smoke.SyntheticBratsValDataset",
-                   "root": "/workspace/Task01_BrainTumour/imagesTs"}
+    train_dataset, val_dataset = brats_datasets()
     raw = {
+        "project": str(BRATS_PROJECT),
         "train": {
             "output_dir": str(out_dir), "cuda": True,
             "n_iters": n_iters - n_iters // 2, "n_iters_decay": n_iters // 2,
             "batch_size": 1, "mixed_precision": mixed_precision, "seed": SEED + 70,
             "logging": {"freq": log_freq},
             "checkpointing": {"freq": ckpt_freq},
-            "dataset": {"_target_": "chip_smoke.SyntheticBratsDataset",
-                        "root": "/workspace/Task01_BrainTumour/imagesTr", "num_workers": 8,
-                        "patch_size": list(REVGAN_PATCH)},
+            "dataset": train_dataset,
             "gan": {
                 "_target_": "ganslate.nn.gans.unpaired.CUT",
                 "nce_layers": [0, 1, 2, 3],
@@ -3762,7 +3880,7 @@ def cut_train_run(root, batches):
     want = {k: n_iters * CUT_LAUNCHES[k] + n_iters // val_freq * windows * CUT_G_LAUNCHES[k]
             for k in CUT_LAUNCHES}
     rec, model = trainer_run(root, cut_raw(out_dir), "cut", CUT_RUN, want, "patches",
-                             dataset="synthetic BRaTS volumes",
+                             dataset="synthetic BRaTS NIfTI scans, the project twin",
                              cuts={"from": CUT_YAML_LENGTHS, "left_out": CUT_LEFT_OUT},
                              validation_windows_per_volume=windows)
     check(rec["parameters"] == CUT_PARAMS, rec["parameters"])
@@ -3966,8 +4084,7 @@ def cut_phase(root):
     import torch
     t0 = time.perf_counter()
     allocated = torch.cuda.memory_allocated()
-    brats_volumes(SEED + 40, REVGAN_VOLUMES, REVGAN_VOLUME)
-    batches = revgan_batches(cut_conf(root / "cut_data"), 4, SEED + 71)
+    batches = brats_batches(cut_conf(root / "cut_data"))[0]
     cli = cut_cli_run(root)
     launches, load_iter, out_dir, run, steps, step_launches, flops, profile = \
         cut_train_run(root, batches)
@@ -3980,7 +4097,6 @@ def cut_phase(root):
     other += kernel_vs_plain_steps(
         "cut", lambda mp: cut_conf(root / "cut_check", mixed_precision=mp), batches[0],
         CUT_LAUNCHES, sum(CUT_G_LAUNCHES.values()) + sum(CUT_D_LAUNCHES.values()))
-    _BRATS_VOLUMES.clear()
     launches_2d, records_2d = cut2d_phase(root / "cut2d")
     totals_2d = {k: sum(s[k] for s in launches_2d) for k in totals}
 
@@ -4005,6 +4121,267 @@ def cut_phase(root):
           "the profile saw no norm kernel or no NCE work")
     check(left < 2 ** 28, f"the cut phase left {left} bytes allocated on the device")
     return totals, totals_2d
+
+
+# ------------------------------------------------------------ phase 11
+
+
+def brats_cyclegan_args(yaml_name, run, mixed_precision=None):
+    """`init_engine`'s arguments for the BRaTS experiment `yaml_name`: the
+    YAML and only this phase's overrides (the datasets' roots on the NIfTI
+    root, the loop lengths and frequencies of `run`, a seed, `logging.wandb`
+    off); with `mixed_precision`, that too (the kernel-vs-plain step's
+    fp32 run)."""
+    warm, timed, log_freq, ckpt_freq, val_freq = run
+    n_iters = warm + timed
+    args = [f"config={BRATS_PROJECT / 'experiments' / yaml_name}",
+            f"train.dataset.root={brats_root('train')}", f"val.dataset.root={brats_root('val')}",
+            f"train.n_iters={n_iters - n_iters // 2}", f"train.n_iters_decay={n_iters // 2}",
+            f"train.logging.freq={log_freq}", f"train.checkpointing.freq={ckpt_freq}",
+            f"val.freq={val_freq}", f"train.seed={SEED + 90}", "train.logging.wandb=null"]
+    if mixed_precision is not None:
+        args.append(f"train.mixed_precision={str(mixed_precision).lower()}")
+    return args
+
+
+def brats_cyclegan_conf(yaml_name, mixed_precision=None):
+    from ganslate_tpu_torch.utils.builders import build_conf
+    return build_conf(brats_cyclegan_args(yaml_name, BRATS_CYCLEGAN_RUN, mixed_precision))
+
+
+@contextlib.contextmanager
+def experiment_workdir(root):
+    """Run inside `root/work`, where `projects` links to this checkout's
+    `projects/`: the experiment YAMLs' relative `project:` names the repo's
+    project directory (which the port's config loader swaps for its twin),
+    and their relative `output_dir` lands in the temporary tree."""
+    work = root / "work"
+    work.mkdir(parents=True, exist_ok=True)
+    link = work / "projects"
+    if not link.exists():
+        link.symlink_to(HERE / "projects", target_is_directory=True)
+    with contextlib.chdir(work):
+        yield work
+
+
+def brats_cyclegan_family(chain, kernel):
+    """`revgan_family`, with PReLU (its forward and its backward node) as a
+    family of its own."""
+    if any("prelu" in n.lower() for n in chain):
+        return "prelu"
+    return revgan_family(chain, kernel)
+
+
+def brats_cyclegan_conv_flops(model):
+    """Conv FLOPs (`conv_flops`) of one Vnet3D pass and one PatchGAN3D pass
+    at batch 1, and of a train step: 4 G passes forward and backward (the
+    backward counted as twice the forward), 2 D passes with input gradients
+    in the G step, and 2 Ds on real and fake with a full backward in the D
+    step."""
+    import torch
+    x = torch.zeros((1, 1, *REVGAN_PATCH), device=model.device)
+    g_pass = sum(conv_flops(model.networks["G_AB"], x).values())
+    d_pass = sum(conv_flops(model.networks["D_B"], x).values())
+    return {"g_pass": g_pass, "d_pass": d_pass,
+            "step": 4 * 3 * g_pass + 2 * 2 * d_pass + 4 * 3 * d_pass}
+
+
+def brats_val_source(conf):
+    """The validation scan's source sequence, (1, 155, 240, 240, 1), read
+    by the config's validation dataset (the project twin's
+    `BratsValTestDataset`)."""
+    import copy
+    from ganslate_tpu_torch.utils.io import import_attr
+    val_conf = copy.deepcopy(conf)
+    val_conf.mode = "val"
+    return import_attr(conf.val.dataset._target_)(val_conf)[0]["A"][None]
+
+
+def brats_cyclegan_serve(out_dir, load_iter, x):
+    """The checkpoint's `G_AB` served by a deployment `Inferer` through the
+    sliding window (`make_vnet_conf`: windows of (32, 176, 176), 28 a call,
+    overlap 0.25, gaussian, bf16) on the validation scan's source `x`, with
+    the kernels and with the plain norms. Returns the kernel request's
+    launches."""
+    import torch
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils.testing import make_vnet_conf
+    inferer = Inferer(make_vnet_conf(str(out_dir), load_iter=load_iter))
+    check(list(inferer.model.networks) == ["G_AB"], list(inferer.model.networks))
+    inferer.infer(x)                            # warm
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    y = inferer.infer(x)
+    latency_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(inorm.LAUNCHES)
+    with plain_norms():
+        inorm.reset_launches()
+        ref = inferer.infer(x)
+        check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+    err = (y.float() - ref.float()).abs()
+    rec = {"phase": "brats_cyclegan_serve", "load_iter": load_iter, "latency_ms": latency_ms,
+           "windows": sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH), "launches": launches,
+           "max_abs_err_vs_plain": float(err.max()), "mean_abs_err_vs_plain": float(err.mean()),
+           "tol_max": SW_BF16_MAX, "tol_mean": SW_BF16_MEAN}
+    sw_output_check(rec, y, x.shape)
+    emit(rec)
+    check(launches == CUT_G_LAUNCHES, rec)
+    check(rec["max_abs_err_vs_plain"] <= SW_BF16_MAX, rec)
+    check(rec["mean_abs_err_vs_plain"] <= SW_BF16_MEAN, rec)
+    del inferer, y, ref, err
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def brats_cyclegan_s2d_check(batch):
+    """One step of `cyclegan_s2d.yaml` against one of `cyclegan.yaml` from
+    the same seed and batch (deterministic algorithms, bf16 as the YAMLs
+    set): `use_s2d_exec` runs the plain computation, so the losses and
+    gradients are the same bits. Returns the launches of both steps."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        conf = brats_cyclegan_conf("cyclegan.yaml")
+        conf_s2d = brats_cyclegan_conf("cyclegan_s2d.yaml")
+        check(conf_s2d.train.gan.generator.use_s2d_exec
+              and not conf.train.gan.generator.use_s2d_exec,
+              "the s2d YAML does not set use_s2d_exec")
+        losses, grads, launches = fresh_step(conf, batch)
+        losses_s2d, grads_s2d, launches_s2d = fresh_step(conf_s2d, batch)
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+    diff = {k: float((grads[k].float() - grads_s2d[k].float()).abs().max())
+            for k in grads if grads[k] is not None}
+    rec = {"phase": "brats_cyclegan_s2d_check", "losses": losses, "losses_s2d": losses_s2d,
+           "grad_max_abs_diff": max(diff.values()), "launches": launches,
+           "launches_s2d": launches_s2d}
+    emit(rec)
+    check(losses == losses_s2d, rec)
+    check(rec["grad_max_abs_diff"] == 0.0, rec)
+    check(launches == launches_s2d == BRATS_CYCLEGAN_LAUNCHES, rec)
+    return [launches, launches_s2d]
+
+
+def brats_cyclegan_phase(root):
+    """Phase 11; returns the norm launches of its main path (the Trainer run
+    from `cyclegan.yaml` and the serving of its checkpoint's G_AB)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    warm, timed, _, _, val_freq = BRATS_CYCLEGAN_RUN
+    n_iters = warm + timed
+    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
+    cuts = {"from": BRATS_CYCLEGAN_YAML_LENGTHS,
+            "left_out": {**REVGAN_LEFT_OUT,
+                         "train.seed": "unset in the YAML (drawn) -> the script's seed",
+                         "train.logging.wandb": "unset in the YAML; set off explicitly"}}
+    with experiment_workdir(root):
+        conf = brats_cyclegan_conf("cyclegan.yaml")
+        batches, sample_s = brats_batches(conf)
+        emit({"phase": "brats_cyclegan_data", "dataset": conf.train.dataset._target_,
+              "num_workers": conf.train.dataset.num_workers, "sample_s": sample_s,
+              "batch_shapes": {k: list(v.shape) for k, v in batches[0].items()}})
+        args = brats_cyclegan_args("cyclegan.yaml", BRATS_CYCLEGAN_RUN)
+        want = {k: n_iters * BRATS_CYCLEGAN_LAUNCHES[k]
+                + n_iters // val_freq * 2 * windows * CUT_G_LAUNCHES[k]
+                for k in BRATS_CYCLEGAN_LAUNCHES}
+        rec, model = trainer_run(root, args, "brats_cyclegan", BRATS_CYCLEGAN_RUN, want,
+                                 "patches", yaml=args[0].split("=", 1)[1],
+                                 overrides=args[1:], cuts=cuts,
+                                 dataset="synthetic BRaTS NIfTI scans, the project twin",
+                                 validation_windows_per_volume=windows)
+        out_dir = Path(model.conf.train.output_dir).resolve()
+        check(rec["parameters"] == BRATS_CYCLEGAN_PARAMS, rec["parameters"])
+        check("cycle_SSIM" in rec["validation_metrics"], rec["validation_metrics"])
+        device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                           for k, v in b.items()} for b in batches]
+        steps, step_launches = model_steps(model, device_batches, "brats_cyclegan",
+                                           BRATS_CYCLEGAN_MODEL_STEPS)
+        steps["plain_iteration_over_step"] = rec["plain_iteration_ms"]["median"] \
+            / steps["median_step_ms"]
+        steps["patches_per_s"] = 1e3 / steps["median_step_ms"]
+        check(steps["losses_finite"]
+              and all(s == BRATS_CYCLEGAN_LAUNCHES for s in step_launches),
+              f"model-level steps: {steps}, launches {step_launches}")
+        flops = brats_cyclegan_conv_flops(model)
+        profile = profile_steps(model, device_batches, BRATS_CYCLEGAN_PROFILED_STEPS,
+                                brats_cyclegan_family, ("losses", "metrics", "pool"))
+        del model, device_batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        totals = dict(rec["launches"])
+        x = brats_val_source(conf)
+        for k, v in brats_cyclegan_serve(out_dir, rec["checkpoints"][-1], x).items():
+            totals[k] += v
+        other = list(step_launches)
+        other += kernel_vs_plain_steps(
+            "brats_cyclegan", lambda mp: brats_cyclegan_conf("cyclegan.yaml", mp), batches[0],
+            BRATS_CYCLEGAN_LAUNCHES, BRATS_CYCLEGAN_INERT, bf16_controls=True)
+        other += brats_cyclegan_s2d_check(batches[0])
+        warm2, timed2, _, _, val_freq2 = BRATS_CYCLEGAN_S2D_RUN
+        n2 = warm2 + timed2
+        want2 = {k: n2 * BRATS_CYCLEGAN_LAUNCHES[k]
+                 + n2 // val_freq2 * 2 * windows * CUT_G_LAUNCHES[k]
+                 for k in BRATS_CYCLEGAN_LAUNCHES}
+        args2 = brats_cyclegan_args("cyclegan_s2d.yaml", BRATS_CYCLEGAN_S2D_RUN)
+        rec2, model2 = trainer_run(root, args2, "brats_cyclegan_s2d", BRATS_CYCLEGAN_S2D_RUN,
+                                   want2, "patches", yaml=args2[0].split("=", 1)[1],
+                                   overrides=args2[1:], cuts=cuts)
+        check(model2.networks["G_AB"].use_s2d_exec, "the s2d run's G does not set use_s2d_exec")
+        other.append(rec2["launches"])
+        del model2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    fam = profile["device_ms_per_step_by_family"]
+    conv_ms = sum(fam.get(f, 0.0) for f in ("conv_forward", "conv_dgrad", "conv_wgrad",
+                                            "conv_backward_other"))
+    groups = {"convs": conv_ms, "norm_kernels": fam.get("norm_kernels", 0.0),
+              "norm_backward_plain": fam.get("norm_backward_plain", 0.0),
+              "prelu": fam.get("prelu", 0.0)}
+    busy = profile["device_busy_ms_per_step"]
+    if busy != "not measured":
+        groups["rest"] = busy - sum(groups.values())
+    wait = rec["plain_host_ranges_ms"].get("loader_wait", 0.0)
+    left = torch.cuda.memory_allocated() - allocated
+    summary = {"phase": "brats_cyclegan_summary", "seconds": time.perf_counter() - t0,
+               "patches_per_s_trainer": rec["patches_per_s"],
+               "plain_iteration_ms": rec["plain_iteration_ms"]["median"],
+               "model_step_ms": steps["median_step_ms"],
+               "plain_iteration_over_step": steps["plain_iteration_over_step"],
+               "peak_memory_gib_trainer": rec["peak_memory_gib"],
+               "peak_memory_gib_model_steps": steps["peak_memory_gib"],
+               "t_data_ms": rec["t_data_ms"], "loader_wait_ms_plain_mean": wait,
+               "loader_wait_share_of_plain_iteration": wait / rec["plain_iteration_ms"]["median"],
+               "sample_s_one_thread": sample_s,
+               "loader_patches_per_s_bound": conf.train.dataset.num_workers / sample_s,
+               "device_busy_ms_per_step": busy,
+               "device_idle_share": profile["device_idle_share"],
+               "device_ms_per_step_by_group": groups,
+               "conv_gflop": {k: v / 1e9 for k, v in flops.items()},
+               "conv_tflop_per_s": flops["step"] / (conv_ms * 1e-3) / 1e12
+               if conv_ms else "not measured",
+               "profile": profile, "s2d_patches_per_s_trainer": rec2["patches_per_s"],
+               "launches_main_path": totals,
+               "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other)
+                                        for k in totals},
+               "device_bytes_left_allocated": left}
+    emit(summary)
+    check(profile["device_busy_ms_per_step"] != "not measured"
+          and fam.get("norm_kernels", 0) > 0 and fam.get("prelu", 0) > 0,
+          "the profile saw no norm kernel or no PReLU")
+    check(totals["onepass"] > 0 and totals["split"] > 0,
+          f"the brats_cyclegan phase's launches: {totals}")
+    check(left < 2 ** 28, f"the brats_cyclegan phase left {left} bytes allocated on the device")
+    return totals
 
 
 # ------------------------------------------------------------------ main
@@ -4072,20 +4449,30 @@ def main() -> int:
         sw_totals = sliding_window_phase(Path(tmp), bf16_peak)
     phase_done("sliding_window")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        revgan_totals = revgan_phase(Path(tmp))
-    torch.cuda.empty_cache()
-    phase_done("revgan")
+    with contextlib.ExitStack() as stack:
+        brats = Path(stack.enter_context(tempfile.TemporaryDirectory()))
+        write_brats_root(brats)
+        phase_done("brats_data")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        pix2pix_totals = pix2pix_phase(Path(tmp))
-    torch.cuda.empty_cache()
-    phase_done("pix2pix")
+        with tempfile.TemporaryDirectory() as tmp:
+            revgan_totals = revgan_phase(Path(tmp))
+        torch.cuda.empty_cache()
+        phase_done("revgan")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cut_totals, cut2d_totals = cut_phase(Path(tmp))
-    torch.cuda.empty_cache()
-    phase_done("cut")
+        with tempfile.TemporaryDirectory() as tmp:
+            pix2pix_totals = pix2pix_phase(Path(tmp))
+        torch.cuda.empty_cache()
+        phase_done("pix2pix")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            cut_totals, cut2d_totals = cut_phase(Path(tmp))
+        torch.cuda.empty_cache()
+        phase_done("cut")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            brats_cyclegan_totals = brats_cyclegan_phase(Path(tmp))
+        torch.cuda.empty_cache()
+        phase_done("brats_cyclegan")
     emit({"phase": "phase_seconds", **seconds})
     # Every RevGAN slab takes the split form.
     check(revgan_totals["split"] > 0 and revgan_totals["onepass"] == 0,
@@ -4098,7 +4485,8 @@ def main() -> int:
         by_path = {"slice": totals[name], "train": train_totals[name],
                    "trainer": trainer_totals[name], "sliding_window": sw_totals[name],
                    "revgan": revgan_totals[name], "pix2pix": pix2pix_totals[name],
-                   "cut": cut_totals[name], "cut2d": cut2d_totals[name]}
+                   "cut": cut_totals[name], "cut2d": cut2d_totals[name],
+                   "brats_cyclegan": brats_cyclegan_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
@@ -4106,9 +4494,11 @@ def main() -> int:
         check(pix2pix_totals[name] > 0, f"the pix2pix phase never launched {name}")
         check(cut_totals[name] > 0, f"the cut phase never launched {name}")
         check(cut2d_totals[name] > 0, f"the 2D CUT steps never launched {name}")
+        check(brats_cyclegan_totals[name] > 0,
+              f"the brats_cyclegan phase never launched {name}")
         totals[name] += (train_totals[name] + trainer_totals[name] + sw_totals[name]
                          + revgan_totals[name] + pix2pix_totals[name] + cut_totals[name]
-                         + cut2d_totals[name])
+                         + cut2d_totals[name] + brats_cyclegan_totals[name])
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
                         "replaces": replaces, "launches": totals[name],

@@ -4,7 +4,8 @@ The JAX package's `ganslate_tpu/configs/utils.py`, which reproduces the
 original ganslate's loader:
 1. load YAML;
 2. import the experiment's project dir as a module named ``project`` so YAML
-   ``_target_: project.X`` resolves to user code;
+   ``_target_: project.X`` resolves to user code (or the port's twin of
+   that dir, `ganslate_tpu_torch/projects/<dir name>/`, where there is one);
 3. walk the YAML deepest-key-first and, for every node carrying ``_target_``,
    import ``<_target_>Config`` and merge that typed schema underneath the node;
 4. merge the structured root ``Config`` schema with the YAML.
@@ -17,6 +18,7 @@ experiment YAMLs run unmodified.
 import dataclasses
 import importlib.util
 import logging
+import re
 import sys
 import typing
 from pathlib import Path
@@ -75,11 +77,52 @@ def merge_with_schema(schema_cls, node) -> Conf:
     return merged
 
 
+# The port's twins of the repo's projects: `projects/<name>/` of the port
+# stands for a project directory of that name.
+PROJECT_TWINS = Path(__file__).resolve().parent.parent / "projects"
+
+_JAX_IMPORT = re.compile(r"^\s*(?:from|import)\s+ganslate_tpu(?![\w])", re.MULTILINE)
+
+
+def project_twin(project_dir) -> typing.Optional[Path]:
+    """The port's twin of a project directory (`PROJECT_TWINS/<its name>`),
+    or None when there is none."""
+    twin = PROJECT_TWINS / Path(project_dir).resolve().name
+    return twin if (twin / "__init__.py").is_file() else None
+
+
+def _jax_imports(project_root: Path):
+    """`(file, line)` of every import of the JAX package (`ganslate_tpu`)
+    in the project's Python files."""
+    for path in sorted(project_root.rglob("*.py")):
+        text = path.read_text(errors="replace")
+        for match in _JAX_IMPORT.finditer(text):
+            yield path, text.count("\n", 0, match.start()) + 1
+
+
 def import_project_as_module(project_dir):
-    """Import a project directory as the module named ``project``."""
+    """Import a project directory as the module named ``project``.
+
+    When the port holds a twin of the directory (`project_twin`), the twin
+    is imported in its place, so that ``_target_: project.X`` resolves to
+    port code. A project without a twin is imported as it is, unless its
+    code imports the JAX package: that raises, naming the twin to add,
+    rather than bring JAX into a port run."""
     assert isinstance(project_dir, str), "project needs to be a str path"
 
-    project_path = Path(project_dir).resolve() / "__init__.py"
+    project_root = Path(project_dir).resolve()
+    twin = project_twin(project_dir)
+    if twin is not None:
+        project_root = twin
+    else:
+        found = next(_jax_imports(project_root), None)
+        if found is not None:
+            path, line = found
+            raise ImportError(
+                f"Project `{project_dir}` imports the JAX package (`{path}:{line}`), and the "
+                f"port has no twin of it: add `ganslate_tpu_torch/projects/"
+                f"{project_root.name}/` with the project's modules written for the port.")
+    project_path = project_root / "__init__.py"
     assert project_path.is_file(), f"No `__init__.py` in project `{project_path}`."
 
     # Purge any previously-loaded project (and its submodules) so different
@@ -89,12 +132,13 @@ def import_project_as_module(project_dir):
 
     spec = importlib.util.spec_from_file_location(
         "project", str(project_path),
-        submodule_search_locations=[str(project_path.parent)])
+        submodule_search_locations=[str(project_root)])
     project_module = importlib.util.module_from_spec(spec)
     sys.modules["project"] = project_module
     spec.loader.exec_module(project_module)
 
-    logger.info(f"Project directory {project_dir} imported as module `project`.")
+    source = f" (the port's twin, {project_root})" if twin is not None else ""
+    logger.info(f"Project directory {project_dir}{source} imported as module `project`.")
 
 
 def instantiate_dataclasses_from_yaml(conf: Conf) -> Conf:

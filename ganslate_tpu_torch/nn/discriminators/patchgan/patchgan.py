@@ -7,9 +7,11 @@ conv with norm + LeakyReLU; a k4 s1 conv to a 1-channel patch map of logits
 (no sigmoid: the adversarial loss takes logits).
 
 Takes and returns `(N, C, *spatial)`. The conv submodules carry the JAX
-package's names (`stem`, `down{n}`, `penultimate`, `head`), so
-`utils/flax_weights.load_flax_params` carries a D's parameter tree as it is;
-they are registered in forward order, the original ganslate's order.
+package's names (`stem`, `down{n}`, `penultimate`, `head`) and the norms
+flax's automatic ones (`NormAct_0` .. `NormAct_{n_layers - 1}`, the last
+the penultimate conv's), so `utils/flax_weights.load_flax_params` carries a
+D's parameter tree as it is; they are registered in forward order, the
+original ganslate's order.
 """
 
 from typing import Optional, Sequence
@@ -46,18 +48,19 @@ class PatchGAN(nn.Module):
             setattr(self, f"down{n}", Conv(feats, out, kw, strides=2, padding=1,
                                            use_bias=use_bias, bias_inert=inert,
                                            kernel_init=init, generator=generator))
-            setattr(self, f"down{n}_norm", NormAct(norm_type, "leaky_relu", features=out))
+            setattr(self, f"NormAct_{n - 1}", NormAct(norm_type, "leaky_relu", features=out))
             feats = out
         out = ndf * min(2 ** n_layers, 8)
         self.penultimate = Conv(feats, out, kw, strides=1, padding=1, use_bias=use_bias,
                                 bias_inert=inert, kernel_init=init, generator=generator)
-        self.penultimate_norm = NormAct(norm_type, "leaky_relu", features=out)
+        setattr(self, f"NormAct_{n_layers - 1}",
+                NormAct(norm_type, "leaky_relu", features=out))
         self.head = Conv(out, 1, kw, strides=1, padding=1, kernel_init=init,
                          generator=generator)
 
     def forward(self, x):
         h = leaky_relu(self.stem(x))
         for n in range(1, self.n_layers):
-            h = getattr(self, f"down{n}_norm")(getattr(self, f"down{n}")(h))
-        h = self.penultimate_norm(self.penultimate(h))
+            h = getattr(self, f"NormAct_{n - 1}")(getattr(self, f"down{n}")(h))
+        h = getattr(self, f"NormAct_{self.n_layers - 1}")(self.penultimate(h))
         return self.head(h)

@@ -11,7 +11,8 @@ recompute-by-inverse.
 
 Takes and returns `(N, C, *spatial)`. Every ReLU is fused into the norm
 before it (exact). The submodules carry the JAX package's names (`down_ab`
-with `conv1`, `conv2`; `up_ab` with `convt`, `conv`; `core`), so
+with `conv1`, `conv2`; `up_ab` with `convt`, `conv`; `core`; batch norms
+`BatchNorm_0`, `BatchNorm_1` in the order the block applies them), so
 `utils/flax_weights.load_flax_params` carries its parameter tree, and are
 registered in the original ganslate's order (the JAX package's
 `torch_param_order_rank`): down_ab, up_ab, down_ba, up_ba, core.
@@ -30,8 +31,9 @@ from torch import nn
 from ganslate_tpu_torch import configs
 from ganslate_tpu_torch.configs.omega import MISSING
 from ganslate_tpu_torch.nn.invertible import InvertibleSequence, InvResidualBlock
-from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, NormAct, inert_bias,
-                                          is_bias_before_norm, make_initializer)
+from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, batch_norm_or_none, check_s2d_norm,
+                                          inert_bias, is_bias_before_norm, make_initializer,
+                                          norm_act)
 
 
 @dataclass
@@ -53,18 +55,20 @@ class _DownConv(nn.Module):
     def __init__(self, in_channels, features, norm_type, spatial_dims, kernel_init,
                  generator=None):
         super().__init__()
+        self.norm_type = norm_type
         use_bias, inert = is_bias_before_norm(norm_type), inert_bias(norm_type)
         self.conv1 = Conv(in_channels, features, (5,) * spatial_dims, padding=2,
                           pad_mode="replicate", use_bias=use_bias, bias_inert=inert,
                           kernel_init=kernel_init, generator=generator)
-        self.norm1 = NormAct(norm_type, "relu")
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.conv2 = Conv(features, features * 2, (3,) * spatial_dims, strides=2, padding=1,
                           use_bias=use_bias, bias_inert=inert, kernel_init=kernel_init,
                           generator=generator)
-        self.norm2 = NormAct(norm_type, "relu")
+        self.BatchNorm_1 = batch_norm_or_none(norm_type, features * 2)
 
     def forward(self, x):
-        return self.norm2(self.conv2(self.norm1(self.conv1(x))))
+        h = norm_act(self.conv1(x), self.norm_type, "relu", batch_norm=self.BatchNorm_0)
+        return norm_act(self.conv2(h), self.norm_type, "relu", batch_norm=self.BatchNorm_1)
 
 
 class _UpConv(nn.Module):
@@ -72,17 +76,19 @@ class _UpConv(nn.Module):
     def __init__(self, features, out_channels, norm_type, spatial_dims, kernel_init,
                  generator=None):
         super().__init__()
+        self.norm_type = norm_type
         self.convt = ConvTranspose(features * 2, features, (3,) * spatial_dims, strides=2,
                                    padding=1, output_padding=1,
                                    use_bias=is_bias_before_norm(norm_type),
                                    bias_inert=inert_bias(norm_type), kernel_init=kernel_init,
                                    generator=generator)
-        self.norm = NormAct(norm_type, "relu")
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.conv = Conv(features, out_channels, (5,) * spatial_dims, padding=2,
                          pad_mode="replicate", kernel_init=kernel_init, generator=generator)
 
     def forward(self, x):
-        return torch.tanh(self.conv(self.norm(self.convt(x))))
+        h = norm_act(self.convt(x), self.norm_type, "relu", batch_norm=self.BatchNorm_0)
+        return torch.tanh(self.conv(h))
 
 
 class Piresnet3D(nn.Module):
@@ -96,6 +102,7 @@ class Piresnet3D(nn.Module):
                  weight_init_gain: float = 0.02,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        check_s2d_norm(norm_type, 2 if use_s2d_exec else 0)
         # Read by `BaseGAN._batch_fusable`.
         self.norm_type = norm_type
         self.use_inverse = use_inverse

@@ -7,9 +7,12 @@ convs -> c7s1-out -> tanh, with instance norm + ReLU after every conv but
 the last.
 
 Parameters are registered in forward order (initial, down0, down1,
-res0..res{N-1} with conv1 and conv2 each, up0, up1, out), which is the order
-of the original ganslate's modules, so an order-based importer maps its
-`.pth` files one to one.
+res0..res{N-1} with conv1 and conv2 each, up0, up1, out, each conv followed
+by its norm's), which is the order of the original ganslate's modules, so an
+order-based importer maps its `.pth` files one to one. The norms carry the
+JAX package's flax names, which only batch norm's parameters show: the stem
+and down norms are bare `BatchNorm_0..2` of the network, the up norms
+`NormAct_0`, `NormAct_1`, and a residual block's `NormAct_0`, `NormAct_1`.
 
 Every norm here runs fused with the ReLU that follows it. The JAX package
 applies a separate ReLU after the stem and down norms; fusing it is exact,
@@ -33,9 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, NormAct, inert_bias,
-                                          is_bias_before_norm, make_initializer,
-                                          pad_spatial)
+from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, NormAct, batch_norm_or_none,
+                                          check_s2d_norm, inert_bias, is_bias_before_norm,
+                                          make_initializer, norm_act, pad_spatial)
 
 
 class ResidualBlock(nn.Module):
@@ -48,15 +51,15 @@ class ResidualBlock(nn.Module):
         self.conv1 = Conv(features, features, k, padding=1, pad_mode=pad_mode,
                           use_bias=use_bias, bias_inert=inert, kernel_init=kernel_init,
                           generator=generator)
-        self.norm1 = NormAct(norm_type, "relu")
+        self.NormAct_0 = NormAct(norm_type, "relu", features=features)
         self.conv2 = Conv(features, features, k, padding=1, pad_mode=pad_mode,
                           use_bias=use_bias, bias_inert=inert, kernel_init=kernel_init,
                           generator=generator)
-        self.norm2 = NormAct(norm_type)
+        self.NormAct_1 = NormAct(norm_type, features=features)
 
     def forward(self, x):
-        h = self.norm1(self.conv1(x))
-        return x + self.norm2(self.conv2(h))
+        h = self.NormAct_0(self.conv1(x))
+        return x + self.NormAct_1(self.conv2(h))
 
 
 class ResnetGenerator(nn.Module):
@@ -72,12 +75,14 @@ class ResnetGenerator(nn.Module):
                  use_cells_boundary: bool = False, use_s2d_exec: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.norm_type = norm_type
         # `use_cells_boundary` (2D) and `use_s2d_exec` (3D) select TPU
         # execution forms in the JAX package that compute the same function
         # with the same parameters; the port accepts them and runs the plain
         # path, keeping the checks of `use_s2d_exec`, so that the same calls
         # are refused.
         del use_cells_boundary
+        check_s2d_norm(norm_type, 2 if use_s2d_exec else 0)
         self.use_s2d_exec = use_s2d_exec
         init = make_initializer(weight_init_type, weight_init_gain)
         # Every conv but the last feeds an instance norm: their biases are
@@ -88,14 +93,14 @@ class ResnetGenerator(nn.Module):
 
         self.initial = Conv(in_channels, ngf, k7, padding=0, use_bias=use_bias,
                             bias_inert=inert, kernel_init=init, generator=generator)
-        self.initial_norm = NormAct(norm_type, "relu")
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, ngf)
 
         feats = ngf
         for i in range(2):
             setattr(self, f"down{i}", Conv(feats, feats * 2, k3, strides=2, padding=1,
                                            use_bias=use_bias, bias_inert=inert,
                                            kernel_init=init, generator=generator))
-            setattr(self, f"down{i}_norm", NormAct(norm_type, "relu"))
+            setattr(self, f"BatchNorm_{i + 1}", batch_norm_or_none(norm_type, feats * 2))
             feats *= 2
 
         self.n_residual_blocks = n_residual_blocks
@@ -108,7 +113,7 @@ class ResnetGenerator(nn.Module):
                                                   padding=1, output_padding=1,
                                                   bias_inert=inert, kernel_init=init,
                                                   generator=generator))
-            setattr(self, f"up{i}_norm", NormAct(norm_type, "relu"))
+            setattr(self, f"NormAct_{i}", NormAct(norm_type, "relu", features=feats // 2))
             feats //= 2
 
         self.out = Conv(feats, out_channels, k7, padding=3, pad_mode=self.pad_mode,
@@ -119,15 +124,19 @@ class ResnetGenerator(nn.Module):
         """Encoder taps: 4 of the stem, 3 of each down conv, one per block."""
         return 10 + self.n_residual_blocks
 
+    def _norm(self, i, h, activation="relu"):
+        """Stem (i = 0) or down (i = 1, 2) norm, then `activation`."""
+        return norm_act(h, self.norm_type, activation,
+                        batch_norm=getattr(self, f"BatchNorm_{i}"))
+
     def _encoder(self, x):
         """The encoder's activations in tap order, computed as they are read."""
         h = pad_spatial(x, (3,) * self.spatial_dims, self.pad_mode)
         yield h
-        for conv, norm in [("initial", "initial_norm"), ("down0", "down0_norm"),
-                           ("down1", "down1_norm")]:
+        for i, conv in enumerate(("initial", "down0", "down1")):
             h = getattr(self, conv)(h, live_bias=True)
             yield h
-            h = getattr(self, norm)(h, activation="none")
+            h = self._norm(i, h, activation="none")
             yield h
             h = F.relu(h)
             yield h
@@ -151,11 +160,11 @@ class ResnetGenerator(nn.Module):
             taps = list(itertools.islice(self._encoder(x), max(indices, default=-1) + 1))
             return [taps[i] for i in indices]
         h = pad_spatial(x, (3,) * self.spatial_dims, self.pad_mode)
-        h = self.initial_norm(self.initial(h))
+        h = self._norm(0, self.initial(h))
         for i in range(2):
-            h = getattr(self, f"down{i}_norm")(getattr(self, f"down{i}")(h))
+            h = self._norm(i + 1, getattr(self, f"down{i}")(h))
         for i in range(self.n_residual_blocks):
             h = getattr(self, f"res{i}")(h)
         for i in range(2):
-            h = getattr(self, f"up{i}_norm")(getattr(self, f"up{i}")(h))
+            h = getattr(self, f"NormAct_{i}")(getattr(self, f"up{i}")(h))
         return torch.tanh(self.out(h))

@@ -10,12 +10,13 @@ coupling core, residual + PReLU); OutBlock (k5 conv + norm + PReLU + k1 conv
 inverse forward through the shared cores (RevGAN).
 
 Takes and returns `(N, C, *spatial)`. The submodules carry the JAX
-package's names (`in_ab`, `downs_0`, `core`, `PReLU_0`, ...), so
+package's names (`in_ab`, `downs_0`, `core`, `PReLU_0`, and with batch norm
+each block's `BatchNorm_0`, ...), so
 `utils/flax_weights.load_flax_params` carries its parameter tree. They are
 registered in the original ganslate's order (the JAX package's
 `torch_param_order_rank`): in_ab, in_ba, out_ab, out_ba, the down blocks,
 the up blocks, and inside a block its AB conv, its BA conv, the core, the
-PReLU.
+PReLU; inside a conv block its conv, its batch norm, its PReLU.
 
 `forward(x, extract_features=[...])` returns CUT's encoder taps instead of
 the image: 0 is the input block's output, 1 + i down block i's; the call
@@ -34,7 +35,8 @@ from torch import nn
 
 from ganslate_tpu_torch.nn.invertible import InvertibleSequence
 from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, PReLU, apply_norm_s2d,
-                                          inert_bias, is_bias_before_norm, make_initializer)
+                                          batch_norm_or_none, check_s2d_norm, inert_bias,
+                                          is_bias_before_norm, make_initializer)
 
 
 def _conv(in_features, features, k, spatial_dims, norm_type, kernel_init, generator, **kw):
@@ -44,8 +46,9 @@ def _conv(in_features, features, k, spatial_dims, norm_type, kernel_init, genera
                 kernel_init=kernel_init, generator=generator, **kw)
 
 
-def _norm_prelu(norm_type, h, prelu):
-    return prelu(apply_norm_s2d(norm_type, h))
+def _norm_prelu(block, h):
+    """`block`'s norm (its own `BatchNorm_0` for batch norm), then its PReLU."""
+    return block.PReLU_0(apply_norm_s2d(block.norm_type, h, norm=block.BatchNorm_0))
 
 
 class VnetInvBlock(nn.Module):
@@ -56,10 +59,11 @@ class VnetInvBlock(nn.Module):
         self.norm_type = norm_type
         self.conv = _conv(features, features, 5, spatial_dims, norm_type, kernel_init,
                           generator, padding=2)
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.PReLU_0 = PReLU(features)
 
     def forward(self, x):
-        return _norm_prelu(self.norm_type, self.conv(x), self.PReLU_0)
+        return _norm_prelu(self, self.conv(x))
 
 
 class InputBlock(nn.Module):
@@ -71,10 +75,11 @@ class InputBlock(nn.Module):
         self.n_repeats = out_channels // in_channels
         self.conv1 = _conv(in_channels, out_channels, 5, spatial_dims, norm_type, kernel_init,
                            generator, padding=2)
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, out_channels)
         self.PReLU_0 = PReLU(out_channels)
 
     def forward(self, x):
-        out = apply_norm_s2d(self.norm_type, self.conv1(x))
+        out = apply_norm_s2d(self.norm_type, self.conv1(x), norm=self.BatchNorm_0)
         # The input repeated over the channels (`jnp.tile`); one channel
         # broadcasts, without a copy.
         residual = x if x.shape[1] == 1 else x.repeat(1, self.n_repeats, *(1,) * (x.ndim - 2))
@@ -89,10 +94,11 @@ class _DownConv(nn.Module):
         self.norm_type = norm_type
         self.conv = _conv(in_features, features, 2, spatial_dims, norm_type, kernel_init,
                           generator, strides=2)
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.PReLU_0 = PReLU(features)
 
     def forward(self, x):
-        return _norm_prelu(self.norm_type, self.conv(x), self.PReLU_0)
+        return _norm_prelu(self, self.conv(x))
 
 
 class _UpConv(nn.Module):
@@ -105,10 +111,11 @@ class _UpConv(nn.Module):
                                    use_bias=is_bias_before_norm(norm_type),
                                    bias_inert=inert_bias(norm_type), kernel_init=kernel_init,
                                    generator=generator)
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.PReLU_0 = PReLU(features)
 
     def forward(self, x):
-        return _norm_prelu(self.norm_type, self.convt(x), self.PReLU_0)
+        return _norm_prelu(self, self.convt(x))
 
 
 def _core(channels, n_blocks, norm_type, spatial_dims, use_memory_saving, kernel_init,
@@ -166,12 +173,13 @@ class OutBlock(nn.Module):
         self.norm_type = norm_type
         self.conv1 = _conv(in_channels, in_channels, 5, spatial_dims, norm_type, kernel_init,
                            generator, padding=2)
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, in_channels)
         self.PReLU_0 = PReLU(in_channels)
         self.conv2 = Conv(in_channels, out_channels, (1,) * spatial_dims,
                           kernel_init=kernel_init, generator=generator)
 
     def forward(self, x):
-        h = _norm_prelu(self.norm_type, self.conv1(x), self.PReLU_0)
+        h = _norm_prelu(self, self.conv1(x))
         return torch.tanh(self.conv2(h))
 
 
@@ -203,6 +211,7 @@ class VnetGenerator(nn.Module):
             raise NotImplementedError("The self-attention V-Net (`enable_attention_block`) "
                                       "is not ported yet: it comes with the rest of the "
                                       "network zoo.")
+        check_s2d_norm(norm_type, 2 if use_s2d_exec else 0)
         # Read by `BaseGAN._batch_fusable`.
         self.norm_type = norm_type
         self.use_inverse = use_inverse

@@ -25,8 +25,8 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from ganslate_tpu_torch.nn.layers import (Conv, NormAct, get_norm_layer, inert_bias,
-                                          is_bias_before_norm, make_initializer)
+from ganslate_tpu_torch.nn.layers import (Conv, batch_norm_or_none, inert_bias,
+                                          is_bias_before_norm, make_initializer, norm_act)
 
 
 def coupling_forward(f, g, h):
@@ -176,17 +176,20 @@ class InvResidualBlock(nn.Module):
     """The half-width function inside Piresnet's couplings (the JAX
     package's `InvResidualBlock`): norm -> replicate-padded k3 conv -> norm
     -> ReLU, the ReLU fused into the second norm (exact). The conv is named
-    `conv`, as in the JAX package."""
+    `conv` and the batch norms `BatchNorm_0`, `BatchNorm_1`, as in the JAX
+    package."""
 
     def __init__(self, features: int, norm_type: str = "instance", spatial_dims: int = 3,
                  kernel_init=None, generator=None):
         super().__init__()
-        self.norm = get_norm_layer(norm_type)()
+        self.norm_type = norm_type
+        self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.conv = Conv(features, features, (3,) * spatial_dims, padding=1,
                          pad_mode="replicate", use_bias=is_bias_before_norm(norm_type),
                          bias_inert=inert_bias(norm_type),
                          kernel_init=kernel_init or make_initializer(), generator=generator)
-        self.norm_relu = NormAct(norm_type, "relu")
+        self.BatchNorm_1 = batch_norm_or_none(norm_type, features)
 
     def forward(self, x):
-        return self.norm_relu(self.conv(self.norm(x)))
+        h = self.conv(norm_act(x, self.norm_type, batch_norm=self.BatchNorm_0))
+        return norm_act(h, self.norm_type, "relu", batch_norm=self.BatchNorm_1)

@@ -252,6 +252,28 @@ class BatchNorm(nn.Module):
         return (y * self.scale.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
+def norm_act(x, norm_type: str, activation: str = "none", negative_slope: float = 0.2,
+             epsilon: float = 1e-5, batch_norm: Optional[nn.Module] = None):
+    """Norm of `norm_type`, then `activation`. Instance norm runs the norm
+    kernels with the activation fused; batch norm needs the network's own
+    `BatchNorm` module (`batch_norm`), which holds its parameters."""
+    if norm_type == "instance":
+        y = instance_norm(_channels_last_view(x), epsilon, activation, negative_slope)
+        return _channels_first_view(y)
+    if norm_type == "batch":
+        if batch_norm is None:
+            raise ValueError("batch norm holds per-channel parameters: pass the "
+                             "network's `BatchNorm` module")
+        x = batch_norm(x)
+    elif norm_type not in ("none", None):
+        raise NotImplementedError(f"Normalization layer `{norm_type}` not supported")
+    if activation == "relu":
+        return F.relu(x)
+    if activation == "leaky_relu":
+        return leaky_relu(x, negative_slope)
+    return x
+
+
 class NormAct(nn.Module):
     """A norm fused with the following activation
     (`activation` in {'none', 'relu', 'leaky_relu'}).
@@ -281,18 +303,16 @@ class NormAct(nn.Module):
         self.epsilon = epsilon
 
     def forward(self, x, activation: Optional[str] = None):
-        activation = activation or self.activation
-        if self.norm_type == "instance":
-            y = instance_norm(_channels_last_view(x), self.epsilon, activation,
-                              self.negative_slope)
-            return _channels_first_view(y)
-        if self.norm_type == "batch":
-            x = self.BatchNorm_0(x)
-        if activation == "relu":
-            return F.relu(x)
-        if activation == "leaky_relu":
-            return leaky_relu(x, self.negative_slope)
-        return x
+        return norm_act(x, self.norm_type, activation or self.activation,
+                        self.negative_slope, self.epsilon,
+                        getattr(self, "BatchNorm_0", None))
+
+
+def batch_norm_or_none(norm_type: Optional[str], features: int) -> Optional["BatchNorm"]:
+    """The `BatchNorm` that the JAX package's bare `get_norm_layer(...)()`
+    call creates in a block's scope (flax names it `BatchNorm_{k}` there),
+    or None for the norms without parameters."""
+    return BatchNorm(features) if norm_type == "batch" else None
 
 
 class InstanceNorm(NormAct):
@@ -323,6 +343,14 @@ def get_norm_layer(norm_type: str = "instance"):
     raise NotImplementedError(f"Normalization layer `{norm_type}` not supported")
 
 
+def check_s2d_norm(norm_type: str, s2d: int):
+    """The JAX package's s2d execution form takes instance and no norm only;
+    the same configs are refused here."""
+    if s2d > 1 and norm_type not in ("instance", "none", None):
+        raise ValueError(f"the s2d execution space supports instance and no norm, "
+                         f"got {norm_type!r}")
+
+
 def apply_norm_s2d(norm_type: str, h, channels: Optional[int] = None, s2d: int = 0,
                    norm: Optional[nn.Module] = None):
     """Norm dispatch of the s2d-capable generators (the JAX package's
@@ -332,14 +360,9 @@ def apply_norm_s2d(norm_type: str, h, channels: Optional[int] = None, s2d: int =
     `norm` is the network's own norm module, which a norm with parameters
     (batch norm) needs; as in the JAX package, the s2d form takes instance
     and no norm only."""
-    if s2d > 1 and norm_type not in ("instance", "none", None):
-        raise ValueError(f"the s2d execution space supports instance and no norm, "
-                         f"got {norm_type!r}")
+    check_s2d_norm(norm_type, s2d)
     if norm is None:
-        if norm_type == "batch":
-            raise ValueError("batch norm holds per-channel parameters: pass the "
-                             "network's `BatchNorm` module as `norm`")
-        norm = get_norm_layer(norm_type)()
+        return norm_act(h, norm_type)
     return norm(h)
 
 

@@ -74,6 +74,13 @@ def test_port_imports_no_jax_and_no_jax_package():
         "utils.trackers.wandb", "utils.trackers.tensorboard",
         "utils.environment", "utils.summary", "utils.csv_saver",
         "utils.metrics.val_test_metrics")} <= names
+    # The medical data path and the BRaTS project twin.
+    assert {f"ganslate_tpu_torch.{m}" for m in (
+        "utils.medio", "utils.sitk_utils", "data.utils.ops", "data.utils.fov_truncate",
+        "data.utils.registration_methods", "projects",
+        "projects.brats_mri_sequence_translation",
+        "projects.brats_mri_sequence_translation.datasets.train_dataset",
+        "projects.brats_mri_sequence_translation.datasets.val_test_dataset")} <= names
 
 
 _FORBIDDEN = re.compile(
@@ -89,7 +96,11 @@ def test_port_sources_import_nothing_of_jax():
             "utils/trackers/base.py", "utils/trackers/training.py",
             "utils/environment.py", "utils/summary.py", "nn/gans/unpaired/cut.py",
             "nn/losses/cut_losses.py", "nn/generators/resnet/resnet3d.py", "__main__.py",
-            "utils/cli/interface.py", "utils/cli/scaffold.py"} <= scanned
+            "utils/cli/interface.py", "utils/cli/scaffold.py", "utils/medio.py",
+            "utils/sitk_utils.py", "data/utils/ops.py", "data/utils/fov_truncate.py",
+            "data/utils/registration_methods.py",
+            "projects/brats_mri_sequence_translation/datasets/train_dataset.py",
+            "projects/brats_mri_sequence_translation/datasets/val_test_dataset.py"} <= scanned
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders
