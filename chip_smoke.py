@@ -185,10 +185,47 @@ project's datasets, which the port's config loader takes from its twin
    `cyclegan_s2d.yaml` equal bit for bit to the plain YAML's from the same
    seed and batch, and a shorter Trainer run from that YAML.
 
+12. hx4: the HX4 PET project's experiments loaded from their YAMLs
+   (`projects/maastro_hx4_pet_translation/experiments/`) by `init_engine(
+   "train", ["config=<yaml>", ...])` with only the overrides of
+   `project_args` (the datasets' roots, the loop lengths and frequencies, a
+   seed, `logging.wandb` off), on 3 + 1 synthetic patients that the phase
+   writes with the port's `medio` (NRRD volumes of (48, 256, 256) and
+   `SUVmean_aorta_HX4.csv`; `utils/synthetic_data.write_hx4_root`), read
+   through the project twin. (a) `cyclegan_balanced.yaml`, the custom
+   `HX4CycleGANBalanced` (two Unet3Ds of 24,659,329 parameters, 2 -> 1
+   channels; two PatchGAN3Ds on the 1-channel PET; (32, 128, 128), batch
+   1, bf16): patches/s, plain iterations against log, checkpoint and
+   validation ones, t_data and the loader wait against one sample's time
+   on one thread, peak memory, finite losses at every log, the norm
+   launches of every step and validation; one validation through the
+   sliding window (18 windows) with its six metrics and its NRRD `save`;
+   then on its model: model-level steps, the zero CT channel of the
+   fakes and reconstructions exactly 0, 3 steps under `torch.profiler` by
+   family with the idle share; the checkpoint's `G_AB` served by the
+   `Tester` through the sliding window against the plain norms; one step
+   against the plain norms (fp32 losses 1e-4, gradients 1e-2; bf16 each
+   against the fp32 gradient, with two more plain controls). (b)
+   `pix2pix.yaml` (the Pix2Pix; its conditional PatchGAN3D on 3
+   channels): a Trainer run whose validation supplies the BODY and GTV
+   masks, whose masked metrics it checks.
+13. cleargrasp: the ClearGrasp project's experiments likewise
+   (`projects/cleargrasp_depth_estimation/experiments/`), on 4 + 1
+   synthetic samples of 960x540 (RGB JPEGs, EXR normal and depth maps;
+   `write_cleargrasp_root`), with OpenCV's EXR codec switched on
+   (`OPENCV_IO_ENABLE_OPENEXR`, set by `main`) and checked. (a)
+   `cyclegan_balanced.yaml`, the custom `CycleGANMultiModalV3` (Resnet2Ds
+   of 11,381,313 and 11,381,315 parameters, 6 -> 1 and 4 -> 3; PatchGAN2Ds
+   on the 1-channel depth and the 3-channel normal map; 256x512, batch 1,
+   bf16), measured and checked as (a) of phase 12, its validation writing
+   an EXR depth map, its zero RGB channels checked, its `G_AB` served by
+   the `Tester` directly. (b) `pix2pix_new.yaml` (Unet2D of 7 levels, ngf
+   64, 41,824,641 parameters; the conditional PatchGAN2D on 7 channels).
+
 The kernels phase also checks and times both kernels at the V-Net's, the
-RevGAN's, the Pix2Pix's and the CUT's norm slabs (in both dtypes for the
-Pix2Pix's; the BRaTS CycleGAN's are the CUT's Vnet3D slabs and the
-RevGAN's PatchGAN3D ones), and
+RevGAN's, the Pix2Pix's, the CUT's and the HX4 and ClearGrasp networks'
+norm slabs (in both dtypes for the Pix2Pix's; the BRaTS CycleGAN's are the
+CUT's Vnet3D slabs and the RevGAN's PatchGAN3D ones), and
 checks a channel count that is not a multiple of the kernels' channel
 block (C = 20), which the wrappers pad.
 
@@ -200,6 +237,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -800,6 +838,11 @@ def check_kernels(bandwidth, flops):
     # checked and timed, level 0 in fp32 too.
     for shape, dtype in CUT_SLABS:
         timed_slab("kernel_cut", shape, getattr(torch, dtype), "none")
+
+    # The HX4 and ClearGrasp slabs (hx4 and cleargrasp phases), with their
+    # activations: checked and timed in bf16.
+    for shape, act in PROJECT_SLABS:
+        timed_slab("kernel_project", shape, torch.bfloat16, act, iters=10)
 
     # Channel counts that are not a multiple of the channel block: the
     # wrappers pad them (checked in both dtypes, each form).
@@ -4384,10 +4427,513 @@ def brats_cyclegan_phase(root):
     return totals
 
 
+# ------------------------------------------------------- phases 12 and 13
+
+
+# The hx4 and cleargrasp phases: the HX4 PET and ClearGrasp experiments
+# loaded from their YAMLs by `init_engine("train", ["config=<yaml>", ...])`
+# with only the overrides of `project_args` (the datasets' roots, the loop
+# lengths, the logging, checkpoint and validation frequencies, a seed and
+# `logging.wandb` off), on files that each phase writes with
+# `utils/synthetic_data` into its temporary root. Runs: (warm-up
+# iterations, timed iterations, logging.freq, checkpointing.freq,
+# val.freq): one checkpoint and one validation inside the timed span.
+HX4_PROJECT = HERE / "projects" / "maastro_hx4_pet_translation"
+CLEARGRASP_PROJECT = HERE / "projects" / "cleargrasp_depth_estimation"
+# Synthetic HX4 patients: the clinical in-plane 512^2 cut to 256^2; larger
+# than one (32, 128, 128) window in every axis, so that the sliding window
+# blends several; 3 for training, 1 for validation.
+HX4_VOLUME = (48, 256, 256)
+HX4_PATIENTS = (3, 1)
+HX4_YAML_LENGTHS = {"n_iters": 30000, "n_iters_decay": 30000, "logging.freq": 50,
+                    "checkpointing.freq": 1000, "val.freq": 1000}
+HX4_BALANCED_RUN = (3, 10, 5, 10, 10)
+HX4_PIX2PIX_RUN = (2, 6, 4, 8, 8)
+HX4_MODEL_STEPS = (2, 5)
+HX4_PROFILED_STEPS = 3
+# Norm launches of an HX4CycleGANBalanced step: 4 Unet3D passes (fake_B,
+# rec_A, fake_A, rec_B) of `HX4_G_LAUNCHES`; PatchGAN3D on the 1-channel
+# fakes in the G step and, in the D step, each D on real and fake as one
+# forward, of `HX4_D_LAUNCHES`. A validation runs G_AB over every window
+# (the YAML has no cycle metrics).
+HX4_BALANCED_LAUNCHES = {k: 4 * HX4_G_LAUNCHES[k] + 4 * HX4_D_LAUNCHES[k]
+                         for k in HX4_G_LAUNCHES}
+HX4_BALANCED_PARAMS = {"G_AB": 24_659_329, "G_BA": 24_659_329, "D_B": 11_047_873,
+                       "D_A": 11_047_873}
+# Inert biases: the conv before each norm of both Gs and both Ds.
+HX4_BALANCED_INERT = 2 * sum(HX4_G_LAUNCHES.values()) + 2 * sum(HX4_D_LAUNCHES.values())
+# The validation's six metrics (the balanced YAML's `val.metrics`), and the
+# masked ones of the Pix2Pix YAML's validation (`supply_masks: true`).
+HX4_VAL_METRICS = ("mse", "mae", "psnr", "ssim", "nmi", "histogram_chi2")
+HX4_MASKED_METRICS = tuple(f"{m}_{label}" for m in ("mse", "mae", "psnr", "ssim", "nmse")
+                           for label in ("BODY", "GTV"))
+HX4_LEFT_OUT = {
+    "train.dataset.root, val.dataset.root": "synthetic HX4 patients (NRRD volumes of (48, 256, "
+                                            "256) and SUVmean_aorta_HX4.csv) that the port's "
+                                            "medio wrote: no HX4 data in the repo",
+    "train.logging.wandb": "the YAML names a wandb project; set off (the wandb package would "
+                           "contact its server)"}
+# Synthetic ClearGrasp samples: RGB JPEGs and EXR normal and depth maps of
+# 960x540 (half of the 1920x1080 captures), which the datasets resize to
+# the YAMLs' 512x256; 4 for training, 1 for validation.
+CLEARGRASP_SOURCE_WH = (960, 540)
+CLEARGRASP_SIZE = (256, 512)
+CLEARGRASP_SAMPLES = (4, 1)
+CLEARGRASP_YAML_LENGTHS = {"n_iters": 40000, "n_iters_decay": 40000, "logging.freq": 50,
+                           "checkpointing.freq": 2000, "val.freq": 2000}
+CLEARGRASP_BALANCED_RUN = (3, 10, 5, 10, 10)
+CLEARGRASP_PIX2PIX_RUN = (2, 6, 4, 8, 8)
+# Norm launches: a Resnet2D pass at 256x512 (23 norms, every slab over the
+# one-pass limit); a PatchGAN2D pass (3 layers: down1 split, down2 and the
+# penultimate one-pass); the 7-level Unet2D at ngf 64 (the Cityscapes
+# G's forms: `PIX2PIX_G_LAUNCHES`). A CycleGANMultiModalV3 step: 4 G passes,
+# 2 D passes in the G step, each D on real and fake as one forward in the
+# D step; a Pix2Pix step: G, D in the G step, D at batch 2 in the D step.
+# A validation runs G_AB once per image.
+CLEARGRASP_G_LAUNCHES = {"onepass": 0, "split": 23}
+CLEARGRASP_D_LAUNCHES = {"onepass": 2, "split": 1}
+CLEARGRASP_BALANCED_LAUNCHES = {k: 4 * CLEARGRASP_G_LAUNCHES[k] + 4 * CLEARGRASP_D_LAUNCHES[k]
+                                for k in CLEARGRASP_G_LAUNCHES}
+CLEARGRASP_PIX2PIX_LAUNCHES = {k: PIX2PIX_G_LAUNCHES[k] + 2 * CLEARGRASP_D_LAUNCHES[k]
+                               for k in PIX2PIX_G_LAUNCHES}
+CLEARGRASP_BALANCED_PARAMS = {"G_AB": 11_381_313, "G_BA": 11_381_315, "D_B": 2_762_689,
+                              "D_A": 2_764_737}
+CLEARGRASP_PIX2PIX_PARAMS = {"G": 41_824_641, "D": 2_768_833}
+CLEARGRASP_BALANCED_INERT = 2 * sum(CLEARGRASP_G_LAUNCHES.values()) \
+    + 2 * sum(CLEARGRASP_D_LAUNCHES.values())
+CLEARGRASP_LEFT_OUT = {
+    "train.dataset.root, val.dataset.root": "synthetic ClearGrasp samples (RGB JPEGs, EXR "
+                                            "normal and depth maps of 960x540) from the seed: "
+                                            "no ClearGrasp data in the repo",
+    "train.logging.wandb": "unset in the YAML; set off explicitly",
+    "train.seed": "unset in the YAML (drawn) -> the script's seed, so that a run repeats"}
+PROJECT_FAMILY_GROUPS = ("conv_forward", "conv_dgrad", "conv_wgrad", "conv_backward_other")
+# The slabs (N, *spatial, C) of the two phases that no earlier phase checks,
+# with their activations, checked and timed in bf16 by the kernels phase:
+# the HX4 Unet3D's down1 and down2 levels; PatchGAN3D's three in the G step
+# (batch 1) and the D step (batch 2); Resnet2D at 256x512 (its residual
+# blocks' second norm has no activation); PatchGAN2D at 256x512 at batch 1
+# and 2; the 7-level Unet2D at ngf 64, the levels whose widths differ from
+# the Cityscapes G's.
+PROJECT_SLABS = (
+    ((1, 8, 32, 32, 128), "none"), ((1, 4, 16, 16, 256), "none"),
+    *(((n, *s), "leaky_relu") for n in (1, 2)
+      for s in ((8, 32, 32, 128), (4, 16, 16, 256), (3, 15, 15, 512))),
+    ((1, 256, 512, 64), "relu"), ((1, 128, 256, 128), "relu"), ((1, 64, 128, 256), "relu"),
+    ((1, 64, 128, 256), "none"),
+    *(((n, *s), "leaky_relu") for n in (1, 2)
+      for s in ((64, 128, 128), (32, 64, 256), (31, 63, 512))),
+    ((1, 64, 128, 128), "none"), ((1, 32, 64, 256), "none"), ((1, 128, 256, 64), "none"))
+
+
+def project_args(project, yaml_name, run, data_root, mixed_precision=None):
+    """`init_engine`'s arguments for `project`'s experiment `yaml_name`: the
+    YAML and only the phase's overrides (the datasets' roots under
+    `data_root`, the loop lengths and frequencies of `run`, a seed,
+    `logging.wandb` off); with `mixed_precision`, that too (the kernel-vs-
+    plain step's fp32 run)."""
+    warm, timed, log_freq, ckpt_freq, val_freq = run
+    n_iters = warm + timed
+    args = [f"config={project / 'experiments' / yaml_name}",
+            f"train.dataset.root={data_root / 'train'}", f"val.dataset.root={data_root / 'val'}",
+            f"train.n_iters={n_iters - n_iters // 2}", f"train.n_iters_decay={n_iters // 2}",
+            f"train.logging.freq={log_freq}", f"train.checkpointing.freq={ckpt_freq}",
+            f"val.freq={val_freq}", f"train.seed={SEED + 110}", "train.logging.wandb=null"]
+    if mixed_precision is not None:
+        args.append(f"train.mixed_precision={str(mixed_precision).lower()}")
+    return args
+
+
+def project_batches(conf, n, seed):
+    """`n` training samples of the config's dataset (a project twin's) as
+    batches of 1, sample `i` after seeding Python's `random` and the global
+    `np.random` from (`seed`, `i`); with the mean seconds a sample takes on
+    one thread."""
+    import random
+    import numpy as np
+    from ganslate_tpu_torch.utils.io import import_attr
+    dataset = import_attr(conf.train.dataset._target_)(conf)
+    batches = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        random.seed(seed * 1000 + i)
+        np.random.seed(seed * 1000 + i)
+        batches.append({k: v[None] for k, v in dataset[i % len(dataset)].items()})
+    return batches, (time.perf_counter() - t0) / n
+
+
+def padded_channels_check(label, model, channels):
+    """The zero-padded channels (`channels`, a slice) of the last step's
+    fakes and reconstructions are exactly 0, and the generated ones not."""
+    import torch
+    rec = {"phase": f"{label}_padded_channels", "channels": [channels.start, channels.stop]}
+    for key in ("fake_B", "rec_A", "fake_A", "rec_B"):
+        v = model.visuals[key]
+        rec[key] = {"shape": list(v.shape), "padded_max_abs": float(v[..., channels].abs().max())}
+        keep = torch.ones(v.shape[-1], dtype=torch.bool)
+        keep[channels] = False
+        rec[key]["generated_std"] = float(v[..., keep].float().std())
+    emit(rec)
+    check(all(rec[k]["padded_max_abs"] == 0 and rec[k]["generated_std"] > 0
+              for k in ("fake_B", "rec_A", "fake_A", "rec_B")), rec)
+
+
+def project_tester(root, args, load_iter, sliding_window):
+    """The Tester of the trained run's checkpoint `load_iter` (`args` are the
+    run's `init_engine` arguments): the YAML has no test section, so it is
+    the validation's, written with the run's overrides into a YAML of
+    `root`."""
+    from ganslate_tpu_torch.engines.utils import init_engine
+    from ganslate_tpu_torch.utils.builders import build_conf
+    raw = build_conf(args).to_container(resolve=False)
+    raw["test"] = {"dataset": raw["val"]["dataset"], "checkpointing": {"load_iter": load_iter}}
+    if sliding_window:
+        raw["test"]["sliding_window"] = raw["val"]["sliding_window"]
+    raw.pop("mode", None)
+    path = root / f"{Path(args[0].split('=', 1)[1]).stem}_test.yaml"
+    from ganslate_tpu_torch.configs.omega import Conf
+    path.write_text(Conf.create(raw).to_yaml())
+    return init_engine("test", [f"config={path}"])
+
+
+def project_serve(label, tester, x, out_channels, want_launches, zero_channels, tol):
+    """`tester.infer(x)` (the checkpoint's G_AB, through the sliding window
+    where the YAML has one) with the kernels and with the plain norms: an
+    output of `out_channels` whose padded channels (`zero_channels`) are
+    exactly 0 and the others finite and in [-1, 1], within `tol` (max,
+    mean) of the plain norms. Returns the kernel request's launches."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    tester.infer(x)                             # warm
+    inorm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = tester.infer(x)
+    latency_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(inorm.LAUNCHES)
+    with plain_norms():
+        inorm.reset_launches()
+        ref = tester.infer(x)
+        check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+    err = (y.float() - ref.float()).abs()
+    keep = torch.ones(y.shape[-1], dtype=torch.bool)
+    keep[zero_channels] = False
+    rec = {"phase": f"{label}_serve", "input_shape": list(x.shape), "latency_ms": latency_ms,
+           "launches": launches, "padded_max_abs": float(y[..., zero_channels].abs().max()),
+           "max_abs_err_vs_plain": float(err.max()), "mean_abs_err_vs_plain": float(err.mean()),
+           "tol_max": tol[0], "tol_mean": tol[1]}
+    sw_output_check(rec, y[..., keep], (*x.shape[:-1], int(keep.sum())))
+    emit(rec)
+    check(rec["padded_max_abs"] == 0 and y.shape[-1] == out_channels, rec)
+    check(launches == want_launches, rec)
+    check(rec["max_abs_err_vs_plain"] <= tol[0] and rec["mean_abs_err_vs_plain"] <= tol[1], rec)
+    return launches
+
+
+def project_summary(label, t0, rec, steps, sample_s, num_workers, profile, extra):
+    """The `<label>_summary` record: samples/s, the plain iteration against
+    the model-level step with t_data and the loader wait, the loader's bound
+    from one sample's time, peak memory, the profile's busy time by group
+    (convs, norm kernels, the plain norm backward, the rest) and idle share,
+    and the validation's seconds."""
+    fam = profile["device_ms_per_step_by_family"]
+    groups = {"convs": sum(fam.get(f, 0.0) for f in PROJECT_FAMILY_GROUPS),
+              "norm_kernels": fam.get("norm_kernels", 0.0),
+              "norm_backward_plain": fam.get("norm_backward_plain", 0.0)}
+    busy = profile["device_busy_ms_per_step"]
+    if busy != "not measured":
+        groups["rest"] = busy - sum(groups.values())
+    wait = rec["plain_host_ranges_ms"].get("loader_wait", 0.0)
+    plain = rec["plain_iteration_ms"]["median"]
+    summary = {"phase": f"{label}_summary", "seconds": time.perf_counter() - t0,
+               "samples_per_s_trainer": rec["patches_per_s"], "plain_iteration_ms": plain,
+               "model_step_ms": steps["median_step_ms"],
+               "plain_iteration_over_step": plain / steps["median_step_ms"],
+               "t_data_ms": rec["t_data_ms"], "loader_wait_ms_plain_mean": wait,
+               "loader_wait_share_of_plain_iteration": wait / plain,
+               "sample_s_one_thread": sample_s,
+               "loader_samples_per_s_bound": num_workers / sample_s,
+               "peak_memory_gib_trainer": rec["peak_memory_gib"],
+               "peak_memory_gib_model_steps": steps["peak_memory_gib"],
+               "device_busy_ms_per_step": busy, "device_idle_share": profile["device_idle_share"],
+               "device_ms_per_step_by_group": groups,
+               "validation_s": {i: ms / 1e3 for i, ms in rec["validation_iteration_ms"].items()},
+               "profile": profile, **extra}
+    emit(summary)
+    check(busy != "not measured" and groups["norm_kernels"] > 0,
+          f"the {label} profile saw no norm kernel")
+    return summary
+
+
+def project_run(root, label, project, yaml_name, run, data_root, want, params, left_out,
+                dataset, **extra):
+    """`trainer_run` of `project`'s `yaml_name` with `project_args`, from
+    `root/work` (`experiment_workdir`); checks the networks' parameter
+    counts. Returns the record, the model and the arguments."""
+    args = project_args(project, yaml_name, run, data_root)
+    cuts = {"from": HX4_YAML_LENGTHS if project == HX4_PROJECT else CLEARGRASP_YAML_LENGTHS,
+            "left_out": left_out}
+    rec, model = trainer_run(root, args, label, run, want, "patches",
+                             yaml=args[0].split("=", 1)[1], overrides=args[1:], cuts=cuts,
+                             dataset=dataset, **extra)
+    check(rec["parameters"] == params, rec["parameters"])
+    return rec, model, args
+
+
+def hx4_project_phase(root):
+    """Phase 12; returns the norm launches of its main path (the Trainer runs
+    of `cyclegan_balanced.yaml` and `pix2pix.yaml` and the serving of the
+    balanced run's G_AB)."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.utils import medio
+    from ganslate_tpu_torch.utils.builders import build_conf
+    from ganslate_tpu_torch.utils.synthetic_data import HX4_FILES, write_hx4_root
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    data_root = root / "hx4_data"
+    write_hx4_root(data_root, HX4_VOLUME, *HX4_PATIENTS, seed=SEED + 70)
+    sizes = [p.stat().st_size for p in data_root.rglob("*.nrrd")]
+    emit({"phase": "hx4_data", "seconds": time.perf_counter() - t0, "volume": list(HX4_VOLUME),
+          "patients": list(HX4_PATIENTS), "files_per_patient": list(HX4_FILES),
+          "nrrd_files": len(sizes), "nrrd_mib": sum(sizes) / 2 ** 20})
+    windows = sw_windows(HX4_VOLUME, HX4_PATCH)
+    totals = {k: 0 for k in HX4_G_LAUNCHES}
+    other = []
+    with experiment_workdir(root):
+        # (a) The balanced CycleGAN.
+        args = project_args(HX4_PROJECT, "cyclegan_balanced.yaml", HX4_BALANCED_RUN, data_root)
+        conf = build_conf(args)
+        batches, sample_s = project_batches(conf, 4, SEED + 71)
+        emit({"phase": "hx4_batches", "dataset": conf.train.dataset._target_,
+              "num_workers": conf.train.dataset.num_workers, "sample_s": sample_s,
+              "batch_shapes": {k: list(v.shape) for k, v in batches[0].items()}})
+        check(batches[0]["A"].shape == batches[0]["B"].shape == (1, *HX4_PATCH, 2),
+              "HX4 balanced batches")
+        warm, timed, _, _, val_freq = HX4_BALANCED_RUN
+        n_iters = warm + timed
+        want = {k: n_iters * HX4_BALANCED_LAUNCHES[k]
+                + n_iters // val_freq * windows * HX4_G_LAUNCHES[k] for k in totals}
+        rec, model, args = project_run(
+            root, "hx4_balanced", HX4_PROJECT, "cyclegan_balanced.yaml", HX4_BALANCED_RUN,
+            data_root, want, HX4_BALANCED_PARAMS, HX4_LEFT_OUT,
+            "synthetic HX4 NRRD patients, the project twin",
+            validation_windows_per_volume=windows)
+        check(all(m in rec["validation_metrics"] for m in HX4_VAL_METRICS),
+              rec["validation_metrics"])
+        out_dir = Path(model.conf.train.output_dir).resolve()
+        saved = sorted((out_dir / "val" / "saved").rglob("*.nrrd"))
+        image = medio.load(saved[-1])
+        emit({"phase": "hx4_balanced_saved", "files": [str(p.relative_to(out_dir))
+                                                       for p in saved],
+              "shape": list(image.array.shape), "dtype": str(image.array.dtype),
+              "origin": list(image.origin), "max_suv": float(image.array.max())})
+        check(image.array.shape == HX4_VOLUME and np.isfinite(image.array).all(), saved)
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                           for k, v in b.items()} for b in batches]
+        steps, step_launches = model_steps(model, device_batches, "hx4_balanced",
+                                           HX4_MODEL_STEPS)
+        check(steps["losses_finite"]
+              and all(s == HX4_BALANCED_LAUNCHES for s in step_launches), steps)
+        padded_channels_check("hx4_balanced", model, slice(1, 2))
+        profile = profile_steps(model, device_batches, HX4_PROFILED_STEPS, pix2pix_family,
+                                PIX2PIX_RANGES)
+        other += step_launches
+        del model, device_batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The checkpoint's G_AB served by the Tester through the sliding
+        # window, on the validation patient's [FDG-PET, pCT].
+        tester = project_tester(root, args, rec["checkpoints"][-1], sliding_window=True)
+        x = tester.data_loaders[None].dataset[0]["A"][None]
+        served = project_serve("hx4_balanced", tester, x, 2,
+                               {k: windows * v for k, v in HX4_G_LAUNCHES.items()}, slice(1, 2),
+                               (SW_BF16_MAX, SW_BF16_MEAN))
+        for k in totals:
+            totals[k] += served[k]
+        del tester
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        other += kernel_vs_plain_steps(
+            "hx4_balanced",
+            lambda mp: build_conf(project_args(HX4_PROJECT, "cyclegan_balanced.yaml",
+                                               HX4_BALANCED_RUN, data_root, mp)),
+            batches[0], HX4_BALANCED_LAUNCHES, HX4_BALANCED_INERT, bf16_controls=True)
+
+        # (b) The Pix2Pix, validated with the BODY and GTV masks.
+        warm2, timed2, _, _, val_freq2 = HX4_PIX2PIX_RUN
+        n2 = warm2 + timed2
+        want2 = {k: n2 * HX4_LAUNCHES[k] + n2 // val_freq2 * windows * HX4_G_LAUNCHES[k]
+                 for k in totals}
+        rec2, model2, _ = project_run(
+            root, "hx4_pix2pix", HX4_PROJECT, "pix2pix.yaml", HX4_PIX2PIX_RUN, data_root, want2,
+            HX4_PARAMS, HX4_LEFT_OUT, "synthetic HX4 NRRD patients, the project twin",
+            validation_windows_per_volume=windows)
+        check(all(m in rec2["validation_metrics"] for m in HX4_MASKED_METRICS),
+              rec2["validation_metrics"])
+        for k in totals:
+            totals[k] += rec2["launches"][k]
+        del model2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    left = torch.cuda.memory_allocated() - allocated
+    project_summary("hx4", t0, rec, steps, sample_s, conf.train.dataset.num_workers, profile, {
+        "pix2pix_samples_per_s_trainer": rec2["patches_per_s"],
+        "pix2pix_peak_memory_gib": rec2["peak_memory_gib"],
+        "pix2pix_validation_s": {i: ms / 1e3 for i, ms in
+                                 rec2["validation_iteration_ms"].items()},
+        "launches_main_path": totals,
+        "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other) for k in totals},
+        "device_bytes_left_allocated": left})
+    check(totals["onepass"] > 0 and totals["split"] > 0, f"the hx4 phase's launches: {totals}")
+    check(left < 2 ** 28, f"the hx4 phase left {left} bytes allocated on the device")
+    return totals
+
+
+def exr_codec():
+    """Can this cv2 write and read back a float32 EXR? (OpenCV reads the
+    `OPENCV_IO_ENABLE_OPENEXR` switch, which `main` sets, at its import.)"""
+    import cv2
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        a = np.linspace(-1, 1, 48, dtype=np.float32).reshape(4, 4, 3)
+        try:
+            ok = cv2.imwrite(f"{tmp}/probe.exr", a)
+        except cv2.error:
+            return False
+        b = cv2.imread(f"{tmp}/probe.exr", cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+        return bool(ok) and b is not None and bool(np.array_equal(a, b))
+
+
+def cleargrasp_project_phase(root):
+    """Phase 13; returns the norm launches of its main path (the Trainer runs
+    of `cyclegan_balanced.yaml` and `pix2pix_new.yaml` and the serving of
+    the balanced run's G_AB)."""
+    import cv2
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.utils.builders import build_conf
+    from ganslate_tpu_torch.utils.synthetic_data import write_cleargrasp_root
+    t0 = time.perf_counter()
+    allocated = torch.cuda.memory_allocated()
+    exr = exr_codec()
+    emit({"phase": "cleargrasp_exr", "exr": exr, "cv2": cv2.__version__})
+    check(exr, "this cv2 has no EXR codec: the ClearGrasp maps and `save` need one")
+    data_root = root / "cleargrasp_data"
+    write_cleargrasp_root(data_root, CLEARGRASP_SOURCE_WH, *CLEARGRASP_SAMPLES, exr=True,
+                          seed=SEED + 80)
+    emit({"phase": "cleargrasp_data", "seconds": time.perf_counter() - t0,
+          "source_wh": list(CLEARGRASP_SOURCE_WH), "samples": list(CLEARGRASP_SAMPLES),
+          "exr": exr})
+    totals = {k: 0 for k in CLEARGRASP_G_LAUNCHES}
+    other = []
+    with experiment_workdir(root):
+        # (a) The multimodal CycleGAN.
+        args = project_args(CLEARGRASP_PROJECT, "cyclegan_balanced.yaml",
+                            CLEARGRASP_BALANCED_RUN, data_root)
+        conf = build_conf(args)
+        batches, sample_s = project_batches(conf, 4, SEED + 81)
+        emit({"phase": "cleargrasp_batches", "dataset": conf.train.dataset._target_,
+              "num_workers": conf.train.dataset.num_workers, "sample_s": sample_s,
+              "batch_shapes": {k: list(v.shape) for k, v in batches[0].items()}})
+        check(batches[0]["A"].shape == (1, *CLEARGRASP_SIZE, 6)
+              and batches[0]["B"].shape == (1, *CLEARGRASP_SIZE, 4), "ClearGrasp batches")
+        warm, timed, _, _, val_freq = CLEARGRASP_BALANCED_RUN
+        n_iters = warm + timed
+        n_val = CLEARGRASP_SAMPLES[1]
+        want = {k: n_iters * CLEARGRASP_BALANCED_LAUNCHES[k]
+                + n_iters // val_freq * n_val * CLEARGRASP_G_LAUNCHES[k] for k in totals}
+        rec, model, args = project_run(
+            root, "cleargrasp_balanced", CLEARGRASP_PROJECT, "cyclegan_balanced.yaml",
+            CLEARGRASP_BALANCED_RUN, data_root, want, CLEARGRASP_BALANCED_PARAMS,
+            CLEARGRASP_LEFT_OUT, "synthetic ClearGrasp image folders, the project twin")
+        out_dir = Path(model.conf.train.output_dir).resolve()
+        saved = sorted((out_dir / "val" / "saved").rglob("*.exr"))
+        depth = cv2.imread(str(saved[-1]), cv2.IMREAD_ANYDEPTH)
+        emit({"phase": "cleargrasp_balanced_saved",
+              "files": [str(p.relative_to(out_dir)) for p in saved],
+              "shape": list(depth.shape), "dtype": str(depth.dtype),
+              "depth_m": [float(depth.min()), float(depth.max())]})
+        check(depth.shape == CLEARGRASP_SIZE and depth.dtype == np.float32
+              and np.isfinite(depth).all(), saved)
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        device_batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                           for k, v in b.items()} for b in batches]
+        steps, step_launches = model_steps(model, device_batches, "cleargrasp_balanced",
+                                           HX4_MODEL_STEPS)
+        check(steps["losses_finite"]
+              and all(s == CLEARGRASP_BALANCED_LAUNCHES for s in step_launches), steps)
+        padded_channels_check("cleargrasp_balanced", model, slice(0, 3))
+        profile = profile_steps(model, device_batches, HX4_PROFILED_STEPS, revgan_family,
+                                REVGAN_RANGES)
+        other += step_launches
+        del model, device_batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The checkpoint's G_AB served by the Tester on the validation
+        # sample's [RGB, normal map].
+        tester = project_tester(root, args, rec["checkpoints"][-1], sliding_window=False)
+        x = tester.data_loaders[None].dataset[0]["A"][None]
+        served = project_serve("cleargrasp_balanced", tester, x, 4, CLEARGRASP_G_LAUNCHES,
+                               slice(0, 3), (SLICE_BF16_MAX, SLICE_BF16_MEAN))
+        for k in totals:
+            totals[k] += served[k]
+        del tester
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        other += kernel_vs_plain_steps(
+            "cleargrasp_balanced",
+            lambda mp: build_conf(project_args(CLEARGRASP_PROJECT, "cyclegan_balanced.yaml",
+                                               CLEARGRASP_BALANCED_RUN, data_root, mp)),
+            batches[0], CLEARGRASP_BALANCED_LAUNCHES, CLEARGRASP_BALANCED_INERT,
+            bf16_controls=True)
+
+        # (b) The Pix2Pix.
+        warm2, timed2, _, _, val_freq2 = CLEARGRASP_PIX2PIX_RUN
+        n2 = warm2 + timed2
+        want2 = {k: n2 * CLEARGRASP_PIX2PIX_LAUNCHES[k]
+                 + n2 // val_freq2 * n_val * PIX2PIX_G_LAUNCHES[k] for k in totals}
+        rec2, model2, _ = project_run(
+            root, "cleargrasp_pix2pix", CLEARGRASP_PROJECT, "pix2pix_new.yaml",
+            CLEARGRASP_PIX2PIX_RUN, data_root, want2, CLEARGRASP_PIX2PIX_PARAMS,
+            CLEARGRASP_LEFT_OUT, "synthetic ClearGrasp image folders, the project twin")
+        for k in totals:
+            totals[k] += rec2["launches"][k]
+        del model2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    left = torch.cuda.memory_allocated() - allocated
+    project_summary("cleargrasp", t0, rec, steps, sample_s, conf.train.dataset.num_workers,
+                    profile, {
+                        "exr": exr, "pix2pix_samples_per_s_trainer": rec2["patches_per_s"],
+                        "pix2pix_peak_memory_gib": rec2["peak_memory_gib"],
+                        "pix2pix_validation_s": {i: ms / 1e3 for i, ms in
+                                                 rec2["validation_iteration_ms"].items()},
+                        "launches_main_path": totals,
+                        "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other)
+                                                 for k in totals},
+                        "device_bytes_left_allocated": left})
+    check(totals["onepass"] > 0 and totals["split"] > 0,
+          f"the cleargrasp phase's launches: {totals}")
+    check(left < 2 ** 28, f"the cleargrasp phase left {left} bytes allocated on the device")
+    return totals
+
+
 # ------------------------------------------------------------------ main
 
 
 def main() -> int:
+    # The user's switch for OpenCV's EXR codec, read when cv2 is imported.
+    os.environ["OPENCV_IO_ENABLE_OPENEXR"] = "1"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
@@ -4473,6 +5019,16 @@ def main() -> int:
             brats_cyclegan_totals = brats_cyclegan_phase(Path(tmp))
         torch.cuda.empty_cache()
         phase_done("brats_cyclegan")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hx4_totals = hx4_project_phase(Path(tmp))
+    torch.cuda.empty_cache()
+    phase_done("hx4")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cleargrasp_totals = cleargrasp_project_phase(Path(tmp))
+    torch.cuda.empty_cache()
+    phase_done("cleargrasp")
     emit({"phase": "phase_seconds", **seconds})
     # Every RevGAN slab takes the split form.
     check(revgan_totals["split"] > 0 and revgan_totals["onepass"] == 0,
@@ -4486,7 +5042,8 @@ def main() -> int:
                    "trainer": trainer_totals[name], "sliding_window": sw_totals[name],
                    "revgan": revgan_totals[name], "pix2pix": pix2pix_totals[name],
                    "cut": cut_totals[name], "cut2d": cut2d_totals[name],
-                   "brats_cyclegan": brats_cyclegan_totals[name]}
+                   "brats_cyclegan": brats_cyclegan_totals[name], "hx4": hx4_totals[name],
+                   "cleargrasp": cleargrasp_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
@@ -4496,9 +5053,9 @@ def main() -> int:
         check(cut2d_totals[name] > 0, f"the 2D CUT steps never launched {name}")
         check(brats_cyclegan_totals[name] > 0,
               f"the brats_cyclegan phase never launched {name}")
-        totals[name] += (train_totals[name] + trainer_totals[name] + sw_totals[name]
-                         + revgan_totals[name] + pix2pix_totals[name] + cut_totals[name]
-                         + cut2d_totals[name] + brats_cyclegan_totals[name])
+        check(hx4_totals[name] > 0, f"the hx4 phase never launched {name}")
+        check(cleargrasp_totals[name] > 0, f"the cleargrasp phase never launched {name}")
+        totals[name] += sum(by_path[path] for path in by_path if path != "slice")
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
                         "replaces": replaces, "launches": totals[name],

@@ -92,17 +92,22 @@ class CycleGAN(BaseGAN):
         visuals = {k: v.detach() for k, v in visuals.items()}
         return self.discriminator_step(losses, visuals)
 
-    def discriminator_step(self, losses, visuals):
+    def discriminator_step(self, losses, visuals, judged=None):
         """The step's second half, after the G update: the pools, the D
         update and the metrics; returns `(losses, visuals, metrics)` with the
-        G step's `losses` and detached `visuals`."""
-        real_A, real_B = self._batch["A"], self._batch["B"]
+        G step's `losses` and detached `visuals`. `judged` holds what the
+        discriminators see, `real_A`, `real_B`, `fake_A` and `fake_B`: by
+        default the batch and the visuals' fakes; a model whose
+        discriminators see some channels only passes those."""
+        judged = judged or {"real_A": self._batch["A"], "real_B": self._batch["B"],
+                            "fake_A": visuals["fake_A"], "fake_B": visuals["fake_B"]}
+        real_A, real_B = judged["real_A"], judged["real_B"]
         adv = self.criterion_adv
         opt_D = self.optimizers["D"]
 
         # ---- Pool query with the pre-update fakes.
-        fake_B_pooled = self.pools["fake_B"].query(visuals["fake_B"])
-        fake_A_pooled = self.pools["fake_A"].query(visuals["fake_A"])
+        fake_B_pooled = self.pools["fake_B"].query(judged["fake_B"])
+        fake_A_pooled = self.pools["fake_A"].query(judged["fake_A"])
 
         # ---- D update.
         params = self.compute_params(["D_B", "D_A"])

@@ -106,6 +106,10 @@ def decollate(data: dict, batch_size=None):
                 return value
             if hasattr(value[0], "shape"):
                 return [to_single(d[idx]) for d in value]
+            if isinstance(value[0], tuple):
+                # Each sample's own tuple (a volume's size, origin, ...),
+                # which `collate` passes through as a list.
+                return value[idx]
             if issequenceiterable(value[0]):
                 return [_decollate(d, idx) for d in value]
             return value[idx]

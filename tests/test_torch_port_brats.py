@@ -193,8 +193,13 @@ def test_project_of_the_port_loads_as_it_is(tmp_path):
     assert sys.modules["project"].MARK == 7
 
 
-def test_hx4_project_names_its_missing_twin(monkeypatch):
+def test_hx4_project_names_its_missing_twin(monkeypatch, tmp_path):
+    """Without its twin (the port's projects directory swapped for an empty
+    one), the HX4 project, whose code imports the JAX package, raises and
+    names the twin to add."""
+    from ganslate_tpu_torch.configs import utils as config_utils
     monkeypatch.chdir(REPO)
+    monkeypatch.setattr(config_utils, "PROJECT_TWINS", tmp_path)
     with pytest.raises(ImportError, match="projects/maastro_hx4_pet_translation/"):
         init_config("projects/maastro_hx4_pet_translation/experiments/pix2pix.yaml", Config)
 

@@ -81,6 +81,21 @@ def test_port_imports_no_jax_and_no_jax_package():
         "projects.brats_mri_sequence_translation",
         "projects.brats_mri_sequence_translation.datasets.train_dataset",
         "projects.brats_mri_sequence_translation.datasets.val_test_dataset")} <= names
+    # The HX4 and ClearGrasp project twins and their helpers.
+    assert {f"ganslate_tpu_torch.{m}" for m in (
+        "data.utils.body_mask", "utils.synthetic_data",
+        "projects.maastro_hx4_pet_translation",
+        "projects.maastro_hx4_pet_translation.datasets.train_dataset",
+        "projects.maastro_hx4_pet_translation.datasets.val_test_dataset",
+        "projects.maastro_hx4_pet_translation.datasets.utils.basic",
+        "projects.maastro_hx4_pet_translation.datasets.utils.patch_samplers",
+        "projects.maastro_hx4_pet_translation.modules.hx4_cyclegan_balanced",
+        "projects.maastro_hx4_pet_translation.modules.hx4_cyclegan_balanced_losses",
+        "projects.cleargrasp_depth_estimation",
+        "projects.cleargrasp_depth_estimation.datasets.train_dataset",
+        "projects.cleargrasp_depth_estimation.datasets.val_test_dataset",
+        "projects.cleargrasp_depth_estimation.modules.cyclegan_multimodal_v3",
+        "projects.cleargrasp_depth_estimation.modules.cyclegan_losses_for_v3")} <= names
 
 
 _FORBIDDEN = re.compile(
@@ -100,7 +115,18 @@ def test_port_sources_import_nothing_of_jax():
             "utils/sitk_utils.py", "data/utils/ops.py", "data/utils/fov_truncate.py",
             "data/utils/registration_methods.py",
             "projects/brats_mri_sequence_translation/datasets/train_dataset.py",
-            "projects/brats_mri_sequence_translation/datasets/val_test_dataset.py"} <= scanned
+            "projects/brats_mri_sequence_translation/datasets/val_test_dataset.py",
+            "data/utils/body_mask.py", "utils/synthetic_data.py",
+            "projects/maastro_hx4_pet_translation/datasets/train_dataset.py",
+            "projects/maastro_hx4_pet_translation/datasets/val_test_dataset.py",
+            "projects/maastro_hx4_pet_translation/datasets/utils/basic.py",
+            "projects/maastro_hx4_pet_translation/datasets/utils/patch_samplers.py",
+            "projects/maastro_hx4_pet_translation/modules/hx4_cyclegan_balanced.py",
+            "projects/maastro_hx4_pet_translation/modules/hx4_cyclegan_balanced_losses.py",
+            "projects/cleargrasp_depth_estimation/datasets/train_dataset.py",
+            "projects/cleargrasp_depth_estimation/datasets/val_test_dataset.py",
+            "projects/cleargrasp_depth_estimation/modules/cyclegan_multimodal_v3.py",
+            "projects/cleargrasp_depth_estimation/modules/cyclegan_losses_for_v3.py"} <= scanned
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders
