@@ -221,6 +221,24 @@ project's datasets, which the port's config loader takes from its twin
    an EXR depth map, its zero RGB channels checked, its `G_AB` served by
    the `Tester` directly. (b) `pix2pix_new.yaml` (Unet2D of 7 levels, ngf
    64, 41,824,641 parameters; the conditional PatchGAN2D on 7 channels).
+14. fid: a model trained elsewhere, imported and tested with FID. A seeded
+   port InceptionV3 (23,834,568 parameters, random batch-norm statistics)
+   saved as a torchvision `.pth` and converted by `python -m
+   ganslate_tpu_torch convert-fid-weights` in a subprocess (the `.npz`
+   read back bit for bit); an original-ganslate `.pth` of the horse2zebra
+   CycleGAN's four networks (seeded, the Resnet2D alias included) through
+   `import-torch-checkpoint`, every tensor checked bit for bit; then
+   `test config=<yaml> test.metrics.fid=true test.metrics.fid_weights=
+   <npz>` through the command line in this process over 4 seeded 256x256
+   pairs: its FID finite and >= 0, `G_AB`'s norm launches (both kernels),
+   its `fake_B` within the slice's bf16 limits of the plain norms', its
+   seconds against the same test without FID. One BRaTS-shaped volume
+   (155, 240, 240) through the Tester's slicewise FID (chunks of 32).
+   Inception on the card (fp32, TF32 off) within 1e-4 of max|feature| of
+   its CPU forward; |FID(real, real)| < 1e-6 FID(real, real + 0.5) over
+   2,112 images a side (a full-rank covariance); the TF32 differences;
+   the forward's device time at batch 32, the resize's share, features/s,
+   peak memory and the Frechet solve's host seconds.
 
 The kernels phase also checks and times both kernels at the V-Net's, the
 RevGAN's, the Pix2Pix's, the CUT's and the HX4 and ClearGrasp networks'
@@ -1693,14 +1711,16 @@ def trainer_images(seed, n, size):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def write_trainer_data(root, kind):
-    """`train/{A,B}` and `test/{A,B}` of SIZE x SIZE images under `root`,
-    from the seed: PNGs written by the port's own writer (image folders), or
-    `.npy` stacks (the synthetic datasets)."""
+def write_trainer_data(root, kind, splits=("train", "test")):
+    """`train/{A,B}` and `test/{A,B}` (of `splits`) of SIZE x SIZE images
+    under `root`, from the seed: PNGs written by the port's own writer
+    (image folders), or `.npy` stacks (the synthetic datasets)."""
     import numpy as np
     from ganslate_tpu_torch.utils.trackers.utils import save_image
     for split, n, seed in (("train", TRAINER_IMAGES, SEED + 20), ("test", TRAINER_TEST_IMAGES,
                                                                   SEED + 30)):
+        if split not in splits:
+            continue
         for d, domain in enumerate("AB"):
             folder = root / split / domain
             folder.mkdir(parents=True)
@@ -4931,6 +4951,318 @@ def cleargrasp_project_phase(root):
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------- phase 14
+
+FID_SEED = SEED + 60
+FID_BATCH = 32                  # Inception images a batch (the slicewise chunk)
+FID_IMPORT_ITER = 40            # the imported checkpoint's iteration (its file name)
+FID_VOLUME = (155, 240, 240)    # one BRaTS-shaped volume, slicewise
+FID_FEATURE_REL = 1e-4          # card vs CPU features, of max|feature|
+FID_SAME_REL = 1e-6             # |FID(real, real)| < this x FID(real, real + 0.5)
+# Images a side for FID(real, real): more than the 2048 features, so that
+# the covariance has full rank (with fewer, the clipped square roots of its
+# zero eigenvalues leave ~1e-5 of FID(real, shifted) in FID(real, real)).
+FID_SAMPLES = 66 * FID_BATCH
+FID_SAMPLE_SIZE = 64
+
+
+def fid_weights(root):
+    """A seeded port InceptionV3 with random batch-norm statistics (as the
+    JAX package's tests draw them), saved as a torchvision-layout `.pth`,
+    and its `.npz` written by `python -m ganslate_tpu_torch
+    convert-fid-weights` in a subprocess; the `.npz` read back bit for bit."""
+    import torch
+    from ganslate_tpu_torch.nn.inception import InceptionV3, load_inception_npz
+    net = InceptionV3(generator=torch.Generator().manual_seed(FID_SEED))
+    g = torch.Generator().manual_seed(FID_SEED + 1)
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            buf.copy_(torch.randn(buf.shape, generator=g) * 0.1 if name.endswith("mean")
+                      else torch.rand(buf.shape, generator=g) + 0.5)
+    state_dict = net.state_dict()
+    pth, npz = root / "inception_v3.pth", root / "inception_v3.npz"
+    torch.save(state_dict, pth)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(HERE)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    argv = [sys.executable, "-m", "ganslate_tpu_torch", "convert-fid-weights", str(pth), str(npz)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    loaded = load_inception_npz(npz) if proc.returncode == 0 else {}
+    same = sorted(loaded) == sorted(state_dict) and all(
+        torch.equal(loaded[k], v) for k, v in state_dict.items())
+    rec = {"phase": "fid_weights", "argv": argv[1:], "returncode": proc.returncode,
+           "seconds": seconds, "parameters": sum(p.numel() for p in net.parameters()),
+           "tensors": len(state_dict), "npz_bit_exact": same}
+    emit(rec)
+    check(proc.returncode == 0, proc.stderr[-4000:])
+    check(same and rec["parameters"] == 23_834_568, rec)
+    return state_dict, npz
+
+
+def fid_import(root, data_root, kind):
+    """An original-layout `.pth` of the horse2zebra CycleGAN's four networks
+    (seeded, with the Resnet2D alias), through `python -m ganslate_tpu_torch
+    import-torch-checkpoint` (in this process); every imported tensor
+    checked bit for bit. Returns the YAML's path."""
+    import torch
+    from ganslate_tpu_torch.configs.config import Config
+    from ganslate_tpu_torch.configs.omega import Conf
+    from ganslate_tpu_torch.configs.utils import init_config
+    from ganslate_tpu_torch.utils.builders import build_gan
+    from ganslate_tpu_torch.utils.cli.interface import interface
+    from ganslate_tpu_torch.utils.synthetic_data import write_original_checkpoint
+    out_dir = root / "fid_out"
+    conf = init_config(Conf.create(trainer_raw(out_dir, data_root, kind, 1,
+                                               load_iter=FID_IMPORT_ITER)), Config)
+    config = root / "fid_test.yaml"
+    config.write_text(conf.to_yaml())
+    model = build_gan(conf)
+    model.init_networks()
+    original = root / f"{FID_IMPORT_ITER}.pth"
+    source = write_original_checkpoint(original, model.networks, seed=FID_SEED + 2)
+    del model
+    t0 = time.perf_counter()
+    interface.main(["import-torch-checkpoint", str(original), f"config={config}"],
+                   standalone_mode=False)
+    seconds = time.perf_counter() - t0
+    written = torch.load(out_dir / "checkpoints" / f"{FID_IMPORT_ITER}.pth",
+                         map_location="cpu", weights_only=True)
+    exact = {name: [torch.equal(a, b) for a, b in zip(
+        written[name].values(), [v for k, v in source[name].items() if k.startswith("p")])]
+        for name in source}
+    rec = {"phase": "fid_import", "seconds": seconds, "networks": sorted(written),
+           "tensors": {k: len(v) for k, v in exact.items()},
+           "aliases_dropped": sum(k.startswith("alias.") for sd in source.values() for k in sd),
+           "bit_exact": {k: all(v) for k, v in exact.items()}}
+    emit(rec)
+    check(sorted(written) == ["D_A", "D_B", "G_AB", "G_BA"], rec)
+    check(all(len(written[k]) == len(v) and all(v) for k, v in exact.items()), rec)
+    return config
+
+
+def fid_tester_runs(config, npz):
+    """`python -m ganslate_tpu_torch test config=<yaml> test.metrics.fid=true
+    test.metrics.fid_weights=<npz>` in this process, its norm launches
+    counted; the same test without FID, and with the plain norms. Returns
+    the launches, the FID-enabled run's record and a Tester for more."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.engines.utils import init_engine
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils.cli.interface import interface
+    from ganslate_tpu_torch.utils.trackers.validation_testing import ValTestTracker
+    fid_args = ["test.metrics.fid=true", f"test.metrics.fid_weights={npz}"]
+    seen = {"fake_B": [], "set_metrics": []}
+    add_sample, log_samples = ValTestTracker.add_sample, ValTestTracker.log_samples
+
+    def keep_sample(self, visuals, metrics):
+        seen["fake_B"].append(np.array(visuals["fake_B"]))
+        return add_sample(self, visuals, metrics)
+
+    def keep_set_metrics(self, *args, set_metrics=None, **kwargs):
+        seen["set_metrics"].append(set_metrics)
+        return log_samples(self, *args, set_metrics=set_metrics, **kwargs)
+
+    ValTestTracker.add_sample, ValTestTracker.log_samples = keep_sample, keep_set_metrics
+    try:
+        torch.cuda.synchronize()
+        inorm.reset_launches()
+        t0 = time.perf_counter()
+        interface.main(["test", f"config={config}", *fid_args], standalone_mode=False)
+        torch.cuda.synchronize()
+        fid_s = time.perf_counter() - t0
+        launches = dict(inorm.LAUNCHES)
+        out = np.concatenate(seen["fake_B"])
+        fid_logged = seen["set_metrics"][-1]
+
+        seen["fake_B"].clear()
+        t0 = time.perf_counter()
+        init_engine("test", [f"config={config}"]).run()
+        torch.cuda.synchronize()
+        no_fid_s = time.perf_counter() - t0
+        seen["fake_B"].clear()
+        with plain_norms():
+            inorm.reset_launches()
+            init_engine("test", [f"config={config}"]).run()
+            check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+        ref = np.concatenate(seen["fake_B"])
+    finally:
+        ValTestTracker.add_sample, ValTestTracker.log_samples = add_sample, log_samples
+    err = np.abs(out - ref)
+    rec = {"phase": "fid_test", "entry": "python -m ganslate_tpu_torch test (in process)",
+           "images": len(out), "fid": fid_logged and fid_logged.get("fid"),
+           "test_s_with_fid": fid_s, "test_s_without_fid": no_fid_s,
+           "max_abs_err_vs_plain": float(err.max()), "mean_abs_err_vs_plain": float(err.mean()),
+           "tol": {"max": SLICE_BF16_MAX, "mean": SLICE_BF16_MEAN}, "launches": launches}
+    emit(rec)
+    check(out.shape == (TRAINER_TEST_IMAGES, SIZE, SIZE, 3) and bool(np.isfinite(out).all()),
+          rec)
+    check(rec["fid"] is not None and math.isfinite(rec["fid"]) and rec["fid"] >= 0, rec)
+    check(rec["max_abs_err_vs_plain"] <= SLICE_BF16_MAX, rec)
+    check(rec["mean_abs_err_vs_plain"] <= SLICE_BF16_MEAN, rec)
+    check(launches == {k: TRAINER_TEST_IMAGES * v for k, v in G_LAUNCHES.items()}, rec)
+    tester = init_engine("test", [f"config={config}", *fid_args])
+    return launches, tester
+
+
+def inception_conv_flops(net, x):
+    """FLOPs of the convolutions of one Inception forward on x (NCHW)."""
+    import torch
+    total = [0]
+
+    def hook(module, inputs, output):
+        total[0] += 2 * output.numel() * module.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            net.features(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def fid_inception_checks(state_dict, flops_peak):
+    """Inception on the card (fp32, TF32 off) against its CPU forward on the
+    same weights; FID(real, real) against FID(real, real + 0.5) over
+    FID_SAMPLES images; with TF32 on, the differences only; then device
+    times at batch FID_BATCH (CUDA events), the resize's share, features/s,
+    peak memory and the host's Frechet solve's seconds (2048^2 `eigh`)."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.nn import inception
+    from ganslate_tpu_torch.utils.metrics.fid import fid_from_features
+
+    real = trainer_images(FID_SEED + 3, FID_BATCH, SIZE).astype(np.float32) / 127.5 - 1
+    card = inception.fid_feature_fn(state_dict, device="cuda")
+    cpu = inception.fid_feature_fn(state_dict, device="cpu")
+    f_card, f_cpu = card(real[:4]), cpu(real[:4])
+    feat_err = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+
+    def features(fn, x):
+        return np.concatenate([fn(x[i:i + FID_BATCH]) for i in range(0, len(x), FID_BATCH)])
+
+    sample = trainer_images(FID_SEED + 4, FID_SAMPLES, FID_SAMPLE_SIZE) \
+        .astype(np.float32) / 127.5 - 1
+    shifted = np.clip(sample + 0.5, -1, 1)
+    f_real, f_shifted = features(card, sample), features(card, shifted)
+    same = fid_from_features(f_real, f_real)
+    t0 = time.perf_counter()
+    diff = fid_from_features(f_real, f_shifted)
+    compute_s = time.perf_counter() - t0
+
+    # The same feature function with TF32 on, which the port does not use.
+    cudnn = torch.backends.cudnn
+    net = inception.inception_from_weights(state_dict, "cuda")
+
+    def tf32(batch):
+        x = torch.from_numpy(batch).cuda().permute(0, 3, 1, 2)
+        with torch.inference_mode(), cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                                                 deterministic=cudnn.deterministic,
+                                                 allow_tf32=True):
+            return net.features(inception.fid_resize(x, inception.FID_IMAGE_SIZE)).cpu().numpy()
+
+    f_tf32_real, f_tf32_shifted = features(tf32, sample), features(tf32, shifted)
+    tf32_feat = float(np.abs(f_tf32_real - f_real).max() / np.abs(f_real).max())
+    fid_tf32 = fid_from_features(f_tf32_real, f_tf32_shifted)
+
+    # Device times at batch FID_BATCH: the resize from 256x256, the forward
+    # at 299x299, and the whole feature function (copies included).
+    x256 = torch.from_numpy(real).cuda().permute(0, 3, 1, 2).contiguous()
+    x299 = inception.fid_resize(x256, inception.FID_IMAGE_SIZE)
+    flops = inception_conv_flops(net, x299)
+    times = {}
+    for label, allow in (("fp32", False), ("tf32", True)):
+        with torch.inference_mode(), cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                                                 deterministic=cudnn.deterministic,
+                                                 allow_tf32=allow):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            times[f"forward_ms_{label}"], _ = time_ms(lambda: net.features(x299), iters=5)
+            times[f"peak_bytes_{label}"] = torch.cuda.max_memory_allocated() - base
+    with torch.inference_mode():
+        times["resize_ms"], _ = time_ms(
+            lambda: inception.fid_resize(x256, inception.FID_IMAGE_SIZE), iters=5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        card(real)
+    feature_fn_s = (time.perf_counter() - t0) / 5
+    fwd = times["forward_ms_fp32"]
+    rec = {"phase": "fid_inception", "batch": FID_BATCH, "input": [SIZE, SIZE],
+           "resize_to": inception.FID_IMAGE_SIZE,
+           "feature_rel_err_vs_cpu": feat_err, "feature_tol": FID_FEATURE_REL,
+           "feature_max_abs": float(np.abs(f_cpu).max()),
+           "fid_samples": FID_SAMPLES, "fid_sample_size": FID_SAMPLE_SIZE,
+           "fid_same": same, "fid_shifted": diff, "same_tol_rel": FID_SAME_REL,
+           "fid_compute_s": compute_s,
+           "tf32": {"feature_rel_diff": tf32_feat, "fid_shifted": fid_tf32,
+                    "fid_rel_shift": (fid_tf32 - diff) / diff},
+           **times, "conv_flops": flops,
+           "conv_tflops_fp32": flops / (fwd * 1e-3) / 1e12,
+           "fp32_bound_ms": flops / flops_peak * 1e3,
+           "resize_share": times["resize_ms"] / (times["resize_ms"] + fwd),
+           "features_per_s": FID_BATCH / (fwd * 1e-3),
+           "feature_fn_s": feature_fn_s, "feature_fn_per_s": FID_BATCH / feature_fn_s}
+    emit(rec)
+    check(feat_err <= FID_FEATURE_REL, rec)
+    check(math.isfinite(diff) and abs(same) < FID_SAME_REL * diff, rec)
+
+
+def fid_slicewise(tester):
+    """One BRaTS-shaped volume (1, 155, 240, 240, 1) through the Tester's
+    FID hook, slice by slice in chunks of FID_BATCH, both sides."""
+    import numpy as np
+    import torch
+    vol = next(brats_volumes(FID_SEED + 4, 1, (1, *FID_VOLUME)))
+    real = (vol / vol.max() * 2 - 1).astype(np.float32)[..., None]      # (1, D, H, W, 1)
+    fake = np.clip(real + np.random.default_rng(FID_SEED + 5).normal(
+        0, 0.05, real.shape).astype(np.float32), -1, 1)
+    tester.visuals = {"real_B": real, "fake_B": fake}
+    chunks = []
+    feature_fn = tester.fid.feature_fn
+    tester.fid.feature_fn = lambda b: chunks.append(len(b)) or feature_fn(b)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tester._update_fid()
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    value = tester.fid.compute()
+    compute_s = time.perf_counter() - t0
+    rec = {"phase": "fid_slicewise", "volume": list(real.shape), "chunks": chunks,
+           "samples": tester.fid.num_samples("real"), "fid": value,
+           "update_s": update_s, "compute_s": compute_s,
+           "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    emit(rec)
+    want = [FID_BATCH] * (FID_VOLUME[0] // FID_BATCH) + [FID_VOLUME[0] % FID_BATCH]
+    check(chunks == want * 2 and rec["samples"] == FID_VOLUME[0], rec)
+    check(math.isfinite(value) and value >= 0, rec)
+    tester.fid.reset()
+
+
+def fid_phase(root, flops_peak):
+    """Phase 14; returns the norm launches of its test run."""
+    import importlib.util
+    import torch
+    t0 = time.perf_counter()
+    kind = "image_folder" if importlib.util.find_spec("PIL") else "synthetic_no_pillow"
+    data_root = root / "data"
+    write_trainer_data(data_root, kind, splits=("test",))
+    state_dict, npz = fid_weights(root)
+    config = fid_import(root, data_root, kind)
+    launches, tester = fid_tester_runs(config, npz)
+    fid_slicewise(tester)
+    del tester
+    gc.collect()
+    torch.cuda.empty_cache()
+    fid_inception_checks(state_dict, flops_peak)
+    emit({"phase": "fid_summary", "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def main() -> int:
     # The user's switch for OpenCV's EXR codec, read when cv2 is imported.
     os.environ["OPENCV_IO_ENABLE_OPENEXR"] = "1"
@@ -5029,6 +5361,11 @@ def main() -> int:
         cleargrasp_totals = cleargrasp_project_phase(Path(tmp))
     torch.cuda.empty_cache()
     phase_done("cleargrasp")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fid_totals = fid_phase(Path(tmp), flops)
+    torch.cuda.empty_cache()
+    phase_done("fid")
     emit({"phase": "phase_seconds", **seconds})
     # Every RevGAN slab takes the split form.
     check(revgan_totals["split"] > 0 and revgan_totals["onepass"] == 0,
@@ -5043,7 +5380,7 @@ def main() -> int:
                    "revgan": revgan_totals[name], "pix2pix": pix2pix_totals[name],
                    "cut": cut_totals[name], "cut2d": cut2d_totals[name],
                    "brats_cyclegan": brats_cyclegan_totals[name], "hx4": hx4_totals[name],
-                   "cleargrasp": cleargrasp_totals[name]}
+                   "cleargrasp": cleargrasp_totals[name], "fid": fid_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
@@ -5055,6 +5392,7 @@ def main() -> int:
               f"the brats_cyclegan phase never launched {name}")
         check(hx4_totals[name] > 0, f"the hx4 phase never launched {name}")
         check(cleargrasp_totals[name] > 0, f"the cleargrasp phase never launched {name}")
+        check(fid_totals[name] > 0, f"the fid phase never launched {name}")
         totals[name] += sum(by_path[path] for path in by_path if path != "slice")
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",

@@ -5,14 +5,16 @@ image-quality metrics (with masked, cycle and over-input variants), and
 the dataset's `save()` / `denormalize()` hooks.
 
 The `Validator` runs during training on the Trainer's live model; the
-`Tester` builds its model and loads the mode's checkpoint. FID is not
-ported yet: `metrics.fid: true` raises.
+`Tester` builds its model and loads the mode's checkpoint. With
+`metrics.fid`, both also stream every `real_B` and `fake_B` through
+InceptionV3 (`nn/inception.py`, on the mode's device) and log the FID of
+each dataset (`utils/metrics/fid.py`).
 """
 
 import numpy as np
 
 from ganslate_tpu_torch.engines.base import BaseEngineWithInference
-from ganslate_tpu_torch.utils import environment
+from ganslate_tpu_torch.utils import communication, environment
 from ganslate_tpu_torch.utils.builders import build_gan, build_loader
 from ganslate_tpu_torch.utils.metrics.val_test_metrics import ValTestMetrics
 from ganslate_tpu_torch.utils.trackers.validation_testing import ValTestTracker
@@ -22,10 +24,6 @@ class BaseValTestEngine(BaseEngineWithInference):
 
     def __init__(self, conf):
         super().__init__(conf)
-        if getattr(self.conf[self.conf.mode].metrics, "fid", False):
-            raise NotImplementedError(
-                f"FID (`{self.conf.mode}.metrics.fid: true`) is not ported yet: it comes "
-                f"with a later slice of the port. Set `{self.conf.mode}.metrics.fid=false`.")
 
         self.data_loaders = build_loader(self.conf)
         # A single dataset is the anonymous entry of a multi-dataset.
@@ -36,6 +34,26 @@ class BaseValTestEngine(BaseEngineWithInference):
         self.tracker = ValTestTracker(self.conf)
         self.metricizer = ValTestMetrics(self.conf)
         self.visuals = {}
+        self.fid = self._init_fid()
+
+    def _init_fid(self):
+        """Standard InceptionV3-pool3 FID over the whole val/test set
+        (`metrics.fid` and `metrics.fid_weights`), with Inception on the
+        mode's device (`<mode>.cuda`), which is the model's."""
+        mode_conf = self.conf[self.conf.mode]
+        if not getattr(mode_conf.metrics, "fid", False):
+            return None
+        weights = getattr(mode_conf.metrics, "fid_weights", None)
+        if not weights:
+            raise ValueError(
+                "metrics.fid requires metrics.fid_weights: the native .npz "
+                "(from `ganslate convert-fid-weights`) or a torchvision "
+                "inception_v3 state_dict .pth; see ganslate_tpu_torch/nn/inception.py")
+        from ganslate_tpu_torch.nn.gans.base import select_device
+        from ganslate_tpu_torch.nn.inception import fid_feature_fn, load_inception_weights
+        from ganslate_tpu_torch.utils.metrics.fid import FID
+        device = select_device(bool(mode_conf.cuda))
+        return FID(fid_feature_fn(load_inception_weights(weights), device=device))
 
     def run(self, current_idx=None):
         self.logger.info(f'{"Validation" if self.conf.mode == "val" else "Testing"} started.')
@@ -60,10 +78,43 @@ class BaseValTestEngine(BaseEngineWithInference):
                 metrics = self._calculate_metrics()
                 self.tracker.add_sample(self.visuals, metrics)
 
-            self.tracker.log_samples(current_idx, dataset_name=dataset_name)
+                self._update_fid()
+
+            set_metrics = None
+            if self.fid is not None:
+                # Every process's features, then the Frechet solve on the
+                # main process, whose tracker logs it.
+                self.fid.sync_across_processes()
+                if communication.is_main_process() and self.fid.num_samples("real"):
+                    set_metrics = {"fid": self.fid.compute()}
+                self.fid.reset()
+            self.tracker.log_samples(current_idx, dataset_name=dataset_name,
+                                     set_metrics=set_metrics)
 
         if self.conf.mode == "test":
             self.tracker.close()
+
+    _FID_SLICE_CHUNK = 32
+
+    def _update_fid(self):
+        """Stream the current visuals into the FID accumulator. 2D batches
+        (N, H, W, C) go in directly. Volumes (N, D, H, W, C) go in slice by
+        slice when `metrics.fid_3d_slicewise` (every axial slice one
+        Inception image), in chunks of `_FID_SLICE_CHUNK`; otherwise they
+        add nothing."""
+        if self.fid is None:
+            return
+        mconf = self.conf[self.conf.mode].metrics
+        for which in ("real", "fake"):
+            batch = np.asarray(self.visuals[f"{which}_B"])
+            if batch.ndim == 5:
+                if not getattr(mconf, "fid_3d_slicewise", True):
+                    return
+                batch = batch.reshape(-1, *batch.shape[2:])
+                for i in range(0, len(batch), self._FID_SLICE_CHUNK):
+                    self.fid.update(batch[i:i + self._FID_SLICE_CHUNK], which)
+            else:
+                self.fid.update(batch, which)
 
     def _infer(self, array, **kwargs) -> np.ndarray:
         """`infer` on a host array; the output as a host fp32 array."""

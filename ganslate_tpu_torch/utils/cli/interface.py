@@ -2,17 +2,24 @@
 
     python -m ganslate_tpu_torch train|test|infer config=<yaml> [a.b=c ...]
     python -m ganslate_tpu_torch new-project [PATH] --name NAME
+    python -m ganslate_tpu_torch your-first-run [PATH]
+    python -m ganslate_tpu_torch download-dataset NAME PATH
+    python -m ganslate_tpu_torch import-torch-checkpoint CHECKPOINT config=<yaml> [--iter N]
+    python -m ganslate_tpu_torch convert-fid-weights SRC.pth DST.npz
 
 `train`, `test` and `infer` run the port's engines
-(`init_engine(mode, dotlist).run()`); `new-project` scaffolds a project
-whose templates import this package. The JAX package's `your-first-run`,
-`download-dataset`, `import-torch-checkpoint` and `convert-fid-weights` are
-not ported: they need the network, FID or the checkpoint importer."""
+(`init_engine(mode, dotlist).run()`); `new-project` and `your-first-run`
+scaffold projects whose templates import this package;
+`import-torch-checkpoint` converts an original ganslate `.pth` into the
+port's checkpoint (`utils/torch_import.py`); `convert-fid-weights` writes
+torchvision Inception weights as the `.npz` that both packages read
+(`nn/inception.py`)."""
 
 import click
 
 from ganslate_tpu_torch.engines.utils import init_engine
 from ganslate_tpu_torch.utils.cli import scaffold
+from ganslate_tpu_torch.utils.cli.scripts import download_datasets
 
 
 @click.group()
@@ -44,6 +51,52 @@ def infer(dotlist_args):
 def new_project(path, name):
     project_dir = scaffold.create_project(path, name)
     click.echo(f"Project created at {project_dir}")
+
+
+@interface.command(name="your-first-run",
+                   help="Scaffold a first-run project and fetch the facades dataset.")
+@click.argument("path", default="./")
+def your_first_run(path):
+    project_dir = scaffold.create_first_run(path)
+    download_datasets.download("facades", str(project_dir))
+    click.echo(f"First run ready at {project_dir}")
+
+
+@interface.command(name="download-dataset", help="Download a CycleGAN dataset.")
+@click.argument("name")
+@click.argument("path")
+def download_dataset(name, path):
+    download_datasets.download(name, path)
+
+
+@interface.command(
+    name="import-torch-checkpoint",
+    help="Convert an original ganslate PyTorch .pth checkpoint into the port's "
+         "checkpoint under the experiment's output_dir, loadable via "
+         "checkpointing.load_iter by train/test/infer.")
+@click.argument("checkpoint_path")
+@click.argument("dotlist_args", nargs=-1)
+@click.option("--iter", "iter_idx", default=None, type=int,
+              help="Iteration index for the converted checkpoint "
+                   "(default: parsed from the filename, e.g. 20000.pth).")
+def import_torch_checkpoint_cmd(checkpoint_path, dotlist_args, iter_idx):
+    from ganslate_tpu_torch.utils.builders import build_conf
+    from ganslate_tpu_torch.utils.torch_import import convert_checkpoint_to_native
+    conf = build_conf(dotlist_args)
+    path = convert_checkpoint_to_native(checkpoint_path, conf, iter_idx)
+    click.echo(f"Converted checkpoint written to {path}")
+
+
+@interface.command(
+    name="convert-fid-weights",
+    help="One-time conversion of torchvision inception_v3 FID weights (.pth) to "
+         "the .npz format that both packages read (metrics.fid_weights: out.npz).")
+@click.argument("src")
+@click.argument("dst")
+def convert_fid_weights(src, dst):
+    from ganslate_tpu_torch.nn.inception import load_torch_inception_file, save_inception_npz
+    save_inception_npz(load_torch_inception_file(src), dst)
+    click.echo(f"Native FID weights written to {dst}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Project scaffolding (the JAX package's `utils/cli/scaffold.py`): plain
 string templates for a project package, its dataset stub and a default
-experiment YAML, written by `new-project`. The templates import this
-package."""
+experiment YAML, written by `new-project`, and the facades CycleGAN YAML of
+`your-first-run`. The templates import this package."""
 
 from pathlib import Path
 
@@ -88,6 +88,48 @@ train:
             lr_G: 0.0002
 '''
 
+FIRST_RUN_YAML = '''train:
+    output_dir: "{project_dir}/checkpoints/first_run"
+    cuda: True
+    n_iters: 2
+    n_iters_decay: 2
+    batch_size: 1
+
+    logging:
+        freq: 1
+
+    checkpointing:
+        freq: 2
+
+    dataset:
+        _target_: ganslate.data.UnpairedImageDataset
+        root: "{project_dir}/facades/train"
+        num_workers: 2
+        image_channels: 3
+        preprocess: ["resize", "random_flip"]
+        load_size: [256, 256]
+        final_size: [256, 256]
+
+    gan:
+        _target_: ganslate.nn.gans.unpaired.CycleGAN
+
+        generator:
+            _target_: ganslate.nn.generators.Resnet2D
+            n_residual_blocks: 9
+            in_out_channels:
+                AB: [3, 3]
+
+        discriminator:
+            _target_: ganslate.nn.discriminators.PatchGAN2D
+            n_layers: 3
+            in_channels:
+                B: 3
+
+        optimizer:
+            lr_D: 0.0002
+            lr_G: 0.0002
+'''
+
 
 def _camel(name: str) -> str:
     return "".join(part.capitalize() for part in name.replace("-", "_").split("_"))
@@ -105,4 +147,12 @@ def create_project(path, name: str) -> Path:
     (project_dir / "modules" / "__init__.py").write_text(
         '"""Custom GAN subclasses (`_target_: project.modules.X`)."""\n')
     (project_dir / "experiments" / "default.yaml").write_text(DEFAULT_YAML.format(**ctx))
+    return project_dir
+
+
+def create_first_run(path) -> Path:
+    project_dir = (Path(path) / "first_run").resolve()
+    project_dir.mkdir(parents=True, exist_ok=True)
+    (project_dir / "default.yaml").write_text(
+        FIRST_RUN_YAML.format(project_dir=str(project_dir)))
     return project_dir

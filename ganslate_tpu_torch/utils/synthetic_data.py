@@ -1,6 +1,7 @@
 """Synthetic data roots in the layouts that the HX4 and ClearGrasp project
-datasets read, made from a seed, for tests and smoke runs where the
-clinical and ClearGrasp files are not at hand.
+datasets read, and checkpoints in the original ganslate's layout, made from
+a seed, for tests and smoke runs where the clinical and ClearGrasp files
+and the original's checkpoints are not at hand.
 
 - `write_hx4_root`: `<root>/{train,val}/<patient>/` with the HX4 project's
   NRRD volumes (`HX4_FILES`), float32 images and uint8 masks written by
@@ -13,7 +14,14 @@ clinical and ClearGrasp files are not at hand.
   ClearGrasp's file names: JPEG RGB photos and, with `exr`, float32 EXR
   normal maps (in [-1, 1]) and depth maps (metres); without it, JPEG maps
   that hold the 8-bit encodings (normals (n + 1) * 127.5, whole metres),
-  which the datasets read as they read any JPEG."""
+  which the datasets read as they read any JPEG.
+- `original_state_dict`: a network's state dict as the original ganslate
+  saves it, with seeded values at the scale of the original's weight init,
+  in the port's registration order under
+  placeholder keys, batch-norm buffers that the importer skips, and, for an
+  original Resnet2D, its encoder's tensors a second time under their
+  aliases (the original holds them as both `encoder.*` and `model.*`).
+  `write_original_checkpoint` saves one per network as `<iter>.pth`."""
 
 import csv
 from concurrent.futures import ThreadPoolExecutor
@@ -143,3 +151,37 @@ def write_cleargrasp_root(root, size_wh, n_train: int, n_val: int, exr: bool, se
                 if not cv2.imwrite(str(path), image):
                     raise OSError(f"cv2 could not write {path}")
     return ids
+
+
+def original_state_dict(net: torch.nn.Module, seed: int, aliased: int = 0):
+    """The state dict of `net` as the original ganslate would save it:
+    fresh values from `seed`, N(0, 0.02) as the original's `normal` weight
+    init draws them (biases too, so that none is zero), in
+    `named_parameters()` order, under keys `p<k>.<name>`; a
+    `running_mean`/`running_var`/`num_batches_tracked` triple after the
+    first tensor; and the first `aliased` tensors once more under
+    `alias.<k>`, sharing their storage."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, (name, p) in enumerate(net.named_parameters()):
+        out[f"p{k}.{name.replace('.', '_')}"] = 0.02 * torch.randn(p.shape, generator=gen)
+        if k == 0:
+            c = p.shape[0]
+            out.update({"bn0.running_mean": torch.zeros(c), "bn0.running_var": torch.ones(c),
+                        "bn0.num_batches_tracked": torch.zeros((), dtype=torch.long)})
+    tensors = [v for key, v in out.items() if key.startswith("p")]
+    out.update({f"alias.{k}": tensors[k] for k in range(aliased)})
+    return out
+
+
+def write_original_checkpoint(path, networks, seed: int):
+    """Save `{name: original_state_dict(net)}` for `networks` (name -> port
+    module) at `path`, with a Resnet2D's first three tensors aliased; returns
+    the state dicts."""
+    payload = {}
+    for i, (name, net) in enumerate(networks.items()):
+        aliased = 3 if type(net).__name__ == "Resnet2D" else 0
+        payload[name] = original_state_dict(net, seed + i, aliased)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(payload, path)
+    return payload

@@ -62,7 +62,10 @@ def test_port_imports_no_jax_and_no_jax_package():
             "ganslate_tpu_torch.nn.generators.resnet.resnet3d",
             "ganslate_tpu_torch.__main__",
             "ganslate_tpu_torch.utils.cli.interface",
-            "ganslate_tpu_torch.utils.cli.scaffold"} <= names
+            "ganslate_tpu_torch.utils.cli.scaffold",
+            "ganslate_tpu_torch.utils.cli.scripts.download_datasets",
+            "ganslate_tpu_torch.utils.metrics.fid", "ganslate_tpu_torch.nn.inception",
+            "ganslate_tpu_torch.utils.torch_import"} <= names
     # The data plane, the engines and the trackers.
     assert {f"ganslate_tpu_torch.{m}" for m in (
         "data", "data.samplers", "data.loaders", "data.image_folder",
@@ -126,10 +129,17 @@ def test_port_sources_import_nothing_of_jax():
             "projects/cleargrasp_depth_estimation/datasets/train_dataset.py",
             "projects/cleargrasp_depth_estimation/datasets/val_test_dataset.py",
             "projects/cleargrasp_depth_estimation/modules/cyclegan_multimodal_v3.py",
-            "projects/cleargrasp_depth_estimation/modules/cyclegan_losses_for_v3.py"} <= scanned
+            "projects/cleargrasp_depth_estimation/modules/cyclegan_losses_for_v3.py",
+            "utils/metrics/fid.py", "nn/inception.py", "utils/torch_import.py",
+            "utils/cli/scripts/download_datasets.py"} <= scanned
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders
+    # The JAX-checkpoint converter imports both packages: the port never
+    # imports it.
+    converter = [str(p.relative_to(REPO)) for p in sources
+                 if "jax_checkpoint_to_torch" in p.read_text()]
+    assert not converter, converter
 
 
 def test_serving_path_needs_no_pyyaml():
@@ -202,12 +212,20 @@ def test_import_attr_aliases_to_the_port(prefix):
 
 @pytest.mark.parametrize("target, missing", [
     ("ganslate.nn.discriminators.MultiScalePatchGAN3D", "MultiScalePatchGAN3D"),
-    ("ganslate.utils.metrics.fid.FID", "ganslate_tpu_torch.utils.metrics.fid"),
     ("ganslate.nn.generators.SelfAttentionVnet3D", "SelfAttentionVnet3D"),
 ])
 def test_import_attr_names_what_the_port_lacks(target, missing):
     with pytest.raises(ImportError, match=re.escape(missing)):
         import_attr(target)
+
+
+@pytest.mark.parametrize("target", ("utils.metrics.fid.FID", "nn.inception.InceptionV3",
+                                    "utils.torch_import.import_torch_checkpoint"))
+def test_import_attr_resolves_the_fid_slice(target):
+    """FID, Inception and the checkpoint importer resolve to the port's."""
+    module, name = f"ganslate_tpu_torch.{target}".rsplit(".", 1)
+    import importlib
+    assert import_attr(f"ganslate.{target}") is getattr(importlib.import_module(module), name)
 
 
 @pytest.mark.parametrize("name", ("Vnet3D", "Vnet3DConfig", "Vnet2D", "Vnet2DConfig"))

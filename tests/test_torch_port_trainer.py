@@ -191,8 +191,10 @@ def test_cuda_true_without_gpu_raises(trained, mode):
 
 
 def test_fid_waits_for_its_slice(trained):
+    """FID is ported: `test.metrics.fid=true` without `fid_weights` raises
+    with the JAX package's message."""
     _, _, _, config = trained
-    with pytest.raises(NotImplementedError, match="FID"):
+    with pytest.raises(ValueError, match="metrics.fid requires metrics.fid_weights"):
         init_engine("test", [f"config={config}", "test.metrics.fid=true"])
 
 
