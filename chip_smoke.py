@@ -240,6 +240,34 @@ project's datasets, which the port's config loader takes from its twin
    the forward's device time at batch 32, the resize's share, features/s,
    peak memory and the Frechet solve's host seconds.
 
+15. zoo (run after phase 11, while the NIfTI root exists): the rest of the
+   network zoo from the BRaTS YAMLs, copied into the run's working
+   directory with only their network sections replaced (`ZOO_NETS`) and
+   loaded by `init_engine("train", ["config=<copy>", ...])` with phase 11's
+   overrides. `SelfAttentionBlock` first, on the card in fp32 (TF32 off)
+   with gamma 0.5 at the path's four attention shapes, within 1e-4 of
+   max|out| of its CPU forward. (a) `revgan.yaml` with
+   `SelfAttentionVnet3D` (its config's defaults: 16 first-layer channels,
+   down (1, 2, 3, 2), up (2, 2, 1, 1), attention at levels 2 and 3, memory
+   saving and the inverse; 24,335,492 parameters) against
+   `SelfAttentionPatchGAN3D` (2 layers; 2,745,251), (32, 176, 176), batch
+   1, bf16, trained with `train.steps_per_dispatch=2` after the same run at
+   k = 1 (chunked against unchunked plain-iteration ms); validation through
+   the sliding window with cycle metrics through the inverted G; model-level
+   steps, conv FLOPs and a profile by family (the attention's q/k/v GEMM,
+   its two products and its softmax are families); both directions served
+   from the checkpoint by a deployment `Inferer` against the plain norms;
+   4 fp32 steps in chunks of 2 against single steps from one seed under
+   deterministic algorithms, every parameter bit for bit; one step against
+   the plain norms (fp32 and bf16, phase 11's limits; gammas 0.5, since at
+   their zero init the attention's convs get no gradient). (b)
+   `cyclegan.yaml` with `is_separable: true` (2,046,355 parameters a
+   generator) against `MultiScalePatchGAN3D` (scales 2, 2 layers;
+   5,284,738), each discriminator call on a fresh random (16, 88, 88) crop
+   at scale 2: the Trainer at k = 1, steps, FLOPs (the separable convs'
+   TFLOP/s against the bf16 peak), profile, and the step against the plain
+   norms. The norm launches of every step, pass and request are counted.
+
 The kernels phase also checks and times both kernels at the V-Net's, the
 RevGAN's, the Pix2Pix's, the CUT's and the HX4 and ClearGrasp networks'
 norm slabs (in both dtypes for the Pix2Pix's; the BRaTS CycleGAN's are the
@@ -353,6 +381,9 @@ TRAIN_FP32_GRAD_MAX = 1e-2
 # farther from it than `TRAIN_BF16_GRAD_RATIO` times the plain run, per
 # tensor at the median and at the worst tensor.
 TRAIN_BF16_LOSS_RTOL = 1e-2
+# A gradient that is zero in exact arithmetic (`kernel_vs_plain_steps`'
+# `cancelling`), of its network's gradient norm, in fp32: rounding noise.
+CANCELLING_GRAD_MAX = 1e-4
 TRAIN_BF16_GRAD_RATIO = 1.5
 # Each norm's gradient alone on the card, at the train step's slabs (batch
 # 2): the kernel's statistics with `instance_norm_backward` against autograd
@@ -1906,6 +1937,7 @@ def instrument_trainer(trainer):
 
     trainer._set_iter_idx = start
     trainer.model.set_input = Ranged(trainer.model.set_input, "set_input", add)
+    trainer.model.set_input_multi = Ranged(trainer.model.set_input_multi, "set_input", add)
     trainer.model.optimize_parameters = Ranged(trainer.model.optimize_parameters, "step",
                                                add)
     log_iter = Ranged(trainer.tracker.log_iter, "tracker", add)
@@ -2909,7 +2941,7 @@ def model_steps(model, batches, label, steps=REVGAN_MODEL_STEPS):
         launches
 
 
-def trainer_run(root, raw, label, run, want, unit, **extra):
+def trainer_run(root, raw, label, run, want, unit, k=1, **extra):
     """Phase `label`'s Trainer run: `init_engine("train")` from `raw` (a
     raw config tree, through `engine`; or `init_engine`'s arguments, a YAML
     and its overrides) through `run()`, its iterations timed (`instrument_trainer`), its
@@ -2917,16 +2949,20 @@ def trainer_run(root, raw, label, run, want, unit, **extra):
     (warm-up iterations, timed iterations, logging.freq, checkpointing.freq,
     val.freq), `want` the launches the run must make, `unit` what a batch
     holds ("images" or "patches"); `extra` joins the record (a `cuts`
-    entry is completed with the run's loop lengths and frequencies). Emits
-    the `<label>_run` record and checks the iterations, finite losses at
-    every log, the checkpoints, a validation inside the timed span with
-    finite metrics, and the launches. Returns the record and the trained
-    model, its instrumentation removed."""
+    entry is completed with the run's loop lengths and frequencies). With
+    `k` > 1 the config runs `train.steps_per_dispatch` k: the records are
+    the chunks', each ending at an iteration that k divides (k divides the
+    warm-up and the run), and an iteration's time is its chunk's over k.
+    Emits the `<label>_run` record and checks the iterations (the chunk
+    boundaries), finite losses at every log, the checkpoints, a validation
+    inside the timed span with finite metrics, and the launches. Returns the
+    record and the trained model, its instrumentation removed."""
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
     from ganslate_tpu_torch.engines.utils import init_engine
     warm, timed, log_freq, ckpt_freq, val_freq = run
     n_iters = warm + timed
+    check(warm % k == 0 and n_iters % k == 0, f"chunks of {k} do not divide the run {run}")
     t_build = time.perf_counter()
     if isinstance(raw, dict):
         trainer, entry = engine("train", raw, root)
@@ -2959,13 +2995,15 @@ def trainer_run(root, raw, label, run, want, unit, **extra):
     launches = dict(inorm.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    check(sorted(records) == list(range(1, n_iters + 1)), f"iterations run: {sorted(records)}")
-    starts = [records[i]["t0"] for i in range(1, n_iters + 1)] + [t_end]
-    for i in range(1, n_iters + 1):
-        records[i]["ms"] = (starts[i] - starts[i - 1]) * 1e3
-    timed_iters = range(warm + 1, n_iters + 1)
+    check(int(conf.train.steps_per_dispatch or 1) == k, "the config's steps_per_dispatch")
+    ends = list(range(k, n_iters + 1, k))         # the iterations that end a chunk
+    check(sorted(records) == ends, f"iterations run: {sorted(records)}")
+    starts = [records[i]["t0"] for i in ends] + [t_end]
+    for j, i in enumerate(ends):
+        records[i]["ms"] = (starts[j + 1] - starts[j]) * 1e3
+    timed_iters = [i for i in ends if i > warm]
     plain = [records[i]["ms"] for i in timed_iters if records[i]["plain"]]
-    logged = [i for i in range(1, n_iters + 1) if records[i]["log"]]
+    logged = [i for i in ends if records[i]["log"]]
     finite = all(math.isfinite(v) for i in logged for v in records[i]["losses"].values())
     ckpts = sorted(int(p.stem) for p in (out_dir / "checkpoints").glob("*.pth"))
     if "cuts" in extra:
@@ -2973,13 +3011,13 @@ def trainer_run(root, raw, label, run, want, unit, **extra):
             "n_iters": conf.train.n_iters, "n_iters_decay": conf.train.n_iters_decay,
             "logging.freq": log_freq, "checkpointing.freq": ckpt_freq, "val.freq": val_freq,
             **extra["cuts"].get("to", {})}}
+    timed_wall = starts[-1] - starts[ends.index(timed_iters[0])]
     rec = {"phase": f"{label}_run", "entry": entry, **extra, "parameters": n_params,
            "build_s": build_s, "run_s": t_end - t0, "iterations": n_iters,
-           "timed_iterations": [timed_iters.start, timed_iters.stop - 1],
-           "timed_wall_s": starts[n_iters] - starts[warm],
-           f"{unit}_per_s": timed / (starts[n_iters] - starts[warm]),
-           "plain_iteration_ms": {"median": statistics.median(plain), "n": len(plain),
-                                  **_ms_stats([p / 1e3 for p in plain])},
+           "steps_per_dispatch": k, "timed_iterations": [warm + 1, n_iters],
+           "timed_wall_s": timed_wall, f"{unit}_per_s": timed / timed_wall,
+           "plain_iteration_ms": {"median": statistics.median(plain) / k, "n": len(plain),
+                                  **_ms_stats([p / 1e3 / k for p in plain])},
            "log_iteration_ms": {i: records[i]["ms"] for i in timed_iters if records[i]["log"]},
            "checkpoint_iteration_ms": {i: records[i]["ms"] for i in timed_iters
                                        if records[i]["checkpoint"]},
@@ -3004,7 +3042,8 @@ def trainer_run(root, raw, label, run, want, unit, **extra):
     check(launches == want, f"norm launches {launches}, expected {want}")
 
     model = trainer.model
-    del model.set_input, model.optimize_parameters         # the instrumentation's wrappers
+    # The instrumentation's wrappers.
+    del model.set_input, model.set_input_multi, model.optimize_parameters
     tracker.log_samples = log_samples
     del trainer
     gc.collect()
@@ -3445,7 +3484,7 @@ def pix2pix_loader_check(root, data_root, threaded):
 
 
 def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert,
-                          bf16_controls=False):
+                          bf16_controls=False, cancelling=()):
     """One step with the kernel norms against one with the plain norms from
     the same state, batch and draws (`fresh_step` of `conf_of(mixed_
     precision)`): fp32 (TF32 off, deterministic algorithms where PyTorch has
@@ -3459,8 +3498,15 @@ def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert,
     each network are held against the farthest of the correct plain
     forwards: a gradient that is a sum of ~10^6 terms cancelling to a small
     value (a 1-channel output conv's bias) lands anywhere in a wide range
-    for any one-ulp change of the bf16 forward. Emits `<label>_grad_check`
-    records; returns the launches of its runs."""
+    for any one-ulp change of the bf16 forward. `cancelling` names (by
+    suffix) the tensors whose gradient is zero in exact arithmetic, so that
+    both runs give rounding noise with no relative error to speak of (an
+    attention block's key bias shifts every energy of a query by the same
+    amount, which the softmax cancels; a separable down conv's first
+    factor's bias, which reaches the norm as a per-channel constant): they
+    are held apart, each below
+    `CANCELLING_GRAD_MAX` of its network's gradient norm in both fp32 runs.
+    Emits `<label>_grad_check` records; returns the launches of its runs."""
     import torch
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled(),
@@ -3478,9 +3524,18 @@ def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert,
         (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved[:3]
         torch.use_deterministic_algorithms(saved[3], warn_only=saved[4])
-    keys = [k for k, g in ref_grads.items() if g is not None]
+    cancel = [k for k, g in ref_grads.items() if g is not None and cancelling
+              and k.endswith(tuple(cancelling))]
+    keys = [k for k, g in ref_grads.items() if g is not None and k not in cancel]
     inert = [k for k, g in ref_grads.items() if g is None]
     err = {k: rel_l2(grads[k], ref_grads[k]) for k in keys}
+
+    def net_norm(g, name):
+        return float(torch.cat([v.float().flatten() for k, v in g.items()
+                                if v is not None and k.split(".")[0] == name]).norm())
+
+    noise = {k: max(float(g[k].float().norm()) / net_norm(g, k.split(".")[0])
+                    for g in (grads, ref_grads)) for k in cancel}
     loss_err = {k: abs(losses[k] - ref_losses[k]) / abs(ref_losses[k]) for k in ref_losses}
     rec = {"phase": f"{label}_grad_check", "dtype": "float32", "losses": losses,
            "losses_plain_norms": ref_losses, "loss_rel_err_vs_plain": loss_err,
@@ -3492,8 +3547,10 @@ def kernel_vs_plain_steps(label, conf_of, batch, launches_per_step, n_inert,
            "grad_rel_l2_backward_vs_autograd_by_network": net_rel_l2(plain_fwd, ref_grads),
            "grad_rel_l2_one_ulp_output_noise_by_network": net_rel_l2(one_ulp, plain_fwd),
            "n_grads": len(keys), "n_inert_biases": len(inert),
+           "cancelling_grad_over_network": noise, "cancelling_tol": CANCELLING_GRAD_MAX,
            "launches": launches, "launches_plain_norms": ref_launches}
     emit(rec)
+    check(all(v <= CANCELLING_GRAD_MAX for v in noise.values()), rec)
     check(all(grads[k] is None for k in inert), rec)
     check(len(inert) == n_inert, f"inert biases: {inert}")
     check(max(err.values()) <= TRAIN_FP32_GRAD_MAX, rec)
@@ -4447,6 +4504,509 @@ def brats_cyclegan_phase(root):
     return totals
 
 
+# ------------------------------------------------------------ phase 15
+
+
+# The zoo phase: the BRaTS YAMLs copied into the run's working directory
+# with their network sections replaced (no experiment YAML of the repo uses
+# these networks; users reach them through their `_target_`s), at the
+# widths of the networks' own config classes. The runs: (warm-up
+# iterations, timed iterations, logging.freq, checkpointing.freq,
+# val.freq), multiples of ZOO_K for the chunked run.
+ZOO_NETS = {
+    "revgan.yaml": {
+        "generator": {"_target_": "ganslate.nn.generators.SelfAttentionVnet3D",
+                      "in_out_channels": {"AB": [1, 1]}},
+        "discriminator": {"_target_": "ganslate.nn.discriminators.SelfAttentionPatchGAN3D",
+                          "n_layers": 2, "in_channels": {"B": 1}}},
+    "cyclegan.yaml": {
+        "generator": {"is_separable": True},        # merged into the YAML's Vnet3D
+        "discriminator": {"_target_": "ganslate.nn.discriminators.MultiScalePatchGAN3D",
+                          "scales": 2, "n_layers": 2, "in_channels": {"B": 1}}},
+}
+ZOO_K = 2
+ZOO_RUN = (2, 6, 8, 8, 8)
+ZOO_MODEL_STEPS = (2, 4)
+ZOO_PROFILED_STEPS = 2
+ZOO_CHUNK_STEPS = 4                     # fp32 steps of k = 2 against k = 1, bit for bit
+ZOO_PARAMS = {"revgan.yaml": {"G": 24_335_492, "D_B": 2_745_251, "D_A": 2_745_251},
+              "cyclegan.yaml": {"G_AB": 2_046_355, "G_BA": 2_046_355, "D_B": 5_284_738,
+                                "D_A": 5_284_738}}
+# SelfAttentionBlock on the card (fp32, TF32 off) against its CPU forward,
+# of max|out|: the softmax and both products in fp32 on both sides.
+ZOO_ATTENTION_REL = 1e-4
+# (channels, spatial) of the attention blocks of this path at the patch: the
+# V-Net's levels 2 and 3, the PatchGAN3D's attn1 and attn2.
+ZOO_ATTENTION_SHAPES = ((128, (4, 22, 22)), (256, (2, 11, 11)), (128, (5, 29, 29)),
+                        (256, (4, 28, 28)))
+ZOO_FAMILY_GROUPS = ("attention_qkv", "attention_products", "attention_softmax",
+                     "coupling_recompute")
+# The separable V-Net's k5 convs alone at the patch, levels 0 and 1 (bf16,
+# channels_last_3d): (channels, spatial).
+ZOO_SEPARABLE_SHAPES = ((16, (32, 176, 176)), (32, (16, 88, 88)))
+
+
+def zoo_yaml(work, yaml_name):
+    """Copy the BRaTS experiment `yaml_name` into `work` with its network
+    sections replaced by `ZOO_NETS` (a section without a `_target_` is
+    merged into the YAML's); returns the copy's path."""
+    import yaml
+    raw = yaml.safe_load((BRATS_PROJECT / "experiments" / yaml_name).read_text())
+    gan = raw["train"]["gan"]
+    for role, node in ZOO_NETS[yaml_name].items():
+        gan[role] = dict(node) if "_target_" in node else {**gan[role], **node}
+    path = work / f"zoo_{yaml_name}"
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def zoo_args(path, run, k=1, out=None, mixed_precision=None):
+    """`init_engine`'s arguments for the copied YAML at `path`: the overrides
+    of `brats_cyclegan_args` (roots, loop lengths and frequencies, a seed,
+    wandb off), `train.steps_per_dispatch` and, for a second run, its output
+    directory."""
+    args = brats_cyclegan_args(path.name, run, mixed_precision)
+    args[0] = f"config={path}"
+    if k > 1:
+        args.append(f"train.steps_per_dispatch={k}")
+    if out is not None:
+        args.append(f"train.output_dir={out}")
+    return args
+
+
+def zoo_conf(path, mixed_precision=None):
+    from ganslate_tpu_torch.utils.builders import build_conf
+    return build_conf(zoo_args(path, ZOO_RUN, mixed_precision=mixed_precision))
+
+
+def zoo_family(chain, kernel):
+    """`brats_cyclegan_family`, with the attention blocks' work as families:
+    the q/k/v GEMM (`aten::linear`/`addmm` and their backward), the two
+    products (`bmm`) and the softmax with its backward."""
+    names = " ".join(chain).lower()
+    if "softmax" in names:
+        return "attention_softmax"
+    if "bmm" in names:
+        return "attention_products"
+    if "addmm" in names or "aten::linear" in names or "mmbackward" in names:
+        return "attention_qkv"
+    return brats_cyclegan_family(chain, kernel)
+
+
+def zoo_passes(model, batch):
+    """Norm launches of one G pass (AB, and BA where the G inverts) at the
+    patch through `infer`, and of one D pass through `apply` (centre crops:
+    no generator)."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    x = torch.from_numpy(batch["A"]).to(model.device)
+    out = {}
+    for direction in ("AB", "BA"):
+        if direction == "BA" and "G" not in model.networks:
+            continue
+        inorm.reset_launches()
+        model.infer(x, direction=direction)
+        out[f"G_{direction}"] = dict(inorm.LAUNCHES)
+    inorm.reset_launches()
+    with torch.no_grad():
+        model.apply("D_B", x, model.compute_params(["D_B"]))
+    out["D"] = dict(inorm.LAUNCHES)
+    return out
+
+
+@contextlib.contextmanager
+def zoo_gamma(value):
+    """Every `SelfAttentionBlock` built inside starts with `gamma = value`:
+    at its zero init the block is the identity and its q/k/v convs get
+    exactly zero gradients, which a step against the plain norms cannot
+    compare."""
+    import torch
+    from ganslate_tpu_torch.nn.attention import SelfAttentionBlock
+    init = SelfAttentionBlock.__init__
+
+    def with_gamma(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        with torch.no_grad():
+            self.gamma.fill_(value)
+
+    SelfAttentionBlock.__init__ = with_gamma
+    try:
+        yield
+    finally:
+        SelfAttentionBlock.__init__ = init
+
+
+def zoo_n_inert(model):
+    """Biases that cancel in the following norm (`bias_inert`): the step
+    gives them no gradient."""
+    from ganslate_tpu_torch.nn.layers import Conv, ConvTranspose
+    return sum(1 for net in model.networks.values() for m in net.modules()
+               if isinstance(m, (Conv, ConvTranspose)) and m.bias is not None and m.bias_inert)
+
+
+def zoo_attention_check(device="cuda"):
+    """`SelfAttentionBlock` on the card (fp32, TF32 off) with gamma 0.5 and
+    query and key kernels wide enough for a peaked softmax, at this path's
+    attention shapes, against its CPU forward on the same input; with the
+    block's forward time on the card."""
+    import torch
+    from ganslate_tpu_torch.nn.attention import SelfAttentionBlock
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    recs = []
+    try:
+        for i, (c, spatial) in enumerate(ZOO_ATTENTION_SHAPES):
+            g = torch.Generator().manual_seed(SEED + 120 + i)
+            block = SelfAttentionBlock(c, 3, generator=g)
+            with torch.no_grad():
+                block.gamma.fill_(0.5)
+                for conv in (block.query, block.key):
+                    conv.weight.normal_(0.0, 1.0 / math.sqrt(c), generator=g)
+            x = torch.randn((1, c, *spatial), generator=g).to(
+                memory_format=torch.channels_last_3d)
+            with torch.no_grad():
+                want = block(x)
+                card = block.to(device)
+                xc = x.to(device)
+                got = card(xc).cpu()
+                ms, _ = time_ms(lambda: card(xc), iters=10, reps=3)
+            err = float((got - want).abs().max() / want.abs().max())
+            recs.append({"channels": c, "spatial": list(spatial),
+                         "positions": math.prod(spatial), "rel_err": err, "forward_ms": ms})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    rec = {"phase": "zoo_attention_check", "tol_rel": ZOO_ATTENTION_REL, "blocks": recs}
+    emit(rec)
+    check(all(r["rel_err"] <= ZOO_ATTENTION_REL for r in recs), rec)
+
+
+def zoo_chunk_check(path, batches):
+    """`ZOO_CHUNK_STEPS` fp32 steps of the self-attention RevGAN from one seed
+    (deterministic algorithms, TF32 off): k = 2 chunks through
+    `set_input_multi` against single steps, every parameter bit for bit and
+    each chunk's logged losses the mean of the two steps'."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.nn.gans.base import _chunk_mean
+    from ganslate_tpu_torch.utils.builders import build_gan
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    steps = [batches[i % len(batches)] for i in range(ZOO_CHUNK_STEPS)]
+    try:
+        runs = []
+        for k in (1, ZOO_K):
+            model = build_gan(zoo_conf(path, mixed_precision=False))
+            model.setup(steps[0])
+            logs = []
+            t0 = time.perf_counter()
+            for i in range(0, len(steps), k):
+                if k == 1:
+                    model.set_input(steps[i])
+                else:
+                    model.set_input_multi(steps[i:i + k])
+                model.optimize_parameters()
+                logs.append(dict(model.losses))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs.append((model, logs, seconds))
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved[:3]
+        torch.use_deterministic_algorithms(saved[3], warn_only=saved[4])
+    (single, logs1, s1), (chunked, logs2, s2) = runs
+    differing = [f"{name}.{key}" for name, net in single.networks.items()
+                 for (key, p), (_, q) in zip(net.named_parameters(),
+                                             chunked.networks[name].named_parameters())
+                 if not torch.equal(p, q)]
+    means_equal = all(
+        torch.equal(_chunk_mean(logs1[j * ZOO_K:(j + 1) * ZOO_K])[name], logs2[j][name])
+        for j in range(len(logs2)) for name in logs2[j])
+    rec = {"phase": "zoo_chunk_check", "steps": ZOO_CHUNK_STEPS, "k": ZOO_K,
+           "dtype": "float32", "deterministic": True,
+           "n_parameters": sum(1 for net in single.networks.values()
+                               for _ in net.parameters()),
+           "parameters_differing": differing[:10], "n_differing": len(differing),
+           "chunk_means_equal": means_equal,
+           "losses_single": [{k: float(v) for k, v in d.items()} for d in logs1],
+           "losses_chunked": [{k: float(v) for k, v in d.items()} for d in logs2],
+           "seconds_single": s1, "seconds_chunked": s2}
+    emit(rec)
+    check(not differing and means_equal, rec)
+    del single, chunked, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_serve(path, out_dir, load_iter, x, windows):
+    """Both directions of the RevGAN's checkpoint through a deployment
+    `Inferer` (`init_engine("infer")` from the copied YAML with the infer
+    section a user adds to serve it: deployment, the checkpoint's
+    iteration, windows of the training patch): the validation scan's source
+    through the sliding window, AB and BA, each against the plain norms.
+    Returns the kernel requests' launches and latencies."""
+    import torch
+    from ganslate_tpu_torch.engines.utils import init_engine
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    import yaml
+    raw = yaml.safe_load(path.read_text())
+    raw["infer"] = {"is_deployment": True, "checkpointing": {"load_iter": load_iter},
+                    "sliding_window": {"window_size": list(REVGAN_PATCH)}}
+    serving = path.with_name(f"{path.stem}_infer.yaml")
+    serving.write_text(yaml.safe_dump(raw, sort_keys=False))
+    inferer = init_engine("infer", [f"config={serving}", f"train.output_dir={out_dir}"])
+    check(list(inferer.model.networks) == ["G"], list(inferer.model.networks))
+    launches, outs, latency = [], {}, {}
+    for direction in ("AB", "BA"):
+        inferer.infer(x, direction=direction)           # warm
+        inorm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = inferer.infer(x, direction=direction)
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        launches.append(dict(inorm.LAUNCHES))
+        with plain_norms():
+            inorm.reset_launches()
+            ref = inferer.infer(x, direction=direction)
+            check(sum(inorm.LAUNCHES.values()) == 0, "the plain run launched a kernel")
+        err = (y.float() - ref.float()).abs()
+        rec = {"phase": "zoo_serve", "direction": direction, "load_iter": load_iter,
+               "latency_ms": latency_ms, "windows": windows, "launches": launches[-1],
+               "max_abs_err_vs_plain": float(err.max()),
+               "mean_abs_err_vs_plain": float(err.mean()),
+               "tol_max": SW_BF16_MAX, "tol_mean": SW_BF16_MEAN}
+        sw_output_check(rec, y, x.shape)
+        emit(rec)
+        check(rec["max_abs_err_vs_plain"] <= SW_BF16_MAX, rec)
+        check(rec["mean_abs_err_vs_plain"] <= SW_BF16_MEAN, rec)
+        check(launches[-1]["onepass"] > 0 and launches[-1]["split"] > 0, rec)
+        outs[direction] = y.float()
+        latency[direction] = latency_ms
+    ab_ba = float((outs["AB"] - outs["BA"]).abs().max())
+    emit({"phase": "zoo_serve_directions", "max_abs_ab_minus_ba": ab_ba})
+    check(ab_ba > 1e-3, "infer BA gave AB's output: the inverse did not run")
+    del inferer, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, latency
+
+
+def zoo_model(root, path, label, k=1, extra_runs=()):
+    """One model of the zoo phase: its norm launches a step and a pass
+    (`fresh_step`, `zoo_passes`), the Trainer from the copied YAML at
+    `steps_per_dispatch` k (`trainer_run`), then on its model: model-level
+    steps, conv FLOPs, a profile by family (`zoo_family`). `extra_runs`
+    are (label, k) of further Trainer runs of the same config into their
+    own output directories. Returns a dict of the run record (`rec`), the
+    model-level steps and their launches, the profile, the FLOPs, the
+    launches of a step and of the passes, the inert biases, the extra
+    runs' records and the batches."""
+    import numpy as np
+    import torch
+    run = ZOO_RUN
+    warm, timed, _, _, val_freq = run
+    n_iters = warm + timed
+    windows = sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH)
+    conf = zoo_conf(path)
+    batches, sample_s = brats_batches(conf)
+    passes, inert = {}, []
+
+    def inspect(model):
+        passes.update(zoo_passes(model, batches[0]))
+        inert.append(zoo_n_inert(model))
+
+    _, _, step_launches = fresh_step(conf, batches[0], inspect=inspect)
+    g = passes["G_AB"]
+    check(all(passes.get(f"G_{d}", g) == g for d in ("AB", "BA")), passes)
+    want = {kind: n_iters * step_launches[kind] + n_iters // val_freq * 2 * windows * g[kind]
+            for kind in step_launches}
+    cuts = {"from": BRATS_CYCLEGAN_YAML_LENGTHS,
+            "left_out": {**REVGAN_LEFT_OUT,
+                         "train.gan.generator, train.gan.discriminator":
+                             f"replaced in a copy of {path.name[4:]}: {ZOO_NETS[path.name[4:]]}",
+                         "train.seed": "unset in the YAML (drawn) -> the script's seed",
+                         "train.logging.wandb": "unset in the YAML; set off explicitly"}}
+    others = []
+    for other_label, other_k in extra_runs:
+        args = zoo_args(path, run, other_k, out=root / other_label)
+        rec_o, model_o = trainer_run(root, args, other_label, run, want, "patches", k=other_k,
+                                     yaml=str(path), overrides=args[1:], cuts=cuts)
+        others.append(rec_o)
+        del model_o
+        gc.collect()
+        torch.cuda.empty_cache()
+    args = zoo_args(path, run, k)
+    rec, model = trainer_run(root, args, label, run, want, "patches", k=k, yaml=str(path),
+                             overrides=args[1:], cuts=cuts,
+                             dataset="synthetic BRaTS NIfTI scans, the project twin",
+                             validation_windows_per_volume=windows,
+                             launches_per_step=step_launches, launches_per_pass=passes,
+                             sample_s_one_thread=sample_s)
+    check(rec["parameters"] == ZOO_PARAMS[path.name[4:]], rec["parameters"])
+    check("cycle_SSIM" in rec["validation_metrics"], rec["validation_metrics"])
+    device_batches = [{key: torch.from_numpy(np.ascontiguousarray(v)).to(model.device)
+                       for key, v in b.items()} for b in batches]
+    steps, launches = model_steps(model, device_batches, label, ZOO_MODEL_STEPS)
+    steps["plain_iteration_over_step"] = rec["plain_iteration_ms"]["median"] \
+        / steps["median_step_ms"]
+    steps["patches_per_s"] = 1e3 / steps["median_step_ms"]
+    check(steps["losses_finite"] and all(s == step_launches for s in launches),
+          f"model-level steps: {steps}, launches {launches}")
+    x = torch.zeros((1, 1, *REVGAN_PATCH), device=model.device)
+    g_name = "G" if "G" in model.networks else "G_AB"
+    flops = {"g_pass": sum(conv_flops(model.networks[g_name], x).values()),
+             "d_pass": sum(conv_flops(model.networks["D_B"], x).values())}
+    flops["step"] = 4 * 3 * flops["g_pass"] + 2 * 2 * flops["d_pass"] + 4 * 3 * flops["d_pass"]
+    profile = profile_steps(model, device_batches, ZOO_PROFILED_STEPS, zoo_family,
+                            ("coupling_recompute", "losses", "metrics", "pool"))
+    del model, device_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rec": rec, "steps": steps, "step_launches_each": launches, "profile": profile,
+            "flops": flops, "step_launches": step_launches, "passes": passes,
+            "n_inert": inert[0], "others": others, "batches": batches}
+
+
+def zoo_separable_probe(bf16_peak, device="cuda"):
+    """The separable V-Net's k5 conv alone (`SeparableConv3d`: (1, 5, 5) then
+    (5, 1, 1), padding 2, C -> C, bf16, channels_last_3d) against the dense
+    k5 conv it replaces, at `ZOO_SEPARABLE_SHAPES`: device time, FLOPs
+    (2 x output elements x input channels x taps; 25 + 5 taps against
+    125), TFLOP/s and share of the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+    from ganslate_tpu_torch.nn.separable import SeparableConv3d
+    out = []
+    for c, spatial in ZOO_SEPARABLE_SHAPES:
+        g = torch.Generator().manual_seed(SEED + 130 + c)
+        sep = SeparableConv3d(c, c, 5, padding=2, generator=g).to(
+            device=device, dtype=torch.bfloat16, memory_format=torch.channels_last_3d)
+        w = torch.randn((c, c, 5, 5, 5), generator=g).mul_(0.02).to(
+            device=device, dtype=torch.bfloat16, memory_format=torch.channels_last_3d)
+        x = torch.randn((1, c, *spatial), generator=g).to(
+            device=device, dtype=torch.bfloat16, memory_format=torch.channels_last_3d)
+        elements = math.prod(spatial) * c
+        rec = {"channels": c, "spatial": list(spatial)}
+        for name, fn, taps in (("separable", lambda: sep(x), 30),
+                               ("dense", lambda: F.conv3d(x, w, padding=2), 125)):
+            with torch.inference_mode():
+                ms, _ = time_ms(fn, iters=10, reps=3)
+            flop = 2 * elements * c * taps
+            rec[name] = {"ms": ms, "gflop": flop / 1e9, "tflop_per_s": flop / ms / 1e9,
+                         "share_of_bf16_peak": flop / ms * 1e3 / bf16_peak}
+        out.append(rec)
+        del sep, w, x
+    emit({"phase": "zoo_separable_probe", "convs": out})
+    return out
+
+
+def zoo_summary(label, t0, rec, steps, profile, flops, bf16_peak, extra):
+    import torch
+    fam = profile["device_ms_per_step_by_family"]
+    conv_ms = sum(fam.get(f, 0.0) for f in ("conv_forward", "conv_dgrad", "conv_wgrad",
+                                            "conv_backward_other"))
+    groups = {"convs": conv_ms, "norm_kernels": fam.get("norm_kernels", 0.0),
+              "norm_backward_plain": fam.get("norm_backward_plain", 0.0),
+              "prelu": fam.get("prelu", 0.0),
+              **{f: fam.get(f, 0.0) for f in ZOO_FAMILY_GROUPS}}
+    busy = profile["device_busy_ms_per_step"]
+    if busy != "not measured":
+        groups["rest"] = busy - sum(groups.values())
+    tflops = flops["step"] / (conv_ms * 1e-3) / 1e12 if conv_ms else "not measured"
+    summary = {"phase": f"{label}_summary", "seconds": time.perf_counter() - t0,
+               "patches_per_s_trainer": rec["patches_per_s"],
+               "plain_iteration_ms": rec["plain_iteration_ms"]["median"],
+               "model_step_ms": steps["median_step_ms"],
+               "peak_memory_gib_trainer": rec["peak_memory_gib"],
+               "peak_memory_gib_model_steps": steps["peak_memory_gib"],
+               "device_busy_ms_per_step": busy,
+               "device_idle_share": profile["device_idle_share"],
+               "device_ms_per_step_by_group": groups,
+               "conv_gflop": {k: v / 1e9 for k, v in flops.items()},
+               "conv_tflop_per_s": tflops,
+               "conv_share_of_bf16_peak": tflops / (bf16_peak / 1e12)
+               if conv_ms else "not measured",
+               "profile": profile, **extra}
+    emit(summary)
+    check(busy != "not measured" and fam.get("norm_kernels", 0) > 0,
+          f"the {label} profile saw no norm kernel")
+    torch.cuda.empty_cache()
+    return summary
+
+
+def zoo_phase(root, bf16_peak):
+    """Phase 15; returns the norm launches of its main path (both Trainer
+    runs at the YAMLs' settings and the RevGAN's serving from its
+    checkpoint)."""
+    import torch
+    allocated = torch.cuda.memory_allocated()
+    zoo_attention_check()
+    with experiment_workdir(root) as work:
+        # (a) The self-attention V-Net RevGAN, in chunks of ZOO_K; the same
+        # run at k = 1 first, into its own output directory.
+        t0 = time.perf_counter()
+        path_a = zoo_yaml(work, "revgan.yaml")
+        a = zoo_model(root, path_a, "zoo_revgan", k=ZOO_K,
+                      extra_runs=(("zoo_revgan_k1", 1),))
+        fam = a["profile"]["device_ms_per_step_by_family"]
+        check(fam.get("attention_products", 0) > 0 and fam.get("attention_softmax", 0) > 0,
+              "the RevGAN profile saw no attention product or softmax")
+        totals = dict(a["rec"]["launches"])
+        conf_a = zoo_conf(path_a)
+        served, latency = zoo_serve(path_a, Path(conf_a.train.output_dir).resolve(),
+                                    a["rec"]["checkpoints"][-1], brats_val_source(conf_a),
+                                    sw_windows(REVGAN_VOLUME[1:], REVGAN_PATCH))
+        for launches in served:
+            for kind, v in launches.items():
+                totals[kind] += v
+        zoo_chunk_check(path_a, a["batches"])
+        other = [a["others"][0]["launches"], *a["step_launches_each"]]
+        with zoo_gamma(0.5):
+            other += kernel_vs_plain_steps("zoo_revgan", lambda mp: zoo_conf(path_a, mp),
+                                           a["batches"][0], a["step_launches"], a["n_inert"],
+                                           bf16_controls=True, cancelling=("key.bias",))
+        chunked = a["rec"]["plain_iteration_ms"]["median"]
+        unchunked = a["others"][0]["plain_iteration_ms"]["median"]
+        zoo_summary("zoo_revgan", t0, a["rec"], a["steps"], a["profile"], a["flops"],
+                    bf16_peak, {
+                        "steps_per_dispatch": ZOO_K,
+                        "plain_iteration_ms_chunked": chunked,
+                        "plain_iteration_ms_unchunked": unchunked,
+                        "chunked_over_unchunked": chunked / unchunked,
+                        "patches_per_s_trainer_unchunked": a["others"][0]["patches_per_s"],
+                        "serve_latency_ms": latency,
+                        "launches_per_step": a["step_launches"],
+                        "launches_per_pass": a["passes"]})
+
+        # (b) The separable V-Net CycleGAN against the multi-scale PatchGAN3D.
+        t0 = time.perf_counter()
+        path_b = zoo_yaml(work, "cyclegan.yaml")
+        b = zoo_model(root, path_b, "zoo_cyclegan")
+        for kind, v in b["rec"]["launches"].items():
+            totals[kind] += v
+        other += b["step_launches_each"]
+        # A down conv's first factor has no padding after it: its bias
+        # reaches the norm as a constant and cancels there too.
+        other += kernel_vs_plain_steps("zoo_cyclegan", lambda mp: zoo_conf(path_b, mp),
+                                       b["batches"][0], b["step_launches"], b["n_inert"],
+                                       bf16_controls=True,
+                                       cancelling=("down_conv_ab.conv.depthwise.bias",))
+        zoo_summary("zoo_cyclegan", t0, b["rec"], b["steps"], b["profile"], b["flops"],
+                    bf16_peak, {"separable_convs": zoo_separable_probe(bf16_peak),
+                                "launches_per_step": b["step_launches"],
+                                "launches_per_pass": b["passes"]})
+    left = torch.cuda.memory_allocated() - allocated
+    emit({"phase": "zoo_launches", "launches_main_path": totals,
+          "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other) for k in totals},
+          "device_bytes_left_allocated": left})
+    check(totals["onepass"] > 0 and totals["split"] > 0, f"the zoo phase's launches: {totals}")
+    check(left < 2 ** 28, f"the zoo phase left {left} bytes allocated on the device")
+    return totals
+
+
 # ------------------------------------------------------- phases 12 and 13
 
 
@@ -5352,6 +5912,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done("brats_cyclegan")
 
+        with tempfile.TemporaryDirectory() as tmp:
+            zoo_totals = zoo_phase(Path(tmp), bf16_peak)
+        torch.cuda.empty_cache()
+        phase_done("zoo")
+
     with tempfile.TemporaryDirectory() as tmp:
         hx4_totals = hx4_project_phase(Path(tmp))
     torch.cuda.empty_cache()
@@ -5380,7 +5945,8 @@ def main() -> int:
                    "revgan": revgan_totals[name], "pix2pix": pix2pix_totals[name],
                    "cut": cut_totals[name], "cut2d": cut2d_totals[name],
                    "brats_cyclegan": brats_cyclegan_totals[name], "hx4": hx4_totals[name],
-                   "cleargrasp": cleargrasp_totals[name], "fid": fid_totals[name]}
+                   "cleargrasp": cleargrasp_totals[name], "fid": fid_totals[name],
+                   "zoo": zoo_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
@@ -5393,6 +5959,7 @@ def main() -> int:
         check(hx4_totals[name] > 0, f"the hx4 phase never launched {name}")
         check(cleargrasp_totals[name] > 0, f"the cleargrasp phase never launched {name}")
         check(fid_totals[name] > 0, f"the fid phase never launched {name}")
+        check(zoo_totals[name] > 0, f"the zoo phase never launched {name}")
         totals[name] += sum(by_path[path] for path in by_path if path != "slice")
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",

@@ -14,6 +14,12 @@ draws the first batch from the loader, sets the model up with it, and
 trains on it as iteration one. The GPU runs each step after the call
 returns; the Trainer waits for it only on log iterations, so that the
 compute timer reads device time there and the host runs ahead elsewhere.
+
+With `train.steps_per_dispatch` k > 1 it collects k loader batches, runs
+them as one chunk (`BaseGAN.set_input_multi`), and does the tracker,
+checkpoint and validation work at chunk boundaries only (the JAX package's
+`_run_chunked`); a frequency that k does not divide is warned about
+(`chunk_gate_warnings`).
 """
 
 import json
@@ -28,6 +34,21 @@ from ganslate_tpu_torch.utils import communication, environment
 from ganslate_tpu_torch.utils.builders import build_gan, build_loader
 from ganslate_tpu_torch.utils.summary import gan_summary
 from ganslate_tpu_torch.utils.trackers.training import TrainingTracker
+
+
+def chunk_gate_warnings(conf, k: int) -> list:
+    """Under multi-step dispatch every frequency gate (logging, checkpoint,
+    validation) fires only on iterations that end a chunk; a frequency that
+    is not a multiple of k loses its events (val.freq=25 with k=8 never
+    validates). One warning per misaligned frequency, in the JAX package's
+    words."""
+    gated = [("train.logging.freq", conf.train.logging.freq),
+             ("train.checkpointing.freq", conf.train.checkpointing.freq)]
+    if conf.get("val"):
+        gated.append(("val.freq", conf.val.freq))
+    return [f"{name}={freq} is not a multiple of steps_per_dispatch={k}; "
+            f"it will fire only when a chunk boundary lands on it."
+            for name, freq in gated if freq % k]
 
 
 class Trainer(BaseEngine):
@@ -90,15 +111,31 @@ class Trainer(BaseEngine):
             self.validator.tracker.close()
 
     def _run_loop(self):
+        """Per chunk of k = `train.steps_per_dispatch` iterations (1 unless
+        set; the last chunk may be shorter): the timers, the chunk's steps,
+        the tracker's log, a checkpoint and validation at their frequencies
+        as at the chunk's last iteration, and the preemption check. After a
+        chunk of several steps the logged losses and metrics are its means
+        and the visuals its last step's; the compute timer covers the
+        chunk."""
+        k = int(self.conf.train.steps_per_dispatch or 1)
+        for msg in chunk_gate_warnings(self.conf, k):
+            self.logger.warning(msg)
+        batches = []
+        last_iter = self.iters[-1]
         self.tracker.start_dataloading_timer()
         for i, data in zip(self.iters, self._batches()):
+            batches.append(data)
+            if len(batches) < k and i != last_iter:
+                continue
             self._set_iter_idx(i)
             self._profiler_step()
             self.tracker.start_computation_timer()
             self.tracker.end_dataloading_timer()
 
-            self._run_iteration(data)
+            self._run_iteration(batches)
             self.tracker.end_computation_timer()
+            batches = []
 
             learning_rates, losses, visuals, metrics = self.model.get_loggable_data()
             self.tracker.log_iter(learning_rates, losses, visuals, metrics)
@@ -162,8 +199,11 @@ class Trainer(BaseEngine):
             self._profiler = None
             self.logger.info("Device trace stopped.")
 
-    def _run_iteration(self, data):
-        self.model.set_input(data)
+    def _run_iteration(self, batches):
+        if len(batches) == 1:
+            self.model.set_input(batches[0])
+        else:
+            self.model.set_input_multi(batches)
         # Wait for the device only on log iterations, so that the compute
         # timer reads device time there.
         will_log = self.iter_idx % self.conf.train.logging.freq == 0

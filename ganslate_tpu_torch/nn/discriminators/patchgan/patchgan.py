@@ -23,6 +23,24 @@ from ganslate_tpu_torch.nn.layers import (Conv, NormAct, inert_bias, is_bias_bef
                                           leaky_relu, make_initializer)
 
 
+def check_output_extents(name: str, spatial: Sequence[int], stages, n_layers: int):
+    """Raise a ValueError when the convs `stages`, each `(kernel, stride,
+    padding)`, take the input extents `spatial` to an output extent of 0 or
+    less. The JAX package returns an empty output there (its loss is then
+    the mean of nothing); torch's convs raise only on some of those
+    inputs."""
+    extents = list(spatial)
+    for kernel, stride, padding in stages:
+        extents = [(e + 2 * padding - k) // stride + 1 for e, k in zip(extents, kernel)]
+        if min(extents) < 1:
+            dim = extents.index(min(extents))
+            raise ValueError(
+                f"{name} with n_layers={n_layers} takes an input extent of {spatial[dim]} "
+                f"along spatial dim {dim} (the depth, for dim 0 of a volume) to an output "
+                f"extent of {extents[dim]}: use fewer layers or a larger input "
+                f"(input extents {tuple(spatial)})")
+
+
 class PatchGAN(nn.Module):
 
     kernel_size = (4, 4)
@@ -57,6 +75,7 @@ class PatchGAN(nn.Module):
                 NormAct(norm_type, "leaky_relu", features=out))
         self.head = Conv(out, 1, kw, strides=1, padding=1, kernel_init=init,
                          generator=generator)
+        self.stages = [(kw, 2, 1)] * n_layers + [(kw, 1, 1)] * 2
 
     def forward(self, x):
         h = leaky_relu(self.stem(x))

@@ -9,20 +9,24 @@ every network in `networks` is checkpointed. Optimizer groups are `G` and
 Training runs the JAX package's entry points: `setup(example_batch)`,
 `set_input(batch)`, `optimize_parameters()` (one train step, which a
 subclass writes in `train_step`), `get_loggable_data()` and
-`save_checkpoint(iter)`. PyTorch runs the step eagerly where the JAX package
+`save_checkpoint(iter)`; with `train.steps_per_dispatch` k > 1 the Trainer
+calls `set_input_multi(batches)` instead, and `optimize_parameters()` runs
+the k steps back to back and logs their means. PyTorch runs the step eagerly where the JAX package
 compiles it into one program; the order of the updates is the same.
 Checkpoints are `<output_dir>/checkpoints/<iter>.pth`, the original
 ganslate's layout: one state dict per network and `optimizer_<group>` per
 optimizer, plus `pool_<name>` per image pool (its images, count and
-generator state) and, for a model whose train step draws from it, `rng`
-(the state of its generator), which the JAX package saves too (its `pools`
-and `rng`) and the original does not.
+generator state) and, for a model whose train step draws from them, `rng`
+and `host_rng` (the states of its generators), which the JAX package saves
+too (its `pools` and `rng`) and the original does not.
 
 Train-time randomness is the JAX package's per-apply key: a train step
 passes the model's device generator `rng`, seeded from `_seed()`, to each
-`apply` of a network that has dropout (CUT also draws its patch ids and
-flip from it); `infer`, the Validator and the Tester pass none, so dropout
-is off there.
+`apply`; a network with dropout draws its masks from it (CUT also draws its
+patch ids and flip from it), and one that declares `stochastic_rngs` (the
+multi-scale discriminator's crops) draws from the host generator
+`host_rng` instead. `infer`, the Validator and the Tester pass none, so
+dropout is off there and the crops are centred.
 
 Mixed precision is the JAX package's bf16 compute policy, not autocast: the
 fp32 master parameters and the input are cast to bf16 at each network
@@ -72,6 +76,14 @@ def channels_last_format(net: torch.nn.Module) -> torch.memory_format:
     return torch.channels_last if ranks == {4} else torch.channels_last_3d
 
 
+def _chunk_mean(steps: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The mean of each entry over a chunk's steps, `(first + sum(rest)) / k`
+    (the JAX package's order of the sums), on the device."""
+    first, rest = steps[0], steps[1:]
+    return {name: (first[name] + torch.stack([step[name] for step in rest]).sum(0))
+            / len(steps) for name in first}
+
+
 class BaseGAN(ABC):
 
     def __init__(self, conf):
@@ -93,16 +105,15 @@ class BaseGAN(ABC):
         self.visuals: Dict[str, torch.Tensor] = {}
         self.metrics: Dict[str, torch.Tensor] = {}
         self.pools: Dict[str, object] = {}
-        # The per-apply generator of train-time randomness (`init_rng`).
+        # The per-apply generators of train-time randomness (`init_rng`).
         self.rng: Optional[torch.Generator] = None
+        self.host_rng: Optional[torch.Generator] = None
+        # The per-step batches of a chunk (`set_input_multi`).
+        self._chunk: Optional[list] = None
         self._drawn_seed: Optional[int] = None
 
         if self.is_train:
             train = conf.train
-            if int(train.steps_per_dispatch or 1) > 1:
-                raise NotImplementedError(
-                    "`train.steps_per_dispatch > 1` (several steps per dispatch, logged "
-                    "as chunk means) is not ported: the port runs one step per call.")
             if train.spatial_mesh:
                 raise NotImplementedError("`train.spatial_mesh` (spatially sharded "
                                           "training) is not ported.")
@@ -195,14 +206,25 @@ class BaseGAN(ABC):
     # ------------------------------------------------------------- training
 
     def init_rng(self):
-        """The model's generator of train-time randomness, on its device,
-        seeded from `_seed()`; train steps pass it to `apply`."""
+        """The model's generators of train-time randomness, seeded from
+        `_seed()`: `rng` on its device, which train steps pass to `apply`,
+        and `host_rng` on the host, from which a network that declares
+        `stochastic_rngs` draws in `apply` (the multi-scale discriminator's
+        crop starts: Python integers, read without waiting on the
+        device)."""
         self.rng = torch.Generator(device=self.device).manual_seed(self._seed())
+        self.host_rng = torch.Generator().manual_seed(self._seed() + 1)
 
     def _stochastic(self) -> bool:
-        """Does the train step draw from `rng`? Here: does a network of the
-        model have dropout."""
-        return any(getattr(net, "use_dropout", False) for net in self.networks.values())
+        """Does the train step draw from `rng` or `host_rng`? Here: does a
+        network of the model have dropout or declare per-call random draws
+        (`stochastic_rngs`)."""
+        return any(getattr(net, "use_dropout", False) for net in self.networks.values()) \
+            or self._draws_on_host()
+
+    def _draws_on_host(self) -> bool:
+        """Does a network draw from `host_rng` (declare `stochastic_rngs`)?"""
+        return any(getattr(net, "stochastic_rngs", ()) for net in self.networks.values())
 
     def make_adam(self, group: str, lr: float) -> torch.optim.Adam:
         """Adam over the parameters of `group`'s networks, with the original
@@ -246,14 +268,20 @@ class BaseGAN(ABC):
         """Run network `name` on a channels-last `(N, *spatial, C)` batch
         under the compute-dtype policy (`params` from `compute_params`);
         returns `(N, *spatial, C)` in the compute dtype (a list of them for a
-        network that returns a list: CUT's feature taps). `generator` turns
-        on the network's train-time randomness for this call (dropout, where
-        the network has it), as the JAX package's `rng`. `kwargs` go to the
-        network's forward (`inverse=True` runs a RevGAN generator BA,
-        `extract_features=[...]` returns a generator's encoder taps)."""
+        network that returns a list: CUT's feature taps; a dict for one that
+        returns a dict: the multi-scale discriminator's). `generator` turns
+        on the network's train-time randomness for this call, as the JAX
+        package's `rng`: dropout draws its masks from it, and a network that
+        declares `stochastic_rngs` draws from the model's `host_rng`
+        instead. `kwargs` go to the network's forward (`inverse=True` runs a
+        RevGAN generator BA, `extract_features=[...]` returns a generator's
+        encoder taps)."""
         net = self.networks[name]
-        if generator is not None and getattr(net, "use_dropout", False):
-            kwargs["generator"] = generator
+        if generator is not None:
+            if getattr(net, "use_dropout", False):
+                kwargs["generator"] = generator
+            elif getattr(net, "stochastic_rngs", ()):
+                kwargs["generator"] = self.host_rng
         x = x.to(self.compute_dtype)
         # (N, *spatial, C) -> (N, C, *spatial): a view, channels-last in memory.
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
@@ -261,6 +289,8 @@ class BaseGAN(ABC):
             else functional_call(net, params[name], (x,), kwargs)
         if isinstance(y, list):
             return [t.permute(0, *range(2, t.ndim), 1) for t in y]
+        if isinstance(y, dict):
+            return {k: t.permute(0, *range(2, t.ndim), 1) for k, t in y.items()}
         return y.permute(0, *range(2, y.ndim), 1)
 
     def apply_batched(self, name: str, xs: Sequence[torch.Tensor],
@@ -308,19 +338,43 @@ class BaseGAN(ABC):
 
     def set_input(self, batch: Dict):
         """Place the host batch's arrays `(N, *spatial, C)` on the device."""
+        self._chunk = None
         self._batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
                        if hasattr(v, "shape")}
 
+    def set_input_multi(self, batches: Sequence[Dict]):
+        """Multi-step dispatch (`train.steps_per_dispatch`): stack the array
+        keys of k host batches on a new leading axis, place the stack on the
+        device in one copy per key, and let `optimize_parameters` run the k
+        steps. A chunk may be shorter than k (the end of a run), even of
+        length 1."""
+        stacked = {k: torch.as_tensor(np.stack([np.asarray(b[k]) for b in batches]))
+                   .to(self.device) for k, v in batches[0].items() if hasattr(v, "shape")}
+        self._chunk = [{k: v[i] for k, v in stacked.items()} for i in range(len(batches))]
+        self._batch = self._chunk[-1]
+
     def optimize_parameters(self, sync: bool = False):
-        """One train step: the learning rates of this update, `train_step`,
-        and a fresh serving copy for the next `infer`. The GPU runs the step
-        after this returns; `sync=True` waits for it, so that a timer around
-        the call reads device time (the Trainer's log iterations)."""
-        for group, optimizer in self.optimizers.items():
-            lr = self.lr_schedules[group](self._update_count(optimizer))
-            for param_group in optimizer.param_groups:
-                param_group["lr"] = lr
-        self.losses, self.visuals, self.metrics = self.train_step()
+        """One train step, or the k steps of a chunk (`set_input_multi`) back
+        to back, with no wait on the device between them: per step the
+        learning rates of its update and `train_step`; then a fresh serving
+        copy for the next `infer`. After a chunk, `losses` and `metrics` are
+        the chunk's means, `(first + sum(rest)) / k` as the JAX package
+        computes them, and `visuals` are the last step's. The GPU runs the
+        steps after this returns; `sync=True` waits for them, so that a timer
+        around the call reads device time (the Trainer's log iterations)."""
+        steps = self._chunk or [self._batch]
+        logged = []
+        for batch in steps:
+            self._batch = batch
+            for group, optimizer in self.optimizers.items():
+                lr = self.lr_schedules[group](self._update_count(optimizer))
+                for param_group in optimizer.param_groups:
+                    param_group["lr"] = lr
+            self.losses, self.visuals, self.metrics = self.train_step()
+            logged.append((self.losses, self.metrics))
+        if len(logged) > 1:
+            self.losses = _chunk_mean([losses for losses, _ in logged])
+            self.metrics = _chunk_mean([metrics for _, metrics in logged])
         self._serving.clear()
         if sync and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -391,8 +445,9 @@ class BaseGAN(ABC):
         """Save `<output_dir>/checkpoints/<iter>.pth`: each network's state
         dict, each optimizer's as `optimizer_<group>`, each image pool's as
         `pool_<name>`, and for a model whose train step draws from its
-        generator (`_stochastic`) that generator's state as `rng`, so that a
-        resumed run continues the uninterrupted one."""
+        generators (`_stochastic`) their states as `rng` and, where a network
+        draws from the host generator, `host_rng`, so that a resumed run
+        continues the uninterrupted one."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
         path.parent.mkdir(parents=True, exist_ok=True)
         logger.info(f"Saving checkpoint at iteration {iter_idx} -> {path}")
@@ -403,6 +458,8 @@ class BaseGAN(ABC):
                         for name, pool in self._saved_pools().items()})
         if self.rng is not None and self._stochastic():
             payload["rng"] = self.rng.get_state()
+            if self._draws_on_host():
+                payload["host_rng"] = self.host_rng.get_state()
         torch.save(payload, path)
 
     def _saved_pools(self):
@@ -445,6 +502,8 @@ class BaseGAN(ABC):
         if self._stochastic():
             if "rng" in checkpoint:
                 self.rng.set_state(checkpoint["rng"])
+                if "host_rng" in checkpoint:
+                    self.host_rng.set_state(checkpoint["host_rng"])
             else:
                 logger.info("Checkpoint holds no generator state; train-time randomness "
                             "starts fresh from the seed.")

@@ -6,8 +6,10 @@ pair when `lambda_identity > 0`), then the G update with the discriminators
 frozen (gradients still flow through them to the fakes); then the image
 pools, queried with the pre-update fakes, detached; then the D update on
 real and pooled fake batches, each D running both as one forward; metrics
-from the step's visuals and the D step's predictions. Infer mode builds
-G_AB only.
+from the step's visuals and the D step's predictions. Every network
+application gets the model's generator, as the JAX package passes its key:
+a network draws from it only where it has train-time randomness (dropout, a
+multi-scale discriminator's crops). Infer mode builds G_AB only.
 """
 
 from dataclasses import dataclass, field
@@ -72,18 +74,20 @@ class CycleGAN(BaseGAN):
         # ---- G update; the discriminators are frozen.
         with self.frozen(self.network_groups["D"]):
             params = self.compute_params(["G_AB", "G_BA", "D_B", "D_A"])
-            fake_B = self.apply("G_AB", real_A, params)
-            fake_A = self.apply("G_BA", real_B, params)
-            rec_B = self.apply("G_AB", fake_A, params)
-            rec_A = self.apply("G_BA", fake_B, params)
+            fake_B = self.apply("G_AB", real_A, params, self.rng)
+            fake_A = self.apply("G_BA", real_B, params, self.rng)
+            rec_B = self.apply("G_AB", fake_A, params, self.rng)
+            rec_A = self.apply("G_BA", fake_B, params, self.rng)
             visuals = {"real_A": real_A, "fake_B": fake_B, "rec_A": rec_A,
                        "real_B": real_B, "fake_A": fake_A, "rec_B": rec_B}
             if self.criterion_G.is_using_identity():
-                visuals["idt_B"] = self.apply("G_AB", real_B, params)
-                visuals["idt_A"] = self.apply("G_BA", real_A, params)
+                visuals["idt_B"] = self.apply("G_AB", real_B, params, self.rng)
+                visuals["idt_A"] = self.apply("G_BA", real_A, params, self.rng)
 
-            losses = {"G_AB": adv(self.apply("D_B", fake_B, params), target_is_real=True),
-                      "G_BA": adv(self.apply("D_A", fake_A, params), target_is_real=True)}
+            losses = {"G_AB": adv(self.apply("D_B", fake_B, params, self.rng),
+                                  target_is_real=True),
+                      "G_BA": adv(self.apply("D_A", fake_A, params, self.rng),
+                                  target_is_real=True)}
             losses.update(self.criterion_G(visuals))
             opt_G.zero_grad(set_to_none=True)
             # Summed in sorted key order, as the JAX package's tree_leaves.
@@ -113,9 +117,9 @@ class CycleGAN(BaseGAN):
         params = self.compute_params(["D_B", "D_A"])
         preds = {}
         preds["real_B"], preds["fake_B"] = self.apply_batched("D_B", [real_B, fake_B_pooled],
-                                                              params)
+                                                              params, self.rng)
         preds["real_A"], preds["fake_A"] = self.apply_batched("D_A", [real_A, fake_A_pooled],
-                                                              params)
+                                                              params, self.rng)
         losses_D = {"D_B": adv(preds["real_B"], True) + adv(preds["fake_B"], False),
                     "D_A": adv(preds["real_A"], True) + adv(preds["fake_A"], False)}
         opt_D.zero_grad(set_to_none=True)

@@ -50,18 +50,20 @@ class RevGAN(cyclegan.CycleGAN):
         # ---- G update; the discriminators are frozen.
         with self.frozen(self.network_groups["D"]):
             params = self.compute_params(["G", "D_B", "D_A"])
-            fake_B = self.apply("G", real_A, params)
-            rec_A = self.apply("G", fake_B, params, inverse=True)
-            fake_A = self.apply("G", real_B, params, inverse=True)
-            rec_B = self.apply("G", fake_A, params)
+            fake_B = self.apply("G", real_A, params, self.rng)
+            rec_A = self.apply("G", fake_B, params, self.rng, inverse=True)
+            fake_A = self.apply("G", real_B, params, self.rng, inverse=True)
+            rec_B = self.apply("G", fake_A, params, self.rng)
             visuals = {"real_A": real_A, "fake_B": fake_B, "rec_A": rec_A,
                        "real_B": real_B, "fake_A": fake_A, "rec_B": rec_B}
             if self.criterion_G.is_using_identity():
-                visuals["idt_B"] = self.apply("G", real_B, params)
-                visuals["idt_A"] = self.apply("G", real_A, params, inverse=True)
+                visuals["idt_B"] = self.apply("G", real_B, params, self.rng)
+                visuals["idt_A"] = self.apply("G", real_A, params, self.rng, inverse=True)
 
-            losses = {"G_AB": adv(self.apply("D_B", fake_B, params), target_is_real=True),
-                      "G_BA": adv(self.apply("D_A", fake_A, params), target_is_real=True)}
+            losses = {"G_AB": adv(self.apply("D_B", fake_B, params, self.rng),
+                                  target_is_real=True),
+                      "G_BA": adv(self.apply("D_A", fake_A, params, self.rng),
+                                  target_is_real=True)}
             losses.update(self.criterion_G(visuals))
             opt_G.zero_grad(set_to_none=True)
             # Summed in sorted key order, as the JAX package's tree_leaves.

@@ -7,7 +7,11 @@ invertible coupling core, residual + PReLU); per level an UpBlock (k2 s2
 transposed conv to half width + norm + PReLU, concatenated with the skip,
 coupling core, residual + PReLU); OutBlock (k5 conv + norm + PReLU + k1 conv
 + tanh). With `use_inverse`, separate BA in, out, down and up convs and an
-inverse forward through the shared cores (RevGAN).
+inverse forward through the shared cores (RevGAN). `is_separable` makes every
+conv the separable pair of `nn/separable.py` (3D only, the 1x1x1 output conv
+too); `enable_attention_block` puts a `SelfAttentionBlock` after the down
+blocks it flags (`attns_{i}`), applied in both directions: the inverse pass
+does not invert it, and its output is the level's CUT tap and skip.
 
 Takes and returns `(N, C, *spatial)`. The submodules carry the JAX
 package's names (`in_ab`, `downs_0`, `core`, `PReLU_0`, and with batch norm
@@ -15,7 +19,7 @@ each block's `BatchNorm_0`, ...), so
 `utils/flax_weights.load_flax_params` carries its parameter tree. They are
 registered in the original ganslate's order (the JAX package's
 `torch_param_order_rank`): in_ab, in_ba, out_ab, out_ba, the down blocks,
-the up blocks, and inside a block its AB conv, its BA conv, the core, the
+the attention blocks, the up blocks, and inside a block its AB conv, its BA conv, the core, the
 PReLU; inside a conv block its conv, its batch norm, its PReLU.
 
 `forward(x, extract_features=[...])` returns CUT's encoder taps instead of
@@ -33,17 +37,31 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ganslate_tpu_torch.nn.attention import SelfAttentionBlock
 from ganslate_tpu_torch.nn.invertible import InvertibleSequence
 from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, PReLU, apply_norm_s2d,
                                           batch_norm_or_none, check_s2d_norm, inert_bias,
                                           is_bias_before_norm, make_initializer)
+from ganslate_tpu_torch.nn.separable import SeparableConv3d, SeparableConvTranspose3d
 
 
-def _conv(in_features, features, k, spatial_dims, norm_type, kernel_init, generator, **kw):
+def _conv_layer(is_separable, spatial_dims, transposed=False):
+    """The conv of a block (the JAX package's `_conv`/`_convt`): the
+    separable pair in 3D with `is_separable`, else a cube kernel."""
+    if is_separable:
+        if spatial_dims != 3:
+            raise ValueError("separable convs are 3D-only")
+        return SeparableConvTranspose3d if transposed else SeparableConv3d
+    layer = ConvTranspose if transposed else Conv
+    return lambda in_f, feats, k, **kw: layer(in_f, feats, (k,) * spatial_dims, **kw)
+
+
+def _conv(in_features, features, k, spatial_dims, norm_type, kernel_init, generator,
+          is_separable=False, transposed=False, **kw):
     """A conv before a norm: its bias is kept, and inert (`layers.inert_bias`)."""
-    return Conv(in_features, features, (k,) * spatial_dims,
-                use_bias=is_bias_before_norm(norm_type), bias_inert=inert_bias(norm_type),
-                kernel_init=kernel_init, generator=generator, **kw)
+    return _conv_layer(is_separable, spatial_dims, transposed)(
+        in_features, features, k, use_bias=is_bias_before_norm(norm_type),
+        bias_inert=inert_bias(norm_type), kernel_init=kernel_init, generator=generator, **kw)
 
 
 def _norm_prelu(block, h):
@@ -54,11 +72,12 @@ def _norm_prelu(block, h):
 class VnetInvBlock(nn.Module):
     """The half-width function inside the couplings: k5 conv + norm + PReLU."""
 
-    def __init__(self, features, norm_type, spatial_dims, kernel_init, generator=None):
+    def __init__(self, features, norm_type, spatial_dims, kernel_init, generator=None,
+                 is_separable=False):
         super().__init__()
         self.norm_type = norm_type
         self.conv = _conv(features, features, 5, spatial_dims, norm_type, kernel_init,
-                          generator, padding=2)
+                          generator, is_separable, padding=2)
         self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.PReLU_0 = PReLU(features)
 
@@ -69,12 +88,12 @@ class VnetInvBlock(nn.Module):
 class InputBlock(nn.Module):
 
     def __init__(self, in_channels, out_channels, norm_type, spatial_dims, kernel_init,
-                 generator=None):
+                 generator=None, is_separable=False):
         super().__init__()
         self.norm_type = norm_type
         self.n_repeats = out_channels // in_channels
         self.conv1 = _conv(in_channels, out_channels, 5, spatial_dims, norm_type, kernel_init,
-                           generator, padding=2)
+                           generator, is_separable, padding=2)
         self.BatchNorm_0 = batch_norm_or_none(norm_type, out_channels)
         self.PReLU_0 = PReLU(out_channels)
 
@@ -89,11 +108,11 @@ class InputBlock(nn.Module):
 class _DownConv(nn.Module):
 
     def __init__(self, in_features, features, norm_type, spatial_dims, kernel_init,
-                 generator=None):
+                 generator=None, is_separable=False):
         super().__init__()
         self.norm_type = norm_type
         self.conv = _conv(in_features, features, 2, spatial_dims, norm_type, kernel_init,
-                          generator, strides=2)
+                          generator, is_separable, strides=2)
         self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.PReLU_0 = PReLU(features)
 
@@ -104,13 +123,11 @@ class _DownConv(nn.Module):
 class _UpConv(nn.Module):
 
     def __init__(self, in_features, features, norm_type, spatial_dims, kernel_init,
-                 generator=None):
+                 generator=None, is_separable=False):
         super().__init__()
         self.norm_type = norm_type
-        self.convt = ConvTranspose(in_features, features, (2,) * spatial_dims, strides=2,
-                                   use_bias=is_bias_before_norm(norm_type),
-                                   bias_inert=inert_bias(norm_type), kernel_init=kernel_init,
-                                   generator=generator)
+        self.convt = _conv(in_features, features, 2, spatial_dims, norm_type, kernel_init,
+                           generator, is_separable, transposed=True, strides=2)
         self.BatchNorm_0 = batch_norm_or_none(norm_type, features)
         self.PReLU_0 = PReLU(features)
 
@@ -119,25 +136,25 @@ class _UpConv(nn.Module):
 
 
 def _core(channels, n_blocks, norm_type, spatial_dims, use_memory_saving, kernel_init,
-          generator):
+          generator, is_separable):
     return InvertibleSequence(
         n_blocks, lambda: VnetInvBlock(channels // 2, norm_type, spatial_dims, kernel_init,
-                                       generator),
+                                       generator, is_separable),
         use_memory_saving)
 
 
 class DownBlock(nn.Module):
 
     def __init__(self, in_channels, n_conv_blocks, norm_type, spatial_dims, use_memory_saving,
-                 use_inverse, kernel_init, generator=None):
+                 use_inverse, kernel_init, generator=None, is_separable=False):
         super().__init__()
         out = 2 * in_channels
-        args = (norm_type, spatial_dims, kernel_init, generator)
+        args = (norm_type, spatial_dims, kernel_init, generator, is_separable)
         self.down_conv_ab = _DownConv(in_channels, out, *args)
         if use_inverse:
             self.down_conv_ba = _DownConv(in_channels, out, *args)
         self.core = _core(out, n_conv_blocks, norm_type, spatial_dims, use_memory_saving,
-                          kernel_init, generator)
+                          kernel_init, generator, is_separable)
         self.relu = PReLU(out)
 
     def forward(self, x, inverse: bool = False):
@@ -148,14 +165,15 @@ class DownBlock(nn.Module):
 class UpBlock(nn.Module):
 
     def __init__(self, in_channels, out_channels, n_conv_blocks, norm_type, spatial_dims,
-                 use_memory_saving, use_inverse, kernel_init, generator=None):
+                 use_memory_saving, use_inverse, kernel_init, generator=None,
+                 is_separable=False):
         super().__init__()
-        args = (norm_type, spatial_dims, kernel_init, generator)
+        args = (norm_type, spatial_dims, kernel_init, generator, is_separable)
         self.up_conv_ab = _UpConv(in_channels, out_channels // 2, *args)
         if use_inverse:
             self.up_conv_ba = _UpConv(in_channels, out_channels // 2, *args)
         self.core = _core(out_channels, n_conv_blocks, norm_type, spatial_dims,
-                          use_memory_saving, kernel_init, generator)
+                          use_memory_saving, kernel_init, generator, is_separable)
         self.relu = PReLU(out_channels)
 
     def forward(self, x, skipx, inverse: bool = False):
@@ -168,15 +186,16 @@ class UpBlock(nn.Module):
 class OutBlock(nn.Module):
 
     def __init__(self, in_channels, out_channels, norm_type, spatial_dims, kernel_init,
-                 generator=None):
+                 generator=None, is_separable=False):
         super().__init__()
         self.norm_type = norm_type
         self.conv1 = _conv(in_channels, in_channels, 5, spatial_dims, norm_type, kernel_init,
-                           generator, padding=2)
+                           generator, is_separable, padding=2)
         self.BatchNorm_0 = batch_norm_or_none(norm_type, in_channels)
         self.PReLU_0 = PReLU(in_channels)
-        self.conv2 = Conv(in_channels, out_channels, (1,) * spatial_dims,
-                          kernel_init=kernel_init, generator=generator)
+        # Separable too, as in the JAX package: two 1x1x1 factors, both biased.
+        self.conv2 = _conv_layer(is_separable, spatial_dims)(
+            in_channels, out_channels, 1, kernel_init=kernel_init, generator=generator)
 
     def forward(self, x):
         h = _norm_prelu(self, self.conv1(x))
@@ -185,7 +204,7 @@ class OutBlock(nn.Module):
 
 class VnetGenerator(nn.Module):
     """Takes and returns `(N, C, *spatial)`; `spatial_dims` is set by
-    `Vnet3D` and `Vnet2D`."""
+    `Vnet3D`, `Vnet2D` and `SelfAttentionVnet3D`."""
 
     spatial_dims = 3
 
@@ -204,13 +223,9 @@ class VnetGenerator(nn.Module):
             raise ValueError("`first_layer_channels` has to be divisible by `in_channels`.")
         if len(down_blocks) != len(up_blocks):
             raise ValueError("Number of `down_blocks` and `up_blocks` has to be equal.")
-        if is_separable:
-            raise NotImplementedError("Separable convolutions (`is_separable`) are not "
-                                      "ported yet: they come with the rest of the network zoo.")
-        if enable_attention_block and any(enable_attention_block):
-            raise NotImplementedError("The self-attention V-Net (`enable_attention_block`) "
-                                      "is not ported yet: it comes with the rest of the "
-                                      "network zoo.")
+        if enable_attention_block is not None and len(enable_attention_block) < len(down_blocks):
+            raise ValueError(f"`enable_attention_block` needs one flag per down block "
+                             f"({len(down_blocks)}), got {list(enable_attention_block)}")
         check_s2d_norm(norm_type, 2 if use_s2d_exec else 0)
         # Read by `BaseGAN._batch_fusable`.
         self.norm_type = norm_type
@@ -221,29 +236,44 @@ class VnetGenerator(nn.Module):
         flc, sd = first_layer_channels, self.spatial_dims
         args = (norm_type, sd, init, generator)
 
-        self.in_ab = InputBlock(in_channels, flc, *args)
+        self.in_ab = InputBlock(in_channels, flc, *args, is_separable)
         if use_inverse:
-            self.in_ba = InputBlock(in_channels, flc, *args)
-        self.out_ab = OutBlock(flc * 2, out_channels, *args)
+            self.in_ba = InputBlock(in_channels, flc, *args, is_separable)
+        self.out_ab = OutBlock(flc * 2, out_channels, *args, is_separable)
         if use_inverse:
-            self.out_ba = OutBlock(flc * 2, out_channels, *args)
+            self.out_ba = OutBlock(flc * 2, out_channels, *args, is_separable)
 
         for i, n_convs in enumerate(down_blocks):
             setattr(self, f"downs_{i}", DownBlock(flc * 2 ** i, n_convs, norm_type, sd,
                                                   use_memory_saving, use_inverse, init,
-                                                  generator))
+                                                  generator, is_separable))
+        # The attention blocks after all down blocks, as the original
+        # registers its `attn` list (the JAX package's `torch_param_order_rank`).
+        self.attended = [bool(enable_attention_block and enable_attention_block[i])
+                         for i in range(self.n_levels)]
+        for i, on in enumerate(self.attended):
+            if on:
+                setattr(self, f"attns_{i}", SelfAttentionBlock(flc * 2 ** (i + 1), sd, init,
+                                                               generator))
         # Level widths from the bottom up: the first up block keeps its width,
         # each later one halves it.
         widths = [flc * 2 ** (self.n_levels - i) for i in range(self.n_levels)]
         for i, n_convs in enumerate(up_blocks):
             in_w, out_w = widths[max(i - 1, 0)], widths[i]
             setattr(self, f"ups_{i}", UpBlock(in_w, out_w, n_convs, norm_type, sd,
-                                              use_memory_saving, use_inverse, init, generator))
+                                              use_memory_saving, use_inverse, init, generator,
+                                              is_separable))
 
     @property
     def num_feature_levels(self) -> int:
         """Encoder taps: the input block and each down block."""
         return 1 + self.n_levels
+
+    def _down(self, i, h, inverse):
+        """Down block `i`, then its attention where the level has one (in
+        both directions: the inverse pass does not invert it)."""
+        h = getattr(self, f"downs_{i}")(h, inverse)
+        return getattr(self, f"attns_{i}")(h) if self.attended[i] else h
 
     def forward(self, x, inverse: bool = False,
                 extract_features: Optional[Sequence[int]] = None):
@@ -265,10 +295,11 @@ class VnetGenerator(nn.Module):
             if not indices:
                 return []
             depth = max(indices)
-        # The input block's output is also the last up block's skip.
+        # The input block's output is also the last up block's skip; a level's
+        # output (after its attention) is its tap and its skip.
         skips = [getattr(self, f"in_{suffix}")(x)]
         for i in range(depth):
-            skips.append(getattr(self, f"downs_{i}")(skips[-1], inverse))
+            skips.append(self._down(i, skips[-1], inverse))
         if extract_features is not None:
             return [skips[i] for i in indices]
         out = skips.pop()

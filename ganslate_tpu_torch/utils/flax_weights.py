@@ -10,8 +10,11 @@ copies it into the port module whose submodules carry the same names.
 - ConvTranspose kernel `(*k, I, O)` -> spatial flip -> `(I, O, *k)`.
 - Dense kernel `(I, O)` (CUT's `mlp{i}_fc1` and `mlp{i}_fc2`) -> `Linear`
   weight `(O, I)`.
-- Biases, PReLU slopes and batch norms' `scale` and `bias` are copied as
-  they are. A U-Net's norms carry flax's automatic names (`BatchNorm_0`,
+- Biases, PReLU slopes, batch norms' `scale` and `bias` and an attention
+  block's `gamma` are copied as they are. An attention block's 1x1(x1)
+  `query`, `key` and `value` convs are convs: `(1, 1, 1, C, O)` ->
+  `(O, C, 1, 1, 1)`; the separable pair's factors (`depthwise`,
+  `pointwise`) likewise, transposed where the pair is. A U-Net's norms carry flax's automatic names (`BatchNorm_0`,
   ...) in the port too, so its tree needs no mapping.
 - A subtree stacked on a leading block axis (the JAX package's invertible
   couplings, e.g. `downs_0/core/blocks/F/conv/kernel` of shape
@@ -32,6 +35,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from ganslate_tpu_torch.nn.attention import SelfAttentionBlock
 from ganslate_tpu_torch.nn.layers import (BatchNorm, Conv, ConvTranspose, PReLU,
                                           conv_kernel_to_torch, conv_transpose_kernel_to_torch)
 
@@ -96,9 +100,9 @@ def load_flax_params(module: torch.nn.Module, params) -> torch.nn.Module:
             convert = conv_kernel_to_torch
         elif isinstance(layer, torch.nn.Linear):
             convert = torch.Tensor.t
-        elif not isinstance(layer, (PReLU, BatchNorm)):
-            raise KeyError(f"`{name}` is a {type(layer).__name__}, not a conv, dense, PReLU "
-                           f"or batch norm layer")
+        elif not isinstance(layer, (PReLU, BatchNorm, SelfAttentionBlock)):
+            raise KeyError(f"`{name}` is a {type(layer).__name__}, not a conv, dense, PReLU, "
+                           f"batch norm or attention layer")
         for leaf, value in leaves.items():
             value = torch.from_numpy(np.array(value, dtype=np.float32))
             if leaf == "kernel" and isinstance(layer, (Conv, ConvTranspose, torch.nn.Linear)):
@@ -109,6 +113,8 @@ def load_flax_params(module: torch.nn.Module, params) -> torch.nn.Module:
                 target, attr = layer.slope, "slope"
             elif leaf == "scale" and isinstance(layer, BatchNorm):
                 target, attr = layer.scale, "scale"
+            elif leaf == "gamma" and isinstance(layer, SelfAttentionBlock):
+                target, attr = layer.gamma, "gamma"
             else:
                 raise KeyError(f"unexpected flax parameter `{'/'.join(path + (leaf,))}`")
             if tuple(value.shape) != tuple(target.shape):
@@ -117,7 +123,7 @@ def load_flax_params(module: torch.nn.Module, params) -> torch.nn.Module:
                                  f"{tuple(target.shape)}")
             with torch.no_grad():
                 target.copy_(value)
-            written.add(f"{name}.{attr}")
+            written.add(f"{name}.{attr}" if name else attr)
     missing = [n for n, _ in module.named_parameters() if n not in written]
     if missing:
         raise KeyError(f"flax parameters give no value for {missing}")

@@ -31,9 +31,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from ganslate_tpu_torch.nn.discriminators import PatchGAN2D, PatchGAN3D
+from ganslate_tpu_torch.nn.discriminators import (MultiScalePatchGAN3D, PatchGAN2D, PatchGAN3D,
+                                                  SelfAttentionPatchGAN3D)
 from ganslate_tpu_torch.nn.gans.unpaired.cut import FeaturePatchMLP
-from ganslate_tpu_torch.nn.generators import (Resnet2D, Resnet3D, Unet2D, Unet3D, Vnet2D,
+from ganslate_tpu_torch.nn.generators import (Resnet2D, Resnet3D, SelfAttentionVnet3D, Unet2D,
+                                              Unet3D, Vnet2D,
                                               Vnet3D)
 from ganslate_tpu_torch.nn.generators.resnet.piresnet3d import Piresnet3D
 from ganslate_tpu_torch.utils import torch_import
@@ -56,9 +58,14 @@ def _jax_classes():
     from ganslate_tpu.nn.generators.resnet.resnet3d import Resnet3D as JR3
     from ganslate_tpu.nn.generators.vnet.vnet2d import Vnet2D as JV2
     from ganslate_tpu.nn.generators.vnet.vnet3d import Vnet3D as JV3
+    from ganslate_tpu.nn.discriminators import MultiScalePatchGAN3D as JMS
+    from ganslate_tpu.nn.discriminators import SelfAttentionPatchGAN3D as JSAP
+    from ganslate_tpu.nn.generators import SelfAttentionVnet3D as JSAV
     return {"Resnet2D": JR2, "Resnet3D": JR3, "Piresnet3D": JPi, "Vnet2D": JV2,
             "Vnet3D": JV3, "Unet2D": JU2, "Unet3D": JU3, "PatchGAN2D": JP2,
-            "PatchGAN3D": JP3, "FeaturePatchMLP": JMLP}
+            "PatchGAN3D": JP3, "FeaturePatchMLP": JMLP, "SelfAttentionVnet3D": JSAV,
+            "Vnet3D_separable": JV3, "SelfAttentionPatchGAN3D": JSAP,
+            "MultiScalePatchGAN3D": JMS}
 
 
 # name: (port class, keyword arguments of both, the JAX dummy input's shapes,
@@ -82,6 +89,16 @@ CASES = {
     "PatchGAN3D": (PatchGAN3D, dict(in_channels=1, ndf=4, n_layers=2), (1, 16, 16, 16, 1), 0),
     "FeaturePatchMLP": (FeaturePatchMLP, dict(channels_per_feature=(3, 8, 16), nc=16),
                         [(16, 3), (16, 8), (16, 16)], 0),
+    "SelfAttentionVnet3D": (SelfAttentionVnet3D, dict(
+        in_channels=1, out_channels=1, first_layer_channels=4, down_blocks=(1, 1),
+        up_blocks=(1, 1), enable_attention_block=(False, True)), (1, 8, 8, 8, 1), 0),
+    "Vnet3D_separable": (Vnet3D, dict(in_channels=1, out_channels=1, first_layer_channels=4,
+                                      down_blocks=(1, 2), up_blocks=(1, 1), is_separable=True),
+                         (1, 8, 8, 8, 1), 0),
+    "SelfAttentionPatchGAN3D": (SelfAttentionPatchGAN3D, dict(in_channels=1, ndf=4, n_layers=2),
+                                (1, 24, 32, 32, 1), 0),
+    "MultiScalePatchGAN3D": (MultiScalePatchGAN3D, dict(in_channels=1, ndf=4, n_layers=1,
+                                                        scales=2), (1, 16, 16, 16, 1), 0),
 }
 
 
@@ -242,3 +259,66 @@ def test_jax_checkpoint_served_by_the_port(tmp_path, capsys):
                            jax.device_get(jax_model.state.params["D_B"]))
     for key, value in d_b.state_dict().items():
         assert torch.equal(written["D_B"][key], value), key
+
+
+# name: (GAN, generator, discriminator) of the zoo's networks, small.
+ZOO_GANS = {
+    "revgan_selfattention": ("RevGAN", {
+        "_target_": "ganslate.nn.generators.SelfAttentionVnet3D", "first_layer_channels": 4,
+        "down_blocks": [1, 1], "up_blocks": [1, 1], "enable_attention_block": [False, True],
+        "in_out_channels": {"AB": [1, 1]}}, {
+        "_target_": "ganslate.nn.discriminators.SelfAttentionPatchGAN3D", "ndf": 4,
+        "n_layers": 1, "in_channels": {"B": 1}}),
+    "cyclegan_separable_multiscale": ("CycleGAN", {
+        "_target_": "ganslate.nn.generators.Vnet3D", "first_layer_channels": 4,
+        "down_blocks": [1, 1], "up_blocks": [1, 1], "is_separable": True,
+        "in_out_channels": {"AB": [1, 1]}}, {
+        "_target_": "ganslate.nn.discriminators.MultiScalePatchGAN3D", "ndf": 4, "n_layers": 1,
+        "scales": 2, "in_channels": {"B": 1}}),
+}
+
+
+@pytest.mark.parametrize("name", list(ZOO_GANS))
+def test_jax_checkpoint_of_the_zoo_converted(tmp_path, capsys, name):
+    """A JAX RevGAN of the self-attention V-Net and PatchGAN3D, and a JAX
+    CycleGAN of the separable V-Net and the multi-scale PatchGAN3D, saved by
+    the JAX package's `save_checkpoint` and converted by
+    `tools/jax_checkpoint_to_torch.py`: every network bit for bit as
+    `load_flax_params` carries its tree."""
+    from ganslate_tpu.configs.config import Config as JaxConfig
+    from ganslate_tpu.configs.omega import Conf as JaxConf
+    from ganslate_tpu.configs.utils import init_config as jax_init_config
+    from ganslate_tpu_torch.utils.builders import build_D, build_G, build_conf
+    from tests.test_torch_port_multistep import jax_model_from_shapes
+
+    gan, generator, discriminator = ZOO_GANS[name]
+    out = tmp_path / "out"
+    raw = {"train": {
+        "output_dir": str(out), "cuda": False, "batch_size": 1, "n_iters": 10,
+        "n_iters_decay": 10, "mixed_precision": False,
+        "gan": {"_target_": f"ganslate.nn.gans.unpaired.{gan}", "generator": generator,
+                "discriminator": discriminator,
+                "optimizer": {"lambda_AB": 5.0, "lambda_BA": 5.0, "lambda_identity": 0,
+                              "proportion_ssim": 0}}}}
+    batch = {k: np.zeros((1, 16, 16, 16, 1), np.float32) for k in "AB"}
+    jax_model = jax_model_from_shapes(jax_init_config(JaxConf.create(raw), JaxConfig), batch,
+                                      gamma=0.5, seed=3)
+    jax_model.save_checkpoint(7)
+    config = tmp_path / f"{name}.yaml"
+    config.write_text(yaml.safe_dump(raw))
+
+    _tool().main([str(out / "checkpoints" / "7"), f"config={config}"])
+    assert "checkpoints/7.pth" in capsys.readouterr().out
+    written = torch.load(out / "checkpoints" / "7.pth", weights_only=True)
+    params = jax.device_get(jax_model.state.params)
+    assert sorted(written) == sorted(params)
+    conf = build_conf([f"config={config}"])
+    for net_name, tree in params.items():
+        if net_name.startswith("G"):
+            net = build_G(conf, "BA" if net_name.endswith("_BA") else "AB")
+        else:
+            net = build_D(conf, "A" if net_name.endswith("_A") else "B")
+        want = load_flax_params(net, tree).state_dict()
+        assert sorted(written[net_name]) == sorted(want)
+        for key, value in want.items():
+            assert torch.equal(written[net_name][key], value), f"{net_name}.{key}"

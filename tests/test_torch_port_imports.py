@@ -211,8 +211,8 @@ def test_import_attr_aliases_to_the_port(prefix):
 
 
 @pytest.mark.parametrize("target, missing", [
-    ("ganslate.nn.discriminators.MultiScalePatchGAN3D", "MultiScalePatchGAN3D"),
-    ("ganslate.nn.generators.SelfAttentionVnet3D", "SelfAttentionVnet3D"),
+    ("ganslate.parallel.mesh.make_mesh", "ganslate_tpu_torch.parallel"),
+    ("ganslate.nn.layers.precompute_s2d_kernels", "precompute_s2d_kernels"),
 ])
 def test_import_attr_names_what_the_port_lacks(target, missing):
     with pytest.raises(ImportError, match=re.escape(missing)):

@@ -200,13 +200,16 @@ def test_config_defaults_match_jax():
         assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
 
 
-@pytest.mark.parametrize("option, match", [
-    (dict(is_separable=True), "Separable"),
-    (dict(enable_attention_block=(True, False)), "self-attention"),
+@pytest.mark.parametrize("cls, option, match", [
+    (Vnet2D, dict(is_separable=True), "3D-only"),
+    (Vnet3D, dict(enable_attention_block=(True,)), "one flag per down block"),
 ])
-def test_unported_options_raise(option, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Vnet3D(1, 1, **SMALL, **option)
+def test_unported_options_raise(cls, option, match):
+    """The separable convs and the attention blocks are ported
+    (`test_torch_port_zoo.py`); what the JAX package cannot build either is
+    refused: separable convs in 2D, fewer attention flags than levels."""
+    with pytest.raises(ValueError, match=match):
+        cls(1, 1, **SMALL, **option)
 
 
 def test_inverse_needs_use_inverse():
