@@ -268,6 +268,32 @@ project's datasets, which the port's config loader takes from its twin
    TFLOP/s against the bf16 peak), profile, and the step against the plain
    norms. The norm launches of every step, pass and request are counted.
 
+16. distributed (last): data parallelism across processes on the one card,
+   each rank a child process of this script (`--distributed-child`) with
+   `DIST_CHILD_TIMEOUT` seconds before its process group is killed; a
+   failed child fails the run. (a) `projects/horse2zebra/experiments/
+   default.yaml` at full width, in fp32, with only the roots, the loop
+   lengths (4 iterations) and frequencies, a seed, `logging.wandb` and
+   `val.metrics.fid` (no Inception weights) overridden, through the
+   port's `train` command (`interface.main`) under `python -m
+   torch.distributed.run --standalone --nproc_per_node 1`, one NCCL rank,
+   with deterministic algorithms: its losses and last checkpoint bit for
+   bit against the same child without torchrun (no process group), and
+   the NCCL kernels of one profiled iteration counted. (b) The same
+   CycleGAN model-level, fp32, global batch 2 on 2 gloo ranks (NCCL
+   refuses two ranks on one device) with its pool of 50, 3 steps, against
+   1 process at batch 2: losses per step (1e-5 relative), gradients of
+   step 1 (1e-2 relative L2, beside the one-ulp control) and each weight
+   tensor after step 3 (1e-2, or 3 times that tensor's own gap in the
+   one-ulp control where that is larger); step and all-reduce times, which
+   are two ranks sharing a card and no scaling figure. (c) The Cityscapes
+   Pix2Pix YAML (Unet2D, 7 levels, ngf 128) with batch norm and dropout, 2
+   steps, likewise. (d) The BRaTS Vnet3D request of phase 7 through the
+   deployment `Inferer`'s generator and its sliding window with the
+   library's grid split over 2 gloo ranks turned on (no entry point turns
+   it on), bf16 and fp32, against 1 process. The torchrun children's norm
+   launches are the `distributed` path of the kernels line.
+
 The kernels phase also checks and times both kernels at the V-Net's, the
 RevGAN's, the Pix2Pix's, the CUT's and the HX4 and ClearGrasp networks'
 norm slabs (in both dtypes for the Pix2Pix's; the BRaTS CycleGAN's are the
@@ -5823,6 +5849,518 @@ def fid_phase(root, flops_peak):
     return launches
 
 
+# ------------------------------------------------------------- phase 16
+
+
+# Data parallelism across processes, on the one card: (a) the horse2zebra
+# experiment from its YAML through `python -m torch.distributed.run
+# --nproc_per_node 1 chip_smoke.py --distributed-child train-cli ...`, one
+# NCCL rank, which calls the port's command line (`interface.main(["train",
+# ...])`, what `-m ganslate_tpu_torch train` runs) under deterministic
+# algorithms, against the same child without torchrun; (b)-(d) model-level
+# runs on 2 gloo ranks (NCCL refuses two ranks on one device) against one
+# process at the global batch. Every child has `DIST_CHILD_TIMEOUT` seconds,
+# then its process group is killed.
+DIST_CHILD_TIMEOUT = 420
+DIST_CHILD_SCRIPT = HERE / "chip_smoke.py"
+H2Z_YAML = HERE / "projects" / "horse2zebra" / "experiments" / "default.yaml"
+CITYSCAPES_YAML = HERE / "projects" / "cityscapes_label2photo" / "experiments" / "pix2pix.yaml"
+# (a): iterations, logging and checkpoint frequency; the profiled iteration.
+DIST_CLI_RUN = (4, 2, 2)
+DIST_PROFILED_ITER = 3
+DIST_LEFT_OUT = {"train.logging.wandb": "the wandb package would contact its server",
+                 "val.metrics.fid": "no Inception weights in the repo",
+                 "train.mixed_precision": "fp32, so that the runs compare bit for bit"}
+# (b), (c): fp32 steps at a global batch of 2 (1 a rank).
+DIST_STEPS = {"cyclegan": 3, "pix2pix": 2}
+DIST_LOSS_RTOL = 1e-5
+# Adam's first update, lr g / (|g| + eps), takes the sign of a gradient
+# component that rounding decides, and the next steps follow it: the losses
+# of the later steps and each weight tensor after the last are also read
+# against the one-ulp control, the 1-rank run with plain norms repeated
+# with one-ulp noise on every norm output (instance and batch). A loss, or a
+# tensor, passes within `DIST_CONTROL_RATIO` times its own gap in the
+# control where that exceeds the bound. (A bias that starts at zero differs
+# by as much as its updates do: 16% relative L2 in the full-width
+# CycleGAN's control on an H100; a large conv weight's gap stays far below
+# the bound, which then holds it.)
+DIST_CONTROL_RATIO = 3
+# (c): batch norm (the pix2pix paper's norm) in place of the YAML's default
+# instance norm, so that the statistics span the ranks.
+DIST_PIX2PIX_NORM = "batch"
+DIST_PIX2PIX_SIZE = (256, 512)
+# (d): the sliding_window phase's request split over 2 ranks; fp32 within
+# 1e-5 of max|out| (the two runs sum the windows in another order), bf16
+# within the phase's bound against the plain norms. A check of the library
+# path, `SlidingWindowInferer(distributed=True)`, called on the Inferer's
+# generator with the same volume on every rank: no entry point turns the
+# split on, since the engines' loaders give each rank its own samples.
+DIST_SW_PATH = ("library: the Inferer's SlidingWindowInferer with distributed=True set on it; "
+                "the engines keep it off (their loaders split the samples)")
+DIST_SW_FP32_REL = 1e-5
+
+
+def h2z_args(out_dir, data_root, extra=()):
+    """`init_engine`'s arguments for the horse2zebra YAML with only (a)'s
+    overrides: the roots, the loop lengths and frequencies, a seed, and
+    `DIST_LEFT_OUT`."""
+    n_iters, log_freq, ckpt_freq = DIST_CLI_RUN
+    return [f"config={H2Z_YAML}", f"train.output_dir={out_dir}",
+            f"train.dataset.root={data_root / 'train'}", f"val.dataset.root={data_root / 'test'}",
+            f"infer.dataset.root={data_root / 'test'}",
+            f"train.n_iters={n_iters - n_iters // 2}", f"train.n_iters_decay={n_iters // 2}",
+            f"train.logging.freq={log_freq}", f"train.checkpointing.freq={ckpt_freq}",
+            f"val.freq={10 * n_iters}", f"train.seed={SEED + 70}", "train.logging.wandb=null",
+            "val.metrics.fid=false", "train.mixed_precision=false", *extra]
+
+
+def dist_cyclegan_args(out_dir):
+    """(b): the horse2zebra YAML at a global batch of 2 in fp32."""
+    return [f"config={H2Z_YAML}", f"train.output_dir={out_dir}", "train.batch_size=2",
+            "train.mixed_precision=false", f"train.seed={SEED + 71}", "train.logging.wandb=null",
+            "val.metrics.fid=false"]
+
+
+def dist_pix2pix_args(out_dir):
+    """(c): the Cityscapes Pix2Pix YAML at a global batch of 2 in fp32, with
+    batch norm (`DIST_PIX2PIX_NORM`) and the validation size that its
+    U-Net takes."""
+    return [f"config={CITYSCAPES_YAML}", f"train.output_dir={out_dir}", "train.batch_size=2",
+            "train.mixed_precision=false", f"train.seed={SEED + 72}", "train.logging.wandb=null",
+            "val.dataset.load_size=[256,512]", f"train.gan.norm_type={DIST_PIX2PIX_NORM}"]
+
+
+def dist_launch(task, out_dir, work, nproc=None):
+    """`chip_smoke.py --distributed-child task out_dir` in its own process
+    group: under `torch.distributed.run --standalone --nproc_per_node
+    nproc`, or alone when `nproc` is None. Waits at most
+    `DIST_CHILD_TIMEOUT`, then kills the group; kills whatever of it is
+    left either way. Returns each rank's results and the wall seconds."""
+    import signal
+    import torch
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runner = [] if nproc is None else ["-m", "torch.distributed.run", "--standalone",
+                                       f"--nproc_per_node={nproc}"]
+    argv = [sys.executable, *runner, str(DIST_CHILD_SCRIPT), "--distributed-child", task,
+            str(out_dir)]
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "OMP_NUM_THREADS": "4",
+           "NCCL_SOCKET_IFNAME": "lo", "PYTHONPATH": os.pathsep.join(
+               [str(HERE)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                              if p])}
+    log_path = out_dir / f"{task}_{nproc or 0}.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(argv, cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DIST_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        emit({"phase": "distributed_child", "task": task, "nproc": nproc, "returncode": rc,
+              "seconds": seconds, "log_tail": log_path.read_text()[-6000:]})
+        raise AssertionError(f"the {task} child (nproc {nproc}) ended with {rc}")
+    results = [torch.load(out_dir / f"{task}_rank{r}.pt", weights_only=False)
+               for r in range(nproc or 1)]
+    return results, seconds
+
+
+def dist_child(task, out_dir):
+    """A child of `dist_launch`: joins the process group (under torchrun),
+    runs `task` and saves its results as `<task>_rank<r>.pt`."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    inorm.library()
+    rank = int(os.environ.get("RANK", "0"))
+    result = {"train-cli": dist_train_cli, "models": dist_models}[task](out_dir)
+    torch.save(result, out_dir / f"{task}_rank{rank}.pt")
+    return 0
+
+
+def dist_train_cli(out_dir):
+    """(a) in a child: the port's `train` command on the horse2zebra YAML,
+    with each iteration's losses read back, the process group's backend,
+    and iteration `DIST_PROFILED_ITER` under `torch.profiler` (its NCCL
+    kernels counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ganslate_tpu_torch.engines.trainer import Trainer
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils import communication
+    from ganslate_tpu_torch.utils.cli.interface import interface
+    seen = {"losses": {}, "step_ms": {}}
+    run_iteration = Trainer._run_iteration
+
+    def recorded(self, batches):
+        seen["backend"], seen["world"] = communication.backend(), communication.get_world_size()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.iter_idx == DIST_PROFILED_ITER:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run_iteration(self, batches)
+                torch.cuda.synchronize()
+            nccl = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                    and "nccl" in e.name.lower()]
+            seen["nccl_kernels"] = len(nccl)
+            seen["nccl_kernel_names"] = {n: sum(e.name == n for e in nccl)
+                                         for n in sorted({e.name for e in nccl})}
+            seen["nccl_device_ms"] = sum(e.device_time_total for e in nccl) / 1e3
+        else:
+            run_iteration(self, batches)
+        torch.cuda.synchronize()
+        seen["step_ms"][self.iter_idx] = (time.perf_counter() - t0) * 1e3
+        seen["losses"][self.iter_idx] = {k: float(v) for k, v in self.model.losses.items()}
+
+    Trainer._run_iteration = recorded
+    inorm.reset_launches()
+    data_root = Path(os.environ["GANSLATE_DIST_DATA"])
+    interface.main(["train", *h2z_args(out_dir / "run", data_root)], standalone_mode=False)
+    torch.cuda.synchronize()
+    return {**seen, "launches": dict(inorm.LAUNCHES)}
+
+
+def dist_model_steps(model, batches, n_steps):
+    """`n_steps` fp32 steps of `model` on this rank's share of each global
+    batch: per step the losses reduced over the ranks, the host time of the
+    step (synchronised) and of its gradient all-reduces (each synchronised
+    around); the averaged gradients of step 1 and the parameters before
+    and after, on the host."""
+    import torch
+    from ganslate_tpu_torch.nn.gans import base
+    from ganslate_tpu_torch.utils import communication
+    rank, world = communication.get_rank(), communication.get_world_size()
+    average = base.average_gradients
+    spent = []
+
+    def timed_average(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(params)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+
+    def host(grads=False):
+        """Every parameter (or its gradient, where it has one) on the host."""
+        return {f"{name}.{k}": (p.grad if grads else p).detach().float().cpu().clone()
+                for name, net in model.networks.items() for k, p in net.named_parameters()
+                if not grads or p.grad is not None}
+
+    initial = host()
+    losses, step_ms, allreduce_ms, grads = [], [], [], None
+    base.average_gradients = timed_average
+    try:
+        for i, batch in enumerate(batches[:n_steps]):
+            n = len(batch["A"]) // world
+            model.set_input({k: v[rank * n:(rank + 1) * n] for k, v in batch.items()})
+            spent.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.optimize_parameters(sync=True)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            allreduce_ms.append(sum(spent) * 1e3)
+            losses.append(communication.reduce({k: float(v) for k, v in model.losses.items()}))
+            if i == 0:
+                grads = host(grads=True)
+    finally:
+        base.average_gradients = average
+    return {"losses": losses, "step_ms": step_ms, "allreduce_ms": allreduce_ms,
+            "grads": grads, "initial": initial, "params": host(),
+            "backend": communication.backend(), "world": world}
+
+
+@contextlib.contextmanager
+def batch_norm_ulp_noise():
+    """`plain_forward(ulp_noise=True)`'s noise on every batch-norm output."""
+    import torch
+    from ganslate_tpu_torch.nn import layers
+    forward = layers.BatchNorm.forward
+    gens = {}
+
+    def noisy(self, x):
+        y = forward(self, x)
+        if y.device not in gens:
+            gens[y.device] = torch.Generator(device=y.device).manual_seed(SEED + 11)
+        sign = torch.randint(-1, 2, y.shape, generator=gens[y.device], device=y.device)
+        return y * (1 + sign * 2.0 ** -23)
+
+    layers.BatchNorm.forward = noisy
+    try:
+        yield
+    finally:
+        layers.BatchNorm.forward = forward
+
+
+@contextlib.contextmanager
+def norm_ulp_noise():
+    with plain_forward(ulp_noise=True), batch_norm_ulp_noise():
+        yield
+
+
+def dist_one_ulp_control(conf, batches, n_steps):
+    """The gap that one-ulp noise on every norm output makes (plain norms,
+    with and without the noise, each from a fresh model of the seed): the
+    gradients of step 1, the losses of each step and the weights after the
+    last, as (b) and (c) measure the ranks' gap."""
+    import torch
+    from ganslate_tpu_torch.utils.builders import build_gan
+    runs = {}
+    for label, norms in (("plain", plain_forward), ("noisy", norm_ulp_noise)):
+        model = build_gan(conf)
+        model.setup(batches[0])
+        with norms():
+            runs[label] = dist_model_steps(model, batches, n_steps)
+        del model
+        torch.cuda.empty_cache()
+    plain, noisy = runs["plain"], runs["noisy"]
+    weights = {k: rel_l2(noisy["params"][k], w) for k, w in plain["params"].items()}
+    return {"grad_rel_l2_max": max(rel_l2(noisy["grads"][k], g)
+                                   for k, g in plain["grads"].items()),
+            "loss_rel_err_by_step": [max(abs(x[k] - y[k]) / abs(y[k]) for k in y)
+                                     for x, y in zip(noisy["losses"], plain["losses"])],
+            "weight_rel_l2_max": max(weights.values()), "weight_rel_l2": weights}
+
+
+def dist_batches(shape, n, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [{k: rng.uniform(-1, 1, shape).astype(np.float32) for k in ("A", "B")}
+            for _ in range(n)]
+
+
+def dist_models(out_dir):
+    """(b)-(d) in a child: the full-width CycleGAN and Pix2Pix steps at a
+    global batch of 2 and the BRaTS sliding-window request, on this rank's
+    share; without a process group, at the global batch, with the one-ulp
+    control of (b)."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.utils import communication
+    from ganslate_tpu_torch.utils.builders import build_conf, build_G, build_gan
+    from ganslate_tpu_torch.utils.testing import make_vnet_conf
+    communication.init_distributed(cuda=True)
+    rank = communication.get_rank()
+    out, launches = {}, {}
+
+    for name, args, shape in (
+            ("cyclegan", dist_cyclegan_args(out_dir / "cyclegan"), (2, SIZE, SIZE, 3)),
+            ("pix2pix", dist_pix2pix_args(out_dir / "pix2pix"), (2, *DIST_PIX2PIX_SIZE, 3))):
+        t0 = time.perf_counter()
+        conf = build_conf(args)
+        batches = dist_batches(shape, DIST_STEPS[name], SEED + 73)
+        world = communication.get_world_size()
+        model = build_gan(conf)
+        n = 2 // world
+        model.setup({k: v[rank * n:(rank + 1) * n] for k, v in batches[0].items()})
+        inorm.reset_launches()
+        out[name] = dist_model_steps(model, batches, DIST_STEPS[name])
+        launches[name] = dict(inorm.LAUNCHES)
+        out[name]["n_params"] = sum(p.numel() for net in model.networks.values()
+                                    for p in net.parameters())
+        del model
+        torch.cuda.empty_cache()
+        if not communication.is_distributed():
+            out[name]["control"] = dist_one_ulp_control(conf, batches, DIST_STEPS[name])
+        out[name]["seconds"] = time.perf_counter() - t0
+
+    x = np.random.default_rng(SEED + 20).uniform(-1, 1, SW_VOLUMES).astype(np.float32)
+    sw_dir = out_dir / "sliding_window"
+    if rank == 0:
+        g = build_G(make_vnet_conf(str(sw_dir), load_iter=1), "AB",
+                    torch.Generator().manual_seed(SEED))
+        (sw_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+        torch.save({"G_AB": g.state_dict()}, sw_dir / "checkpoints" / "1.pth")
+        del g
+    communication.synchronize()
+    for dtype, kwargs in (("bfloat16", {}),
+                          ("float32", {"mixed_precision": False, "wire_dtype": "float32"})):
+        t0 = time.perf_counter()
+        inferer = Inferer(make_vnet_conf(str(sw_dir), load_iter=1, **kwargs))
+        inferer.sliding_window_inferer.distributed = True       # DIST_SW_PATH
+        inorm.reset_launches()
+        seconds = []
+        for _ in range(2):                  # the first call is cold
+            communication.synchronize()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = inferer.infer(x)
+            seconds.append(time.perf_counter() - t1)
+        launches[f"sliding_window_{dtype}"] = dict(inorm.LAUNCHES)
+        out[f"sliding_window_{dtype}"] = {"seconds": seconds, "y": y if rank == 0 else None,
+                                          "task_seconds": time.perf_counter() - t0}
+        del inferer
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["backend"] = communication.backend()
+    communication.destroy_distributed()
+    return out
+
+
+def dist_cli_check(root, data_root, work):
+    """(a): the `train` command under torchrun on one NCCL rank against the
+    same child without torchrun: the losses of every iteration and every
+    tensor of the last checkpoint bit for bit, NCCL kernels in the
+    profiled iteration. Returns the torchrun run's norm launches."""
+    import torch
+    runs = {}
+    for label, nproc in (("plain", None), ("torchrun", 1)):
+        results, seconds = dist_launch("train-cli", root / f"cli_{label}", work, nproc)
+        runs[label] = {**results[0], "seconds": seconds}
+    n_iters = DIST_CLI_RUN[0]
+    ckpts = {label: torch.load(root / f"cli_{label}" / "run" / "checkpoints" / f"{n_iters}.pth",
+                               map_location="cpu", weights_only=True) for label in runs}
+    networks = ("G_AB", "G_BA", "D_B", "D_A")
+    unequal = [f"{name}.{k}" for name in networks for k, v in ckpts["plain"][name].items()
+               if not torch.equal(v, ckpts["torchrun"][name][k])]
+    plain, ranked = runs["plain"], runs["torchrun"]
+    rec = {"phase": "distributed_nccl", "yaml": str(H2Z_YAML.relative_to(HERE)),
+           "entry": "torchrun --standalone --nproc_per_node 1 -> interface.main(['train', ...])",
+           "backend": ranked.get("backend"), "world": ranked.get("world"),
+           "plain_backend": plain.get("backend") or "none (no process group)",
+           "iterations": n_iters, "cuts": DIST_LEFT_OUT,
+           "losses_bit_equal": plain["losses"] == ranked["losses"],
+           "checkpoint_tensors_unequal": unequal,
+           "nccl_kernels_in_profiled_step": ranked.get("nccl_kernels"),
+           "nccl_kernel_names": ranked.get("nccl_kernel_names"),
+           "nccl_device_ms": ranked.get("nccl_device_ms"),
+           "step_ms": {"plain": plain["step_ms"], "torchrun": ranked["step_ms"]},
+           "child_seconds": {"plain": plain["seconds"], "torchrun": ranked["seconds"]},
+           "launches": ranked["launches"], "losses": ranked["losses"]}
+    emit(rec)
+    check(rec["backend"] == "nccl" and rec["world"] == 1, rec)
+    check(sorted(ranked["losses"]) == list(range(1, n_iters + 1)), rec)
+    check(all(math.isfinite(v) for s in ranked["losses"].values() for v in s.values()), rec)
+    check(rec["losses_bit_equal"] and not unequal, rec)
+    check((rec["nccl_kernels_in_profiled_step"] or 0) > 0, "no NCCL kernel in the profile")
+    check(plain["launches"] == ranked["launches"], rec)
+    return ranked["launches"]
+
+
+def dist_models_check(root, work):
+    """(b)-(d): the 2-rank gloo child against the 1-rank child. Returns the
+    2-rank run's norm launches."""
+    import torch
+    (ref,), ref_seconds = dist_launch("models", root / "models_1", work)
+    ranks, seconds = dist_launch("models", root / "models_2", work, nproc=2)
+    got = ranks[0]
+    caveat = ("2 ranks share one card: a check of the arithmetic, not a scaling figure; the "
+              "gloo all-reduce goes through host memory")
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"] and ref["backend"] == "", ranks[0]
+          ["backend"])
+    for name in ("cyclegan", "pix2pix"):
+        a, b = got[name], ref[name]
+        control = dict(b["control"])
+        control_weights = control.pop("weight_rel_l2")
+        loss_err = [max(abs(x[k] - y[k]) / abs(y[k]) for k in y)
+                    for x, y in zip(a["losses"], b["losses"])]
+        loss_tol = [DIST_LOSS_RTOL] + [max(DIST_LOSS_RTOL, DIST_CONTROL_RATIO * c)
+                                       for c in control["loss_rel_err_by_step"][1:]]
+        grad_err = {k: rel_l2(a["grads"][k], g) for k, g in b["grads"].items()}
+        weight_err = {k: rel_l2(a["params"][k], w) for k, w in b["params"].items()}
+        weight_tol = {k: max(TRAIN_FP32_GRAD_MAX, DIST_CONTROL_RATIO * control_weights[k])
+                      for k in weight_err}
+        weight_ratio = {k: e / weight_tol[k] for k, e in weight_err.items()}
+        closest = max(weight_ratio, key=weight_ratio.get)
+        update_err = {k: rel_l2(a["params"][k] - a["initial"][k], w - b["initial"][k])
+                      for k, w in b["params"].items() if not torch.equal(w, b["initial"][k])}
+        replica_equal = all(torch.equal(ranks[1][name]["params"][k], v)
+                            for k, v in a["params"].items())
+        worst = max(grad_err, key=grad_err.get)
+        worst_weight = max(weight_err, key=weight_err.get)
+        rec = {"phase": f"distributed_{name}", "backend": "gloo", "ranks": 2,
+               "global_batch": 2, "steps": len(a["losses"]), "dtype": "float32",
+               "params": a["n_params"], "losses": a["losses"], "loss_rel_err_by_step": loss_err,
+               "loss_tol_by_step": loss_tol, "grad_rel_l2_max": grad_err[worst],
+               "grad_rel_l2_worst": worst,
+               "grad_rel_l2_median": statistics.median(grad_err.values()),
+               "grad_tol": TRAIN_FP32_GRAD_MAX, "weight_rel_l2_max": weight_err[worst_weight],
+               "weight_rel_l2_worst": worst_weight, "weight_tol": weight_tol[worst_weight],
+               "weight_control_rel_l2": control_weights[worst_weight],
+               "weight_err_over_tol_max": weight_ratio[closest],
+               "weight_err_over_tol_worst": closest,
+               "weight_tol_of_worst_ratio": weight_tol[closest],
+               "weights_over_tol": sorted(k for k, r in weight_ratio.items() if r > 1),
+               "weight_tols_above_bound": sum(t > TRAIN_FP32_GRAD_MAX
+                                              for t in weight_tol.values()),
+               "weight_tensors": len(weight_tol),
+               "update_rel_l2_max": max(update_err.values()),
+               "update_rel_l2_median": statistics.median(update_err.values()),
+               "one_ulp_control": control, "replicas_bit_equal": replica_equal,
+               "step_ms_2_ranks": a["step_ms"], "allreduce_ms_2_ranks": a["allreduce_ms"],
+               "step_ms_1_rank": b["step_ms"], "timing_caveat": caveat,
+               "task_seconds": {"1_rank": b["seconds"], "2_ranks": a["seconds"]},
+               "launches": got["launches"][name]}
+        if name == "pix2pix":
+            rec["norm"] = DIST_PIX2PIX_NORM
+        emit(rec)
+        check(len(loss_err) == DIST_STEPS[name]
+              and all(e <= t for e, t in zip(loss_err, loss_tol)), rec)
+        check(grad_err[worst] <= TRAIN_FP32_GRAD_MAX, rec)
+        check(not rec["weights_over_tol"] and replica_equal, rec)
+    for dtype in ("bfloat16", "float32"):
+        y, want = (r[f"sliding_window_{dtype}"]["y"] for r in (got, ref))
+        err = (y.float() - want.float()).abs()
+        rec = {"phase": "distributed_sliding_window", "backend": "gloo",
+               "ranks": 2, "volumes": list(SW_VOLUMES), "path": DIST_SW_PATH,
+               "max_abs_err_vs_1_rank": float(err.max()),
+               "mean_abs_err_vs_1_rank": float(err.mean()),
+               "max_abs_out": float(want.float().abs().max()),
+               "seconds_2_ranks": got[f"sliding_window_{dtype}"]["seconds"],
+               "seconds_1_rank": ref[f"sliding_window_{dtype}"]["seconds"],
+               "task_seconds": {"1_rank": ref[f"sliding_window_{dtype}"]["task_seconds"],
+                                "2_ranks": got[f"sliding_window_{dtype}"]["task_seconds"]},
+               "timing_caveat": caveat, "launches_rank0": got["launches"][
+                   f"sliding_window_{dtype}"]}
+        sw_output_check(rec, y, SW_VOLUMES)
+        if dtype == "float32":
+            rec["tol_max"] = DIST_SW_FP32_REL * rec["max_abs_out"]
+            emit(rec)
+            check(rec["max_abs_err_vs_1_rank"] <= rec["tol_max"], rec)
+        else:
+            rec.update(tol_max=SW_BF16_MAX, tol_mean=SW_BF16_MEAN)
+            emit(rec)
+            check(rec["max_abs_err_vs_1_rank"] <= SW_BF16_MAX
+                  and rec["mean_abs_err_vs_1_rank"] <= SW_BF16_MEAN, rec)
+    emit({"phase": "distributed_models", "child_seconds": {"1_rank": ref_seconds,
+                                                           "2_ranks": seconds},
+          "peak_memory_bytes": {"1_rank": ref["peak_memory_bytes"],
+                                "2_ranks": [r["peak_memory_bytes"] for r in ranks]}})
+    totals = {}
+    for r in ranks:
+        for counts in r["launches"].values():
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def distributed_phase(root):
+    """Phase 16; returns the norm launches of its torchrun children."""
+    import importlib.util
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    t0 = time.perf_counter()
+    check(importlib.util.find_spec("PIL") is not None, "the horse2zebra YAML reads PNGs: Pillow")
+    data_root = root / "data"
+    write_trainer_data(data_root, "image_folder")
+    os.environ["GANSLATE_DIST_DATA"] = str(data_root)
+    with experiment_workdir(root) as work:
+        cli = dist_cli_check(root, data_root, work)
+        models = dist_models_check(root, work)
+    totals = {k: cli.get(k, 0) + models.get(k, 0) for k in inorm.LAUNCHES}
+    emit({"phase": "distributed_summary", "seconds": time.perf_counter() - t0,
+          "launches": totals})
+    return totals
+
+
 def main() -> int:
     # The user's switch for OpenCV's EXR codec, read when cv2 is imported.
     os.environ["OPENCV_IO_ENABLE_OPENEXR"] = "1"
@@ -5931,6 +6469,10 @@ def main() -> int:
         fid_totals = fid_phase(Path(tmp), flops)
     torch.cuda.empty_cache()
     phase_done("fid")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_totals = distributed_phase(Path(tmp))
+    phase_done("distributed")
     emit({"phase": "phase_seconds", **seconds})
     # Every RevGAN slab takes the split form.
     check(revgan_totals["split"] > 0 and revgan_totals["onepass"] == 0,
@@ -5946,7 +6488,7 @@ def main() -> int:
                    "cut": cut_totals[name], "cut2d": cut2d_totals[name],
                    "brats_cyclegan": brats_cyclegan_totals[name], "hx4": hx4_totals[name],
                    "cleargrasp": cleargrasp_totals[name], "fid": fid_totals[name],
-                   "zoo": zoo_totals[name]}
+                   "zoo": zoo_totals[name], "distributed": dist_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
@@ -5960,6 +6502,7 @@ def main() -> int:
         check(cleargrasp_totals[name] > 0, f"the cleargrasp phase never launched {name}")
         check(fid_totals[name] > 0, f"the fid phase never launched {name}")
         check(zoo_totals[name] > 0, f"the zoo phase never launched {name}")
+        check(dist_totals[name] > 0, f"the distributed phase never launched {name}")
         totals[name] += sum(by_path[path] for path in by_path if path != "slice")
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",
@@ -5973,4 +6516,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-child"]:
+        sys.exit(dist_child(sys.argv[2], Path(sys.argv[3])))
     sys.exit(main())

@@ -23,7 +23,8 @@ class SlidingWindowConfig:
 class SpatialShardingConfig:
     """Full-volume inference sharded across devices (the JAX package's
     `ganslate_tpu/parallel/spatial.py`). The port accepts the section and
-    raises when it is set: spatial sharding comes with a later slice.
+    runs the direct forward: spatially sharded inference comes with the
+    next slice of distribution.
 
     method='gspmd': exact, with global instance-norm statistics.
     method='halo': neighbour halo exchange with per-shard statistics."""

@@ -20,6 +20,7 @@ from typing import Any, Dict, Iterator, List
 
 import numpy as np
 
+from ganslate_tpu_torch.parallel.mesh import check_local_batch
 from ganslate_tpu_torch.utils import communication
 
 
@@ -52,10 +53,7 @@ class DataLoader:
                  prefetch: int = 2, drop_last: bool = False):
         self.dataset = dataset
         self.sampler = sampler
-        world = communication.get_world_size()
-        if batch_size % world:
-            raise ValueError(f"global batch {batch_size} not divisible by {world} processes")
-        self.local_batch_size = batch_size // world
+        self.local_batch_size = check_local_batch(batch_size)
         self.num_workers = max(0, int(num_workers))
         self.prefetch = max(1, int(prefetch))
         self.drop_last = drop_last

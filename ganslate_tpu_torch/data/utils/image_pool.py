@@ -13,11 +13,20 @@ choices are host integers, so a query never waits for the device.
 `state_dict()` holds the images, their count and the generator's state, so
 that a checkpoint resumes the pool where it stood, as the JAX package's
 does.
+
+Data parallel, the pool is replicated over the global batch, as the JAX
+package's is on its `data` mesh: a query gathers every rank's images in rank
+order, runs the same pool with the same generator on every rank, and
+returns this rank's slice. The pools then stay equal on every rank, and rank
+0's checkpoint holds the one state that all ranks share.
 """
 
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from ganslate_tpu_torch.parallel import all_gather_batch
+from ganslate_tpu_torch.utils import communication
 
 
 class ImagePool:
@@ -41,11 +50,14 @@ class ImagePool:
     def query(self, images: torch.Tensor,
               draws: Optional[Sequence[Tuple[float, int]]] = None) -> torch.Tensor:
         """Push a batch of generated images through the pool; returns the
-        images the discriminator should see. `draws` (one `(uniform, index)`
-        pair per image) replaces the generator's draws, for tests."""
+        images the discriminator should see. Data parallel, the batch is
+        every rank's (`draws` then covers the global batch) and the result
+        this rank's slice of it. `draws` (one `(uniform, index)` pair per
+        image) replaces the generator's draws, for tests."""
         if self.pool_size == 0:
             return images
-        images = images.detach().to(self.images.dtype)
+        local = images.shape[0]
+        images = all_gather_batch(images.detach().to(self.images.dtype))
         if draws is None:
             draws = self.draws(images.shape[0])
         returned = images.clone()
@@ -56,7 +68,8 @@ class ImagePool:
             elif u > 0.5:
                 returned[i].copy_(self.images[idx])
                 self.images[idx].copy_(images[i])
-        return returned
+        start = communication.get_rank() * local
+        return returned[start:start + local]
 
     def state_dict(self) -> Dict[str, object]:
         return {"images": self.images, "count": self.count,

@@ -47,10 +47,9 @@ class BaseEngineWithInference(BaseEngine):
         if self.sliding_window_inferer and self.spatial_sharding:
             raise ValueError("Use either sliding_window or spatial_sharding, not both.")
         if self.spatial_sharding:
-            # The JAX package shards the volume only over more than one
-            # device, and otherwise runs the direct forward, as the port does.
-            self.logger.info("spatial_sharding needs more than one device; the port runs "
-                             "on one, so inference runs the direct forward.")
+            self.logger.info("spatial_sharding (spatially sharded inference) is not ported "
+                             "yet, and comes with the port's next slice of distribution; "
+                             "inference runs the direct forward.")
         # bf16 wire format (InferenceConfig.wire_dtype): a float32 host input
         # crosses to the device as bf16 (bit-identical to the in-network cast)
         # and predictions come back bf16. Modes without the field keep fp32.
@@ -94,6 +93,8 @@ class BaseEngineWithInference(BaseEngine):
         sw = mode_conf.sliding_window if "sliding_window" in mode_conf else None
         if not sw:
             return None
+        # The engines' loaders split the samples over the ranks, so each rank
+        # runs the whole window grid of its own volumes (not `distributed`).
         return SlidingWindowInferer(roi_size=tuple(sw.window_size), sw_batch_size=sw.batch_size,
                                     overlap=sw.overlap, mode=sw.mode, cval=-1.0)
 

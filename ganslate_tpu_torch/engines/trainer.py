@@ -210,25 +210,24 @@ class Trainer(BaseEngine):
         self.model.optimize_parameters(sync=will_log)
 
     def _save_checkpoint(self):
-        if communication.get_rank() == 0:
-            freq = self.conf.train.checkpointing.freq
-            start_after = self.conf.train.checkpointing.start_after
-            if self.iter_idx % freq == 0 and self.iter_idx >= start_after:
-                self.logger.info(f"Saving the model after {self.iter_idx} iterations.")
-                self._save_model_checkpoint(self.iter_idx)
+        freq = self.conf.train.checkpointing.freq
+        start_after = self.conf.train.checkpointing.start_after
+        if self.iter_idx % freq == 0 and self.iter_idx >= start_after:
+            self.logger.info(f"Saving the model after {self.iter_idx} iterations.")
+            self._save_model_checkpoint(self.iter_idx)
 
     # ------------------------------------------------- data-plane checkpoint
 
     def _save_model_checkpoint(self, iter_idx):
-        """Model checkpoint and the data-plane sidecar `{sampler_seed,
-        position, world_size}` in `checkpoints/data_state_<iter>.json`.
-        The position is what training consumed (iterations x local batch):
-        the sampler's live cursor runs ahead by the loader's prefetch."""
-        self.model.save_checkpoint(iter_idx)
+        """The data-plane sidecar `{sampler_seed, position, world_size}` in
+        `checkpoints/data_state_<iter>.json`, then the model checkpoint,
+        both written by rank 0; every rank calls it, and the model's save
+        ends at a barrier of all ranks. The position is what training
+        consumed (iterations x local batch): the sampler's live cursor runs
+        ahead by the loader's prefetch."""
         sampler = getattr(self.data_loader, "sampler", None)
-        if not (hasattr(sampler, "set_state") and hasattr(sampler, "seed")):
-            return
-        if communication.get_rank() == 0:
+        if communication.is_main_process() and hasattr(sampler, "set_state") \
+                and hasattr(sampler, "seed"):
             state = {
                 "sampler_seed": int(sampler.seed),
                 "position": int(iter_idx * self.data_loader.local_batch_size),
@@ -237,6 +236,7 @@ class Trainer(BaseEngine):
             path = self.model._checkpoint_dir() / f"data_state_{iter_idx}.json"
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(state))
+        self.model.save_checkpoint(iter_idx)
 
     def _restore_data_state(self, load_iter):
         sampler = getattr(self.data_loader, "sampler", None)

@@ -28,6 +28,16 @@ multi-scale discriminator's crops) draws from the host generator
 `host_rng` instead. `infer`, the Validator and the Tester pass none, so
 dropout is off there and the crops are centred.
 
+Data parallel (one process per rank under torchrun,
+`ganslate_tpu_torch/parallel/`), each rank trains on its share of the
+global batch: `setup` broadcasts rank 0's networks, each train step runs
+in `parallel.global_batch` (batch norm takes the global batch's
+statistics), every optimizer step goes through `step`, which averages the
+gradients over the ranks first (the JAX package's `psum` over its `data`
+axis), the seed is rank 0's when
+`train.seed` is unset, and rank 0 writes the checkpoints, which every rank
+loads. The model's state is then the same on every rank.
+
 Mixed precision is the JAX package's bf16 compute policy, not autocast: the
 fp32 master parameters and the input are cast to bf16 at each network
 application (differentiably, so Adam updates the fp32 masters), the network
@@ -48,21 +58,25 @@ import torch
 from torch.func import functional_call
 
 from ganslate_tpu_torch.nn.utils import make_lr_schedule
+from ganslate_tpu_torch.parallel import average_gradients, broadcast_module, global_batch
+from ganslate_tpu_torch.utils import communication
 from ganslate_tpu_torch.utils.metrics.train_metrics import TrainingMetrics
 
 logger = logging.getLogger(__name__)
 
 
 def select_device(cuda: bool) -> torch.device:
-    """`cuda: true` -> cuda:0, raising when no GPU is visible; `cuda: false`
-    -> the CPU. There is no silent CPU run."""
+    """`cuda: true` -> `cuda:(LOCAL_RANK % device_count)` (cuda:0 in one
+    process), raising when no GPU is visible; `cuda: false` -> the CPU.
+    There is no silent CPU run."""
     if not cuda:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "The config asks for the GPU (`cuda: true`) but PyTorch sees no CUDA "
             "device. Set `train.cuda=false` to run on the CPU.")
-    return torch.device("cuda", 0)
+    index = communication.get_local_rank() % communication.local_device_count()
+    return torch.device("cuda", index)
 
 
 def channels_last_format(net: torch.nn.Module) -> torch.memory_format:
@@ -116,16 +130,19 @@ class BaseGAN(ABC):
             train = conf.train
             if train.spatial_mesh:
                 raise NotImplementedError("`train.spatial_mesh` (spatially sharded "
-                                          "training) is not ported.")
+                                          "training) is not ported yet: the port trains "
+                                          "data parallel only.")
 
     def _seed(self) -> int:
         """`train.seed`; when it is unset, a fresh seed drawn once for this
-        model and logged (as the JAX package's `shared_random_seed`), so that
-        the weights and the pools' draws share it and a run can be repeated."""
+        model by rank 0 and shared with every rank
+        (`communication.shared_random_seed`, as in the JAX package), and
+        logged, so that the weights and the pools' and generators' draws
+        share it on every rank and a run can be repeated."""
         if self._drawn_seed is None:
             seed = self.conf.train.seed
             if seed is None:
-                seed = np.random.randint(2 ** 31)
+                seed = communication.shared_random_seed()
                 logger.info(f"train.seed is unset: drew seed {seed}")
             self._drawn_seed = int(seed)
         return self._drawn_seed
@@ -202,6 +219,9 @@ class BaseGAN(ABC):
                 self.load_networks(load_iter)
         else:
             self.load_networks(self.conf[self.conf.mode].checkpointing.load_iter)
+        # Rank 0's networks on every rank (the JAX package's replicate_to_mesh).
+        for net in self.networks.values():
+            broadcast_module(net)
 
     # ------------------------------------------------------------- training
 
@@ -242,6 +262,15 @@ class BaseGAN(ABC):
                   for p in self.networks[name].parameters()]
         return torch.optim.Adam(params, lr=schedule(0), eps=1e-8,
                                 betas=(tr.gan.optimizer.beta1, tr.gan.optimizer.beta2))
+
+    def step(self, *groups: str):
+        """Average the gradients of each optimizer group in `groups` over
+        the data ranks (`parallel.average_gradients`), then step it. Every
+        optimizer step of a train step goes through here."""
+        for group in groups:
+            optimizer = self.optimizers[group]
+            average_gradients(p for g in optimizer.param_groups for p in g["params"])
+            optimizer.step()
 
     @staticmethod
     def _update_count(optimizer: torch.optim.Optimizer) -> int:
@@ -370,7 +399,8 @@ class BaseGAN(ABC):
                 lr = self.lr_schedules[group](self._update_count(optimizer))
                 for param_group in optimizer.param_groups:
                     param_group["lr"] = lr
-            self.losses, self.visuals, self.metrics = self.train_step()
+            with global_batch():
+                self.losses, self.visuals, self.metrics = self.train_step()
             logged.append((self.losses, self.metrics))
         if len(logged) > 1:
             self.losses = _chunk_mean([losses for losses, _ in logged])
@@ -447,20 +477,25 @@ class BaseGAN(ABC):
         `pool_<name>`, and for a model whose train step draws from its
         generators (`_stochastic`) their states as `rng` and, where a network
         draws from the host generator, `host_rng`, so that a resumed run
-        continues the uninterrupted one."""
+        continues the uninterrupted one. Every rank calls it: rank 0 writes
+        (its state is every rank's: the data ranks replicate it), then all
+        wait at a barrier, so that no rank reads the file before it is
+        whole."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        logger.info(f"Saving checkpoint at iteration {iter_idx} -> {path}")
-        payload = {name: net.state_dict() for name, net in self.networks.items()}
-        payload.update({f"optimizer_{group}": optimizer.state_dict()
-                        for group, optimizer in self.optimizers.items()})
-        payload.update({f"pool_{name}": pool.state_dict()
-                        for name, pool in self._saved_pools().items()})
-        if self.rng is not None and self._stochastic():
-            payload["rng"] = self.rng.get_state()
-            if self._draws_on_host():
-                payload["host_rng"] = self.host_rng.get_state()
-        torch.save(payload, path)
+        if communication.is_main_process():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            logger.info(f"Saving checkpoint at iteration {iter_idx} -> {path}")
+            payload = {name: net.state_dict() for name, net in self.networks.items()}
+            payload.update({f"optimizer_{group}": optimizer.state_dict()
+                            for group, optimizer in self.optimizers.items()})
+            payload.update({f"pool_{name}": pool.state_dict()
+                            for name, pool in self._saved_pools().items()})
+            if self.rng is not None and self._stochastic():
+                payload["rng"] = self.rng.get_state()
+                if self._draws_on_host():
+                    payload["host_rng"] = self.host_rng.get_state()
+            torch.save(payload, path)
+        communication.synchronize()
 
     def _saved_pools(self):
         """The pools with a state: `pool_size = 0` is a pass-through."""

@@ -74,7 +74,7 @@ class Pix2PixConditionalGAN(BaseGAN):
                       "pix2pix": self.criterion_pix2pix(fake_B, real_B)}
             opt_G.zero_grad(set_to_none=True)
             (losses["G"] + losses["pix2pix"]).backward()
-        opt_G.step()
+        self.step("G")
         fake_B = fake_B.detach()
 
         # ---- D update, on the pre-update fake.
@@ -85,7 +85,7 @@ class Pix2PixConditionalGAN(BaseGAN):
         loss_D = adv(pred_real, True) + adv(pred_fake, False)
         opt_D.zero_grad(set_to_none=True)
         loss_D.backward()
-        opt_D.step()
+        self.step("D")
 
         visuals = {"real_A": real_A, "fake_B": fake_B, "real_B": real_B}
         with torch.no_grad():

@@ -249,7 +249,7 @@ class CUT(BaseGAN):
         opt_D = self.optimizers["D"]
         opt_D.zero_grad(set_to_none=True)
         loss_D.backward()
-        opt_D.step()
+        self.step("D")
 
         # ---- Joint G + mlp update against the updated D, which is frozen.
         with self.frozen(["D"]):
@@ -272,8 +272,7 @@ class CUT(BaseGAN):
             for group in ("G", "mlp"):
                 self.optimizers[group].zero_grad(set_to_none=True)
             total.backward()
-        self.optimizers["G"].step()
-        self.optimizers["mlp"].step()
+        self.step("G", "mlp")
 
         visuals = {"real_A": real_A, "fake_B": fake_B.detach(), "real_B": real_B}
         if use_idt:

@@ -92,7 +92,7 @@ class CycleGAN(BaseGAN):
             opt_G.zero_grad(set_to_none=True)
             # Summed in sorted key order, as the JAX package's tree_leaves.
             sum(losses[k] for k in sorted(losses)).backward()
-        opt_G.step()
+        self.step("G")
         visuals = {k: v.detach() for k, v in visuals.items()}
         return self.discriminator_step(losses, visuals)
 
@@ -124,7 +124,7 @@ class CycleGAN(BaseGAN):
                     "D_A": adv(preds["real_A"], True) + adv(preds["fake_A"], False)}
         opt_D.zero_grad(set_to_none=True)
         (losses_D["D_B"] + losses_D["D_A"]).backward()
-        opt_D.step()
+        self.step("D")
 
         # ---- Metrics.
         with torch.no_grad():

@@ -68,6 +68,6 @@ class RevGAN(cyclegan.CycleGAN):
             opt_G.zero_grad(set_to_none=True)
             # Summed in sorted key order, as the JAX package's tree_leaves.
             sum(losses[k] for k in sorted(losses)).backward()
-        opt_G.step()
+        self.step("G")
         visuals = {k: v.detach() for k, v in visuals.items()}
         return self.discriminator_step(losses, visuals)

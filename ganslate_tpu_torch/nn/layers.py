@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ganslate_tpu_torch.ops.instance_norm import instance_norm
+from ganslate_tpu_torch.parallel import all_reduce_sum, batch_spans_ranks
+from ganslate_tpu_torch.utils import communication
 
 # ------------------------------------------------------------- initializers
 
@@ -234,7 +236,18 @@ class BatchNorm(nn.Module):
     train step keeps no running state. Statistics are fp32; `scale` (ones)
     and `bias` (zeros) are applied in fp32 and the result is cast back to
     x's dtype. Plain PyTorch: the JAX package's version is XLA, not a
-    kernel."""
+    kernel.
+
+    Data parallel, every forward of a train step (`parallel.global_batch`,
+    which `BaseGAN.optimize_parameters` opens, with or without autograd)
+    takes the statistics of the global batch, as the JAX package's mean
+    over a batch sharded on its `data` axis does: the per-channel sum, then
+    the sum of squared deviations from the global mean, each summed over
+    the ranks by a differentiable all-reduce, so that the backward's two
+    reductions span the ranks too. Outside a train step (the Validator,
+    `infer`) each rank keeps its own batch, since the ranks serve different
+    samples. Without a process group the arithmetic is the one-process
+    one."""
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -245,8 +258,14 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         axes = (0, *range(2, x.ndim))
         x32 = x.float()
-        mean = x32.mean(dim=axes, keepdim=True)
-        var = (x32 - mean).square().mean(dim=axes, keepdim=True)
+        if not batch_spans_ranks():
+            mean = x32.mean(dim=axes, keepdim=True)
+            var = (x32 - mean).square().mean(dim=axes, keepdim=True)
+        else:
+            # Every rank holds an equal share (`parallel.check_local_batch`).
+            count = x32.numel() // x32.shape[1] * communication.get_world_size()
+            mean = all_reduce_sum(x32.sum(dim=axes, keepdim=True)) / count
+            var = all_reduce_sum((x32 - mean).square().sum(dim=axes, keepdim=True)) / count
         y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return (y * self.scale.view(shape) + self.bias.view(shape)).to(x.dtype)
@@ -415,8 +434,13 @@ def dropout_mask(shape: Sequence[int], keep: float, generator: torch.Generator,
                  device: torch.device) -> torch.Tensor:
     """Boolean keep-mask of `shape` (a channels-last `(N, *spatial, C)`
     activation): each element True with probability `keep`, drawn from
-    `generator` on `device`."""
-    return torch.rand(tuple(shape), generator=generator, device=device) < keep
+    `generator` on `device`. Data parallel, the mask is drawn over the
+    global batch, as the JAX package draws it, and this rank's slice of it
+    kept, so that the generator stays the same on every rank."""
+    n, rank = shape[0], communication.get_rank()
+    draw = torch.rand((n * communication.get_world_size(), *shape[1:]), generator=generator,
+                      device=device)
+    return draw[rank * n:(rank + 1) * n] < keep
 
 
 class Dropout(nn.Module):

@@ -7,9 +7,13 @@ diagonal of the patch-by-patch product set to -10); cross-entropy at
 temperature `nce_T` with the positive as class 0. Per-patch losses are
 returned (the caller means them). The keys are detached and the loss runs
 in fp32. The patch-by-patch product is a plain batched matrix product,
-which the JAX package computes outside any kernel of its own."""
+which the JAX package computes outside any kernel of its own. Data
+parallel, the patches are this rank's share of the global batch: the
+images are `train.batch_size` over the data ranks."""
 
 import torch
+
+from ganslate_tpu_torch.parallel import check_local_batch
 
 
 class PatchNCELoss:
@@ -29,8 +33,9 @@ class PatchNCELoss:
         l_pos = (feat_q * feat_k).sum(dim=1, keepdim=True)
 
         # Negative logits: patch against patch within each image.
-        q = feat_q.reshape(self.batch_size, -1, dim)
-        k = feat_k.reshape(self.batch_size, -1, dim)
+        images = check_local_batch(self.batch_size)
+        q = feat_q.reshape(images, -1, dim)
+        k = feat_k.reshape(images, -1, dim)
         num_patches = q.shape[1]
         l_neg = torch.bmm(q, k.transpose(1, 2))
         diagonal = torch.eye(num_patches, dtype=torch.bool, device=q.device)[None]

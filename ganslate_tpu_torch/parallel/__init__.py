@@ -1,0 +1,9 @@
+"""Data parallelism across processes (the JAX package's `ganslate_tpu/parallel/`)."""
+
+from ganslate_tpu_torch.parallel.mesh import (all_gather_batch, all_reduce_sum,
+                                              average_gradients, batch_spans_ranks,
+                                              broadcast_module, check_local_batch,
+                                              global_batch)
+
+__all__ = ["all_gather_batch", "all_reduce_sum", "average_gradients", "batch_spans_ranks",
+           "broadcast_module", "check_local_batch", "global_batch"]

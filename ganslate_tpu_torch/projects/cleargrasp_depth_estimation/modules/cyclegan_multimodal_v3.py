@@ -81,7 +81,7 @@ class CycleGANMultiModalV3(cyclegan.CycleGAN):
             losses.update(self.criterion_G(visuals))
             opt_G.zero_grad(set_to_none=True)
             sum(losses[k] for k in sorted(losses)).backward()
-        opt_G.step()
+        self.step("G")
         visuals = {k: v.detach() for k, v in visuals.items()}
 
         # ---- Pools and D update on the geometry channels only.

@@ -76,7 +76,7 @@ class HX4CycleGANBalanced(cyclegan.CycleGAN):
             losses.update(self.criterion_G(visuals))
             opt_G.zero_grad(set_to_none=True)
             sum(losses[k] for k in sorted(losses)).backward()
-        opt_G.step()
+        self.step("G")
         visuals = {k: v.detach() for k, v in visuals.items()}
 
         # ---- Pools and D update on the PET channel only.

@@ -8,7 +8,9 @@
     python -m ganslate_tpu_torch convert-fid-weights SRC.pth DST.npz
 
 `train`, `test` and `infer` run the port's engines
-(`init_engine(mode, dotlist).run()`); `new-project` and `your-first-run`
+(`init_engine(mode, dotlist).run()`), data parallel under torchrun
+(`torchrun --nproc_per_node N -m ganslate_tpu_torch train config=<yaml>`:
+one process per rank, `utils/communication.py`); `new-project` and `your-first-run`
 scaffold projects whose templates import this package;
 `import-torch-checkpoint` converts an original ganslate `.pth` into the
 port's checkpoint (`utils/torch_import.py`); `convert-fid-weights` writes
@@ -18,6 +20,7 @@ torchvision Inception weights as the `.npz` that both packages read
 import click
 
 from ganslate_tpu_torch.engines.utils import init_engine
+from ganslate_tpu_torch.utils import communication
 from ganslate_tpu_torch.utils.cli import scaffold
 from ganslate_tpu_torch.utils.cli.scripts import download_datasets
 
@@ -30,19 +33,27 @@ def interface():
 @interface.command(help="Train a model.")
 @click.argument("dotlist_args", nargs=-1)
 def train(dotlist_args):
-    init_engine("train", dotlist_args).run()
+    _run("train", dotlist_args)
 
 
 @interface.command(help="Test a trained model. Requires paired data.")
 @click.argument("dotlist_args", nargs=-1)
 def test(dotlist_args):
-    init_engine("test", dotlist_args).run()
+    _run("test", dotlist_args)
 
 
 @interface.command(help="Do inference with a trained model.")
 @click.argument("dotlist_args", nargs=-1)
 def infer(dotlist_args):
-    init_engine("infer", dotlist_args).run()
+    _run("infer", dotlist_args)
+
+
+def _run(mode, dotlist_args):
+    """Run an engine; under torchrun, leave the process group after it."""
+    try:
+        init_engine(mode, dotlist_args).run()
+    finally:
+        communication.destroy_distributed()
 
 
 @interface.command(name="new-project", help="Initialize a new project.")

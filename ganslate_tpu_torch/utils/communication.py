@@ -1,22 +1,87 @@
-"""Process identity and host-side verbs for the port (the JAX package's
-`utils/communication.py`).
+"""Process identity and verbs across processes for the port (the JAX
+package's `utils/communication.py`), over `torch.distributed`.
 
-The port trains and serves from one process. Rank and world size come from
-`torch.distributed` when a process group has been initialised by the caller,
-and are 0 and 1 otherwise. The verbs the data plane and the trackers call
-(`reduce`, `gather`, `shared_random_seed`, `synchronize`) have their
-single-process forms only: with a process group of more than one process
-they raise, because data-parallel training is not ported.
+A data-parallel run is one process per rank, launched by torchrun
+(`python -m torch.distributed.run --nproc_per_node N -m ganslate_tpu_torch
+train config=...`), which sets the env:// rendezvous (`RANK`, `WORLD_SIZE`,
+`LOCAL_RANK`, `LOCAL_WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`).
+`init_distributed` makes the default process group from them; a group that
+the caller made already is used as it is. The backend is `nccl` when the
+ranks run on CUDA and each local rank has a card of its own, else `gloo`
+(CPU runs, several ranks sharing one card); either way the compute stays
+on the mode's device. Every group waits at most `TIMEOUT` in a collective,
+so that a lost rank fails the run instead of hanging it.
+
+The host verbs (`reduce`, `gather`, `all_gather`, `broadcast`,
+`shared_random_seed`, `synchronize`) carry picklable objects and keep the
+JAX package's semantics: rank order, `gather` empty on the ranks that are
+not `dst`, `reduce` onto rank 0 unless `all_reduce`. With one process they
+return their input. The tensor collectives of the train step (gradients,
+batch-norm statistics, image pools, the sliding window's canvas) live in
+`ganslate_tpu_torch.parallel`.
 """
 
+import datetime
+import logging
+import os
 from typing import Any, List
 
 import numpy as np
+import torch
 import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+TIMEOUT = datetime.timedelta(minutes=10)
+
+# Did `init_distributed` make the default group (and so owns its teardown)?
+_owned_group = False
+
+
+def pick_backend(cuda: bool) -> str:
+    """`nccl` when the ranks run on CUDA and every local rank has a card of
+    its own (`LOCAL_WORLD_SIZE <= device_count`), else `gloo`: NCCL refuses
+    two ranks on one device."""
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+    if cuda and torch.cuda.is_available() and local_world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def init_distributed(cuda: bool = False) -> None:
+    """Make the default process group from torchrun's environment, when
+    `WORLD_SIZE` is set and no group exists yet; otherwise do nothing.
+    `cuda`: the ranks run on CUDA (the mode's `cuda` field), which decides
+    the backend (`pick_backend`) and, for NCCL, binds each rank to card
+    `LOCAL_RANK % device_count` first."""
+    global _owned_group
+    if "WORLD_SIZE" not in os.environ or is_distributed():
+        return
+    backend = pick_backend(cuda)
+    if backend == "nccl":
+        torch.cuda.set_device(get_local_rank() % local_device_count())
+    dist.init_process_group(backend, init_method="env://", timeout=TIMEOUT)
+    _owned_group = True
+    logger.info(f"Process group: backend {backend}, rank {get_rank()} of "
+                f"{get_world_size()}, local rank {get_local_rank()}")
+
+
+def destroy_distributed() -> None:
+    """Tear down the default group, if `init_distributed` made it."""
+    global _owned_group
+    if _owned_group and is_distributed():
+        dist.destroy_process_group()
+    _owned_group = False
 
 
 def is_distributed() -> bool:
+    """Does a process group exist (of any size, one rank included)?"""
     return dist.is_available() and dist.is_initialized()
+
+
+def backend() -> str:
+    """The default group's backend; empty without a group."""
+    return dist.get_backend() if is_distributed() else ""
 
 
 def get_rank() -> int:
@@ -24,48 +89,92 @@ def get_rank() -> int:
 
 
 def get_local_rank() -> int:
-    """One process per host: rank 0 on it."""
-    return 0
+    """This process's rank on its host (torchrun's `LOCAL_RANK`)."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
 
 
 def get_world_size() -> int:
     return dist.get_world_size() if is_distributed() else 1
 
 
+def device_count() -> int:
+    """The cards of the job: one per rank on CUDA, else the ranks."""
+    return get_world_size()
+
+
+def local_device_count() -> int:
+    """The cards this host shows (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
 def is_main_process() -> bool:
     return get_rank() == 0
 
 
-def _single_process(verb: str) -> None:
-    if get_world_size() > 1:
-        raise NotImplementedError(
-            f"communication.{verb} across {get_world_size()} processes is not ported: "
-            f"the port runs one process")
+def _many() -> bool:
+    return get_world_size() > 1
 
 
 def synchronize() -> None:
-    """Barrier across processes: nothing to wait for in one."""
-    _single_process("synchronize")
+    """Barrier across processes."""
+    if _many():
+        dist.barrier()
+
+
+def all_gather(data: Any) -> List[Any]:
+    """Every process's picklable `data`, in rank order."""
+    if not _many():
+        return [data]
+    out = [None] * get_world_size()
+    dist.all_gather_object(out, data)
+    return out
 
 
 def gather(data: Any, dst: int = 0) -> List[Any]:
-    """Gather picklable objects onto `dst`: a list of this process's one."""
-    _single_process("gather")
-    return [data]
+    """Every process's `data` in rank order on `dst`; an empty list on the
+    other ranks."""
+    if not _many():
+        return [data]
+    out = [None] * get_world_size() if get_rank() == dst else None
+    dist.gather_object(data, out, dst=dst)
+    return out if get_rank() == dst else []
+
+
+def broadcast(value: Any, src: int = 0) -> Any:
+    """Rank `src`'s picklable `value` on every process."""
+    if not _many():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def reduce(data, average: bool = True, all_reduce: bool = False):
-    """Host-side reduce of numbers, dicts or lists of numbers (each value's
-    mean), as the JAX package's; in one process the values themselves."""
-    _single_process("reduce")
+    """Reduce numbers, dicts or lists of numbers across processes: each
+    value's mean on each rank, then their sum over the ranks (divided by
+    the world size when `average`), in float64, on rank 0 (the other ranks
+    keep their own values) or on every rank with `all_reduce`."""
     if isinstance(data, dict):
-        return {k: float(np.asarray(data[k]).mean()) for k in sorted(data)}
+        keys = sorted(data)
+        values = np.array([float(np.asarray(data[k]).mean()) for k in keys], np.float64)
+        return {k: float(v) for k, v in zip(keys, _reduce_array(values, average, all_reduce))}
     if isinstance(data, (list, tuple)):
-        return [float(np.asarray(v).mean()) for v in data]
-    return float(np.asarray(data).mean())
+        values = np.array([float(np.asarray(v).mean()) for v in data], np.float64)
+        return [float(v) for v in _reduce_array(values, average, all_reduce)]
+    values = np.array([float(np.asarray(data).mean())], np.float64)
+    return float(_reduce_array(values, average, all_reduce)[0])
+
+
+def _reduce_array(values: np.ndarray, average: bool, all_reduce: bool) -> np.ndarray:
+    if not _many():
+        return values
+    gathered = np.stack(all_gather(values))          # (world, n), rank order
+    if not all_reduce and not is_main_process():
+        return values
+    out = gathered.sum(axis=0)
+    return out / get_world_size() if average else out
 
 
 def shared_random_seed() -> int:
-    """A random seed, the same on every process (one here)."""
-    _single_process("shared_random_seed")
-    return int(np.random.randint(2 ** 31))
+    """A random seed, the same on every process: rank 0's draw."""
+    return int(broadcast(int(np.random.randint(2 ** 31))))

@@ -2,7 +2,8 @@
 `utils/environment.py`).
 
 Stdlib logging, to stdout on the local main process and to
-`<output_dir>/<mode>_log.txt` on rank 0; the log opens with the resolved
+`<output_dir>/<mode>_log.txt` on rank 0 (`<mode>_log_rank<r>.txt` on rank
+r of a data-parallel run); the log opens with the resolved
 config and the torch and CUDA versions and the device. `set_seed` seeds
 numpy, `random` and torch.
 """
@@ -52,9 +53,9 @@ def setup_logging_with_config(conf, debug: bool = False) -> None:
     output_dir = Path(conf[conf.mode].output_dir).resolve()
     io.mkdirs(output_dir)
 
-    filename = None
-    if communication.get_rank() == 0:
-        filename = output_dir / f"{conf.mode}_log.txt"
+    rank = communication.get_rank()
+    filename = output_dir / (f"{conf.mode}_log.txt" if rank == 0
+                             else f"{conf.mode}_log_rank{rank}.txt")
     use_stdout = communication.get_local_rank() == 0 or debug
     setup_logging(use_stdout, filename, log_level="DEBUG" if debug else "INFO")
 
@@ -63,8 +64,14 @@ def setup_logging_with_config(conf, debug: bool = False) -> None:
     logger.info(f"Python version: {sys.version.strip()}")
     logger.info(f"PyTorch version: {torch.__version__}, CUDA: {torch.version.cuda}")
     cuda = bool(conf[conf.mode].cuda) and torch.cuda.is_available()
-    logger.info(f"Device: {f'cuda:0 ({torch.cuda.get_device_name(0)})' if cuda else 'cpu'}")
-    logger.info(f"Global rank: {communication.get_rank()}")
+    if cuda:
+        index = communication.get_local_rank() % communication.local_device_count()
+        logger.info(f"Device: cuda:{index} ({torch.cuda.get_device_name(index)})")
+    else:
+        logger.info("Device: cpu")
+    logger.info(f"Global rank: {rank} of {communication.get_world_size()}"
+                + (f", backend {communication.backend()}" if communication.is_distributed()
+                   else ""))
 
 
 def set_seed(seed: int = 0) -> None:

@@ -83,9 +83,9 @@ class FID:
         return sum(f.shape[0] for f in self._feats[which])
 
     def sync_across_processes(self):
-        """Merge every process's features, so that FID covers the whole set.
-        A no-op in one process; `communication.gather` raises for more,
-        since the port runs one process."""
+        """Merge every process's features onto rank 0, in rank order, so
+        that FID covers the whole set. Collective: every process calls it
+        (the engines do, once per dataset). A no-op in one process."""
         if not communication.is_distributed():
             return
         for which in ("real", "fake"):

@@ -14,6 +14,17 @@ padded symmetrically with `cval` first.
 PyTorch idiom: each group of windows is sliced from the padded volume on
 its device and stacked; the predictions stay in the network's dtype until
 the weighted add reads them into the canvas.
+
+`distributed=True` (off by default) splits the window grid over the data
+ranks, as the JAX package splits it over its `data` axis: the windows,
+padded to a multiple of the rank count with copies of the last one that
+weigh 0, go in contiguous grid-order shares to the ranks; each rank runs its
+share in groups of `sw_batch_size` and adds the weighted predictions and the
+weights over the whole volume, one all-reduce sums both, and every rank
+divides. It is only right when every rank calls it with the same volume: on
+different volumes the result is a blend of all of them. The engines leave it
+off, since their loaders give each rank its own samples. Without a process
+group it is the one-process path.
 """
 
 import math
@@ -22,6 +33,9 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ganslate_tpu_torch.parallel import all_reduce_sum
+from ganslate_tpu_torch.utils import communication
 
 
 def _scan_interval(image_size, roi_size, overlap: float) -> Tuple[int, ...]:
@@ -81,13 +95,13 @@ class SlidingWindowInferer:
     runs on; `network` maps a window batch `(B, *roi, C)` to `(B, *roi, C')`
     (it may change the channel count). Returns fp32 `(N, *spatial, C')`.
 
-    `distributed` is accepted and ignored: the JAX package shards the window
-    grid over its devices, and the port runs on one device."""
+    `distributed`: split the window grid over the data ranks, which must
+    all pass the same `inputs` (the module docstring); off by default."""
 
     def __init__(self, roi_size: Sequence[int], sw_batch_size: int = 1,
                  overlap: float = 0.25, mode: str = "gaussian", cval: float = 0.0,
-                 sigma_scale: float = 0.125, distributed: bool = True):
-        del distributed
+                 sigma_scale: float = 0.125, distributed: bool = False):
+        self.distributed = bool(distributed)
         self.roi_size = tuple(int(r) for r in roi_size)
         self.sw_batch_size = int(sw_batch_size)
         self.overlap = float(overlap)
@@ -98,16 +112,29 @@ class SlidingWindowInferer:
         self.sigma_scale = sigma_scale
 
     def _grid(self, padded, roi, device):
-        """The window starts, the importance map `(*roi, 1)` and the summed
-        weights `(*padded, 1)` (fp32, on `device`) of a volume geometry."""
+        """This rank's window starts, how many of them are live (the rest
+        are padding, of weight 0), the importance map `(*roi, 1)` and the
+        live windows' summed weights `(*padded, 1)` (fp32, on `device`) of a
+        volume geometry."""
         starts = dense_patch_slices(padded, roi, _scan_interval(padded, roi, self.overlap))
+        live = len(starts)
+        if self._split():
+            world = communication.get_world_size()
+            per_rank = -(-len(starts) // world)
+            first = communication.get_rank() * per_rank
+            live = min(max(len(starts) - first, 0), per_rank)
+            pad = np.repeat(starts[-1:], per_rank * world - len(starts), axis=0)
+            starts = np.concatenate([starts, pad])[first:first + per_rank]
         imp = (gaussian_importance_map(roi, self.sigma_scale) if self.mode == "gaussian"
                else np.ones(roi, np.float32))
         importance = torch.from_numpy(imp)[..., None].to(device)
         weight = torch.zeros((*padded, 1), dtype=torch.float32, device=device)
-        for start in starts:
+        for start in starts[:live]:
             weight[_region(start, roi)] += importance
-        return starts, importance, weight
+        return starts, live, importance, weight
+
+    def _split(self) -> bool:
+        return self.distributed and communication.is_distributed()
 
     def __call__(self, inputs: torch.Tensor, network: Callable) -> torch.Tensor:
         spatial = tuple(inputs.shape[1:-1])
@@ -127,7 +154,7 @@ class SlidingWindowInferer:
             for s, p, lo in reversed(list(zip(spatial, padded, low))):
                 pad += [lo, p - s - lo]
             inputs = F.pad(inputs, pad, value=self.cval)
-        starts, importance, weight = self._grid(padded, roi, inputs.device)
+        starts, live, importance, weight = self._grid(padded, roi, inputs.device)
         sw_batch = min(self.sw_batch_size, len(starts))
         crop = tuple(slice(lo, lo + s) for lo, s in zip(low, spatial))
 
@@ -144,10 +171,16 @@ class SlidingWindowInferer:
                 if canvas is None:
                     canvas = torch.zeros((*padded, preds.shape[-1]), dtype=torch.float32,
                                          device=preds.device)
-                for s, pred in zip(group, preds):
+                for s, pred in zip(group[:max(live - b0, 0)], preds):
                     canvas[_region(s, roi)].addcmul_(pred, importance)
                 del windows, preds
-            outputs.append((canvas / weight)[crop])
+            if self._split():
+                # One all-reduce of the weighted sum and the weights.
+                both = all_reduce_sum(torch.cat([canvas, weight], dim=-1))
+                canvas, total = both[..., :-1], both[..., -1:]
+            else:
+                total = weight
+            outputs.append((canvas / total)[crop])
             del canvas
         return torch.stack(outputs)
 

@@ -135,12 +135,23 @@ def _box_scene(offset):
     return scipy.ndimage.gaussian_filter(volume, 1.5)
 
 
-def test_registration_recovers_a_translation_as_jax():
-    """Rigid registration of a scene moved by (2, 1, -1) voxels (z, y, x):
-    the fixed-to-moving transform is the translation (-1, 1, 2) in (x, y,
-    z), recovered within 0.05 voxel, with a rotation within 0.01 of the
-    identity; the JAX package's gives the same numbers."""
+def _recovers_the_translation(transform) -> bool:
+    return (np.allclose(transform.translation, (-1.0, 1.0, 2.0), rtol=0, atol=0.05)
+            and np.allclose(transform.matrix, np.eye(3), rtol=0, atol=0.01))
+
+
+@pytest.mark.parametrize("hash_seed", range(8))
+def test_registration_recovers_a_translation_as_jax(hash_seed, monkeypatch):
+    """Rigid registration of a scene moved by (2, 1, -1) voxels (z, y, x),
+    for each `PYTHONHASHSEED` from 0 to 7, which both packages read when
+    called to seed the metric's sampling: the port's transform equals the
+    JAX package's bit for bit, and the port recovers the fixed-to-moving
+    translation (-1, 1, 2) in (x, y, z) within 0.05 voxel, with a rotation
+    within 0.01 of the identity, exactly when the JAX package does. Under
+    seeds 3 and 5 neither does: the optimiser stops in another optimum in
+    both, the behaviour they share."""
     from ganslate_tpu.data.utils import registration_methods as jax_reg
+    monkeypatch.setenv("PYTHONHASHSEED", str(hash_seed))
     fixed, moving = _box_scene((0, 0, 0)), _box_scene((2, 1, -1))
     transforms = []
     for reg, medio_module in ((registration_methods, medio), (jax_reg, _jax())):
@@ -151,5 +162,5 @@ def test_registration_recovers_a_translation_as_jax():
     np.testing.assert_array_equal(got.matrix, want.matrix)
     np.testing.assert_array_equal(got.translation, want.translation)
     assert got.TransformPoint((1.0, 2.0, 3.0)) == want.TransformPoint((1.0, 2.0, 3.0))
-    np.testing.assert_allclose(got.translation, (-1.0, 1.0, 2.0), atol=0.05)
-    np.testing.assert_allclose(got.matrix, np.eye(3), atol=0.01)
+    assert _recovers_the_translation(got) == _recovers_the_translation(want)
+    assert _recovers_the_translation(got) == (hash_seed not in (3, 5))

@@ -1,0 +1,381 @@
+"""One rank of the port's data-parallel CPU tests
+(`tests/test_torch_port_distributed*.py`).
+
+    RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
+        python tests/torch_distributed_child.py JOB.pt OUT_DIR
+
+joins a gloo group through `communication.init_distributed` (a 60 s
+collective timeout), runs the checks the job names on this rank's share of
+the job's global inputs, and saves what they return as
+`OUT_DIR/rank<r>.pt`. It imports the port only: no JAX, no `ganslate_tpu`.
+The tests start the ranks with `Ranks`, and build their one-process
+references with the same functions.
+"""
+
+import datetime
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ganslate_tpu_torch.configs.config import Config
+from ganslate_tpu_torch.configs.omega import Conf
+from ganslate_tpu_torch.configs.utils import init_config
+from ganslate_tpu_torch.data.utils.image_pool import ImagePool
+from ganslate_tpu_torch.engines.trainer import Trainer
+from ganslate_tpu_torch.engines.utils import init_engine
+from ganslate_tpu_torch.nn.layers import BatchNorm
+from ganslate_tpu_torch.parallel import global_batch
+from ganslate_tpu_torch.utils import communication
+from ganslate_tpu_torch.utils.builders import build_gan
+from ganslate_tpu_torch.utils.metrics.fid import FID
+from ganslate_tpu_torch.utils.sliding_window_inferer import SlidingWindowInferer
+from ganslate_tpu_torch.utils.testing import (make_cut_conf, make_cyclegan_conf,
+                                              make_pix2pix_conf, make_revgan_conf)
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+class Ranks:
+    """This script running as `world` gloo ranks on `job` (saved to
+    `out_dir/job.pt`), started at once; `results()` waits for them. Every
+    rank gets `timeout` seconds of wall time from the start, then it is
+    killed and the launch fails; a rank that fails fails the launch."""
+
+    def __init__(self, job, out_dir, world: int = 2, timeout: float = 120.0):
+        self.out_dir, self.world = Path(out_dir), world
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        self.procs = _start(job, self.out_dir, world)
+
+    def results(self):
+        try:
+            for proc in self.procs:
+                proc.wait(timeout=max(self.deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for proc in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        failed = {rank: proc.returncode for rank, proc in enumerate(self.procs)
+                  if proc.returncode}
+        if failed:
+            logs = "\n".join(f"--- rank {rank} (rc {rc}):\n"
+                             + (self.out_dir / f"rank{rank}.log").read_text()[-3000:]
+                             for rank, rc in failed.items())
+            raise AssertionError(f"ranks failed or timed out after {self.timeout} s:\n{logs}")
+        return [torch.load(self.out_dir / f"rank{rank}.pt", weights_only=False)
+                for rank in range(self.world)]
+
+
+def _start(job, out_dir, world):
+    """Save `job` and start the ranks, their output in `rank<r>.log`."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(job, out_dir / "job.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+               "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+               "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
+        with open(out_dir / f"rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, str(out_dir / "job.pt"), str(out_dir)],
+                cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _share(array):
+    """This rank's contiguous share of a global batch (dim 0)."""
+    n = len(array) // communication.get_world_size()
+    return array[communication.get_rank() * n:(communication.get_rank() + 1) * n]
+
+
+def run_steps(model, batches):
+    """Train steps on this rank's shares: per step the losses reduced over
+    the ranks (rank 0's global means) and the parameters after it, and the
+    gradients of step 1."""
+    losses, params, grads = [], [], None
+    for i, batch in enumerate(batches):
+        model.set_input({k: _share(v) for k, v in batch.items()})
+        model.optimize_parameters()
+        losses.append(communication.reduce({k: float(v) for k, v in model.losses.items()}))
+        params.append({f"{name}.{k}": p.detach().clone()
+                       for name, net in model.networks.items() for k, p in net.named_parameters()})
+        if i == 0:
+            grads = {f"{name}.{k}": p.grad.clone() for name, net in model.networks.items()
+                     for k, p in net.named_parameters() if p.grad is not None}
+    return {"losses": losses, "params": params, "grads": grads}
+
+
+def cyclegan_model(out_dir, batch, state=None, draws=None, world_batch=8):
+    """The tiny CycleGAN of the tests (1 channel, 1 residual block, ngf 8,
+    PatchGAN ndf 8 of 1 layer, pool 4, fp32), from `state` (state dicts by
+    network); its pools take `draws` (a list of global draw lists, in query
+    order) in place of their generator's."""
+    conf = make_cyclegan_conf(str(out_dir), batch_size=world_batch, channels=1,
+                              n_residual_blocks=1, ngf=8, ndf=8, n_layers_D=1, pool_size=4,
+                              mixed_precision=False, seed=3, cuda=False)
+    model = build_gan(conf)
+    model.setup(batch)
+    for name, sd in (state or {}).items():
+        model.networks[name].load_state_dict(sd)
+    if draws is not None:
+        queue = iter(draws)
+        for pool in model.pools.values():
+            pool.draws = lambda n: next(queue)
+    return model
+
+
+def pix2pix_model(out_dir, batch, world_batch=4):
+    """A small Pix2Pix with batch norm in G and D and dropout in G (U-Net 5
+    levels of ngf 8, PatchGAN ndf 8 of 1 layer, fp32)."""
+    conf = make_pix2pix_conf(str(out_dir), num_downs=5, ngf=8, ndf=8, n_layers_D=1,
+                             cuda=False, mixed_precision=False, batch_size=world_batch, seed=3)
+    conf.train.gan.norm_type = "batch"
+    model = build_gan(conf)
+    model.setup(batch)
+    return model
+
+
+def revgan_model(out_dir, batch, world_batch=4):
+    """A small RevGAN with batch norm in its memory-saving couplings
+    (Piresnet3D of depth 2 and 4 channels, PatchGAN3D ndf 8 of 1 layer, no
+    pool, fp32): the couplings' forward runs without a graph and their
+    backward recomputes them."""
+    conf = make_revgan_conf(str(out_dir), depth=2, first_layer_channels=4, ndf=8, n_layers_D=1,
+                            patch=(8, 16, 16), cuda=False, mixed_precision=False,
+                            use_memory_saving=True, batch_size=world_batch, pool_size=0)
+    conf.train.gan.norm_type = "batch"
+    model = build_gan(conf)
+    model.setup(batch)
+    return model
+
+
+def cut_model(out_dir, batch, world_batch=4):
+    """A small CUT with batch norm (Resnet2D of 1 block and ngf 8, PatchGAN2D
+    ndf 8 of 1 layer, an MLP of 16 on 16 patches, fp32): its PatchNCE keys
+    come from a forward without a graph. Its taps leave out layer 0, the
+    1-channel input: the MLP maps a scalar patch to one of two directions
+    (by its sign), so that tap's gradient into G is zero in exact
+    arithmetic and its rounding noise is divided by the patch's norm (in
+    one process, the same batch with its samples reversed moves G's
+    gradients by 1e-4 with it, by 3e-6 without)."""
+    conf = make_cut_conf(
+        str(out_dir), patch=(32, 32), nce_layers=(1, 4, 8), mlp_nc=16, num_patches=16,
+        generator={"_target_": "ganslate.nn.generators.Resnet2D", "n_residual_blocks": 1,
+                   "ngf": 8, "in_out_channels": {"AB": [1, 1]}},
+        discriminator={"_target_": "ganslate.nn.discriminators.PatchGAN2D", "ndf": 8,
+                       "n_layers": 1, "in_channels": {"B": 1}},
+        cuda=False, mixed_precision=False, batch_size=world_batch, seed=3)
+    conf.train.gan.norm_type = "batch"
+    model = build_gan(conf)
+    model.setup(batch)
+    return model
+
+
+MODELS = {"pix2pix": pix2pix_model, "revgan": revgan_model, "cut": cut_model}
+
+
+def check_cyclegan(job, out_dir):
+    spec = job["cyclegan"]
+    batches = spec["batches"]
+    model = cyclegan_model(out_dir / "cyclegan", {k: _share(v) for k, v in batches[0].items()},
+                           spec["state"], spec["draws"])
+    return run_steps(model, batches)
+
+
+def check_model(name):
+    """The check of `MODELS[name]`: its steps on this rank's shares of the
+    job's global batches."""
+    def check(job, out_dir):
+        batches = job[name]["batches"]
+        model = MODELS[name](out_dir / name, {k: _share(v) for k, v in batches[0].items()})
+        return run_steps(model, batches)
+    return check
+
+
+def check_batchnorm(job, out_dir):
+    """The port's BatchNorm on this rank's share, NCHW, in a train step's
+    scope: output, input gradient and this rank's share of the parameter
+    gradients, of sum(out * cotangent); and its output outside the scope."""
+    spec = job["batchnorm"]
+    bn = BatchNorm(spec["x"].shape[-1])
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(spec["scale"]))
+        bn.bias.copy_(torch.from_numpy(spec["bias"]))
+    x = torch.from_numpy(_share(spec["x"])).permute(0, 3, 1, 2).requires_grad_()
+    with global_batch():
+        y = bn(x)
+        (y * torch.from_numpy(_share(spec["cotangent"])).permute(0, 3, 1, 2)).sum().backward()
+    return {"y": y.detach().permute(0, 2, 3, 1), "dx": x.grad.permute(0, 2, 3, 1),
+            "dscale": bn.scale.grad, "dbias": bn.bias.grad,
+            "y_outside": bn(x).detach().permute(0, 2, 3, 1)}
+
+
+def check_pool(job, out_dir):
+    spec = job["pool"]
+    pool = ImagePool(spec["pool_size"], spec["batches"][0].shape[1:])
+    returned = [pool.query(torch.from_numpy(_share(images)), draws=draws)
+                for images, draws in zip(spec["batches"], spec["draws"])]
+    return {"returned": returned, "images": pool.images.clone(), "count": pool.count}
+
+
+def check_verbs(job, out_dir):
+    rank = communication.get_rank()
+    np.random.seed(100 + rank)              # a different host draw on each rank
+    communication.synchronize()
+    return {"reduce_mean": communication.reduce(rank + 1.0),
+            "reduce_dict": communication.reduce({"b": 3.0 * rank, "a": [rank, rank + 2.0]},
+                                                average=False, all_reduce=True),
+            "reduce_list": communication.reduce([1.0 * rank, 2.0]),
+            "gather": communication.gather({"rank": rank}),
+            "gather_dst1": communication.gather(rank, dst=1),
+            "all_gather": communication.all_gather(("r", rank)),
+            "broadcast": communication.broadcast(f"from {rank}"),
+            "broadcast_src1": communication.broadcast(rank * 10, src=1),
+            "seed": communication.shared_random_seed(),
+            "world": communication.get_world_size(), "rank": rank,
+            "device_count": communication.device_count()}
+
+
+def check_sliding_window(job, out_dir):
+    out = {}
+    for name, case in job["sliding_window"].items():
+        calls = []
+
+        def network(windows, scale=case["scale"]):
+            calls.append(windows.shape[0])
+            return torch.tanh(windows * scale)
+
+        inferer = SlidingWindowInferer(roi_size=case["roi"], sw_batch_size=case["sw_batch"],
+                                       overlap=case["overlap"], distributed=True)
+        out[name] = {"y": inferer(torch.from_numpy(case["x"]), network), "calls": calls}
+    return out
+
+
+def check_fid(job, out_dir):
+    """FID of the job's sets, each rank streaming its samples in the order
+    the val/test sampler gives them (rank r: r, r + world, ...)."""
+    spec = job["fid"]
+    projection = spec["projection"]
+    fid = FID(lambda batch: np.tanh(batch.reshape(len(batch), -1) @ projection))
+    rank, world = communication.get_rank(), communication.get_world_size()
+    for which in ("real", "fake"):
+        mine = spec[which][rank::world]
+        for i in range(0, len(mine), 2):
+            fid.update(mine[i:i + 2], which)
+    fid.sync_across_processes()
+    return {"fid": fid.compute() if communication.is_main_process() else None,
+            "n_local": len(spec["real"][rank::world])}
+
+
+class Recorder:
+    """The batch fed and the losses of each of a Trainer's iterations."""
+
+    def __init__(self, trainer):
+        self.batches, self.losses = {}, {}
+        set_input, log_iter = trainer.model.set_input, trainer.tracker.log_iter
+
+        def record_input(batch):
+            self.batches[trainer.iter_idx] = {k: np.array(v) for k, v in batch.items()
+                                              if hasattr(v, "shape")}
+            return set_input(batch)
+
+        def record_log(learning_rates, losses, visuals, metrics):
+            self.losses[trainer.iter_idx] = {k: float(v) for k, v in losses.items()}
+            return log_iter(learning_rates, losses, visuals, metrics)
+
+        trainer.model.set_input = record_input
+        trainer.tracker.log_iter = record_log
+
+
+def copy_checkpoint(src_dir, dst_dir, iter_idx):
+    """Checkpoint `iter_idx` and its data state from one output directory
+    into another's `checkpoints/`."""
+    (dst_dir / "checkpoints").mkdir(parents=True)
+    for name in (f"{iter_idx}.pth", f"data_state_{iter_idx}.json"):
+        shutil.copy(src_dir / "checkpoints" / name, dst_dir / "checkpoints" / name)
+
+
+def train(raw):
+    trainer = Trainer(init_config(Conf.create(raw), config_class=Config))
+    recorder = Recorder(trainer)
+    trainer.run()
+    return recorder
+
+
+def check_trainer(job, out_dir):
+    """The Trainer from the job's config: 4 iterations with a checkpoint at
+    2 and 4, then, in another output directory holding checkpoint 2, a
+    resume from 2 to 4."""
+    raw = job["trainer"]
+    whole = train(raw)
+    resumed_dir = Path(raw["train"]["output_dir"] + "_resumed")
+    if communication.is_main_process():
+        copy_checkpoint(Path(raw["train"]["output_dir"]), resumed_dir, 2)
+    communication.synchronize()
+    resume = {"train": {**raw["train"], "output_dir": str(resumed_dir),
+                        "checkpointing": {**raw["train"]["checkpointing"], "load_iter": 2,
+                                          "load_optimizers": True}}}
+    resumed = train(resume)
+    return {"batches": whole.batches, "losses": whole.losses, "resumed_batches":
+            resumed.batches, "resumed_losses": resumed.losses}
+
+
+def check_infer(job, out_dir):
+    """`Inferer.run()` from the trainer check's checkpoint 4 over the
+    job's folder (`infer` section, global batch 2): the inputs this rank
+    translated, in order."""
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    conf = init_config(Conf.create(job["infer"]), Config)
+    path = out_dir / f"infer_rank{communication.get_rank()}.yaml"
+    path.write_text(conf.to_yaml())
+    served = []
+    translate = Inferer._translate
+
+    def recorded(self, array):
+        served.extend(np.array(array))
+        return translate(self, array)
+
+    Inferer._translate = recorded
+    try:
+        init_engine("infer", [f"config={path}"]).run()
+    finally:
+        Inferer._translate = translate
+    return served
+
+
+CHECKS = {"cyclegan": check_cyclegan, **{name: check_model(name) for name in MODELS},
+          "batchnorm": check_batchnorm, "pool": check_pool, "verbs": check_verbs,
+          "sliding_window": check_sliding_window, "fid": check_fid,
+          "trainer": check_trainer, "infer": check_infer}
+
+
+def main(job_path, out_dir):
+    torch.set_num_threads(2)
+    communication.TIMEOUT = datetime.timedelta(seconds=60)
+    communication.init_distributed(cuda=False)
+    job = torch.load(job_path, weights_only=False)
+    out_dir = Path(out_dir)
+    results = {"backend": communication.backend()}
+    for name in job["checks"]:
+        results[name] = CHECKS[name](job, out_dir)
+    torch.save(results, out_dir / f"rank{communication.get_rank()}.pt")
+    communication.destroy_distributed()
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:3])
