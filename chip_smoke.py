@@ -293,6 +293,28 @@ project's datasets, which the port's config loader takes from its twin
    library's grid split over 2 gloo ranks turned on (no entry point turns
    it on), bf16 and fp32, against 1 process. The torchrun children's norm
    launches are the `distributed` path of the kernels line.
+17. spatial (run after phase 15, while the NIfTI root exists): spatial
+   sharding across processes on the one card. (a) The split stats kernel's
+   (mean, M2) mode against its plain version at a full-width level-0 slab
+   of one shard, (1, 16, 176, 176, 16), bf16 and fp32; then on 2 gloo
+   ranks the sharded instance norm (each rank's slab's (mean, M2), the
+   ranks' slots summed, folded, normalised by the split kernel) against the
+   1-rank kernel on the whole (1, 32, 176, 176, 16) tensor. (b)
+   `cyclegan.yaml` under `torchrun --nproc_per_node 2` through the port's
+   `train` command with `train.spatial_mesh=2` (each rank a (16, 176, 176)
+   slab of the (32, 176, 176) patch), 4 iterations on the synthetic NIfTI
+   scans, against the same command in one process: the step-1 losses and
+   every gradient in fp32 (model-level, from the same seed) within 3 times
+   their own one-ulp control gap or the fixed bounds of phase 16 (b), each
+   rank's peak memory (at most 65% of the 1-process run's), step time, the
+   halo-exchange and collective time of one step, the gathers of each
+   network (none on a generator) and the norm launches (all split, with
+   cross-rank statistics). (c) A (64, 176, 176) volume through the
+   deployment `Inferer` with `infer.spatial_sharding` method `gspmd` (bf16
+   and fp32, held to phase 16 (d)'s bounds) and `halo` (bf16, its gaps
+   near the shard boundary and away from it reported) on 2 ranks, against
+   the direct forward in one process. The 2-rank children's norm launches
+   are the `spatial` path of the kernels line.
 
 The kernels phase also checks and times both kernels at the V-Net's, the
 RevGAN's, the Pix2Pix's, the CUT's and the HX4 and ClearGrasp networks'
@@ -1089,8 +1111,12 @@ def plain_norms():
     from ganslate_tpu_torch.nn import layers
     from ganslate_tpu_torch.ops.instance_norm import instance_norm_reference
     kernel_fn = layers.instance_norm
-    layers.instance_norm = lambda x, eps, act, slope: instance_norm_reference(
-        x, eps, act, slope)[0]
+
+    def plain(x, eps, act, slope, shards=None):
+        check(shards is None, "plain_norms serves unsharded layers only")
+        return instance_norm_reference(x, eps, act, slope)[0]
+
+    layers.instance_norm = plain
     try:
         yield
     finally:
@@ -2609,9 +2635,10 @@ def brats_datasets():
             {"_target_": BRATS_DATASETS["val"], "root": str(brats_root("val"))})
 
 
-def brats_batches(conf):
+def brats_batches(conf, n=None):
     """`BRATS_BATCHES` training samples (n, seed) of the config's dataset
-    (the project twin's `BratsDataset` over the NIfTI root) as batches of
+    (the project twin's `BratsDataset` over the NIfTI root; the first `n`
+    only, given `n`) as batches of
     1, drawn once per run for a given dataset: sample `i` after seeding
     Python's `random` (domain B's scan) and the patch sampler's generator
     (the patch pair) from (`seed`, `i`); with the mean seconds a sample
@@ -2619,9 +2646,9 @@ def brats_batches(conf):
     import random
     import numpy as np
     from ganslate_tpu_torch.utils.io import import_attr
-    n, seed = BRATS_BATCHES
+    n, seed = (n or BRATS_BATCHES[0]), BRATS_BATCHES[1]
     d = conf.train.dataset
-    key = (d._target_, d.root, tuple(d.patch_size), d.source_sequence, d.target_sequence)
+    key = (d._target_, d.root, tuple(d.patch_size), d.source_sequence, d.target_sequence, n)
     if key in _BRATS_BATCHES:
         return _BRATS_BATCHES[key]
     dataset = import_attr(d._target_)(conf)
@@ -5979,7 +6006,8 @@ def dist_child(task, out_dir):
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     inorm.library()
     rank = int(os.environ.get("RANK", "0"))
-    result = {"train-cli": dist_train_cli, "models": dist_models}[task](out_dir)
+    result = {"train-cli": dist_train_cli, "models": dist_models,
+              "spatial": spatial_child}[task](out_dir)
     torch.save(result, out_dir / f"{task}_rank{rank}.pt")
     return 0
 
@@ -6361,6 +6389,449 @@ def distributed_phase(root):
     return totals
 
 
+# ------------------------------------------------------------ phase 17
+
+
+# The spatial phase: spatial sharding across processes, 2 gloo ranks on the
+# one card (NCCL refuses two ranks on one device), against one process.
+# (b)'s run: (warm-up iterations, timed iterations, logging.freq,
+# checkpointing.freq, val.freq); the last timed iteration times its halo
+# exchanges and collectives (each between device synchronisations), the
+# others not.
+SPATIAL_RANKS = 2
+SPATIAL_RUN = (1, 3, 1, 100, 100)
+SPATIAL_SLAB = (1, 16, 176, 176, 16)            # (a): one shard of a level-0 slab
+SPATIAL_VOLUME = (1, 64, 176, 176, 1)           # (c)
+SPATIAL_HALO = 16                               # (c), method 'halo'
+SPATIAL_MEMORY_MAX = 0.65                       # per rank, of the 1-process peak
+SPATIAL_LEFT_OUT = {"train.logging.wandb": "the wandb package would contact its server",
+                    "train.seed": "unset in the YAML (drawn) -> the script's seed"}
+
+
+def spatial_args(out_dir, sharded, mixed_precision=None):
+    """`cyclegan.yaml` with phase 11's overrides for `SPATIAL_RUN`, its own
+    output directory and, sharded, `train.spatial_mesh`."""
+    return [*brats_cyclegan_args("cyclegan.yaml", SPATIAL_RUN, mixed_precision),
+            f"train.output_dir={out_dir}",
+            *([f"train.spatial_mesh={SPATIAL_RANKS}"] if sharded else [])]
+
+
+def spatial_stats_check(bandwidth):
+    """(a), first half: the stats kernel's (mean, M2) mode on one shard's
+    slab against `partial_stats_reference` on the same input; the library
+    time is `torch.var_mean` over the same axes (the same statistics, the
+    variance for M2 / count)."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    recs = []
+    axes = tuple(range(1, len(SPATIAL_SLAB) - 1))
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+        x = (torch.randn(SPATIAL_SLAB, generator=g, device="cuda") * 2 + 1).to(dtype)
+        x = x.contiguous()
+        mean, m2 = inorm.split_partial_stats(x)
+        want_mean, want_m2 = inorm.partial_stats_reference(x)
+        ms, host_bound = time_ms(lambda: inorm.split_partial_stats(x))
+        plain_ms, _ = time_ms(lambda: inorm.partial_stats_reference(x))
+        library_ms, library_host_bound = time_ms(
+            lambda: torch.var_mean(x, dim=axes, correction=0))
+        rec = {"phase": "spatial_stats_m2", "shape": list(SPATIAL_SLAB), "dtype": str(dtype),
+               "mean_max_abs_err": float((mean - want_mean).abs().max()),
+               "m2_max_rel_err": float(((m2 - want_m2).abs() / want_m2.abs()).max()),
+               "tol_rel": STAT_RTOL, "ms": ms, "host_bound": host_bound, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library": "torch.var_mean(x, dim, correction=0)",
+               "library_host_bound": library_host_bound,
+               "bound_ms": x.numel() * x.element_size() / bandwidth * 1e3}
+        emit(rec)
+        check(rec["mean_max_abs_err"] <= STAT_RTOL * float(want_m2.div(
+            math.prod(SPATIAL_SLAB[1:-1])).sqrt().max()) and rec["m2_max_rel_err"] <= STAT_RTOL,
+            rec)
+        recs.append(rec)
+    return recs
+
+
+def spatial_norm_check():
+    """(a), second half, on 2 ranks: the sharded norm (+ leaky ReLU) of
+    this rank's slab, and its folded statistics, against the plain version
+    (`instance_norm_reference`) on the whole tensor, and its time (two
+    ranks sharing the card)."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.parallel import spatial
+    scope = spatial.make_scope(0)
+    n = SPATIAL_SLAB[1]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 101)
+        shape = (1, n * scope.size, *SPATIAL_SLAB[2:])
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 1).to(dtype)
+        want, want_mean, want_rstd = inorm.instance_norm_reference(x, 1e-5, "leaky_relu", 0.2)
+        slab = x.narrow(1, scope.index * n, n).contiguous()
+
+        def sharded():
+            return inorm.sharded_instance_norm_forward(slab, 1e-5, "leaky_relu", 0.2, scope)
+
+        got, mean, rstd = sharded()
+        want = want.narrow(1, scope.index * n, n)
+        err = (got.float() - want.float()).abs()
+        tol = TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            sharded()
+        torch.cuda.synchronize()
+        out[str(dtype)] = {
+            "max_abs_err": float(err.max()),
+            "over_tol": int((err > tol["atol"] + tol["rtol"] * want.float().abs()).sum()),
+            "mean_rel_err": float(((mean - want_mean).abs()
+                                   / want_rstd.reciprocal()).max()),
+            "rstd_rel_err": float(((rstd - want_rstd).abs() / want_rstd).max()),
+            "ms_2_ranks_sharing_the_card": (time.perf_counter() - t0) * 1e2,
+            "tol": tol}
+    return out
+
+
+def spatial_fp32_step(out_dir, sharded):
+    """(b)'s step 1 in fp32, model-level, from the seed's weights: the
+    losses (the spatial group's sums) and every gradient; in one process,
+    also the same step with plain norms with and without one-ulp noise
+    (`dist_one_ulp_control`'s control)."""
+    import torch
+    from ganslate_tpu_torch.utils.builders import build_conf, build_gan
+    conf = build_conf(spatial_args(out_dir / "fp32", sharded, mixed_precision=False))
+    batch = brats_batches(conf, n=1)[0][0]
+
+    def step(norms):
+        model = build_gan(conf)
+        model.setup(batch)
+        with norms():
+            model.set_input(batch)
+            model.optimize_parameters(sync=True)
+        run = {"losses": {k: float(v) for k, v in model.losses.items()},
+               "grads": {f"{name}.{k}": p.grad.detach().float().cpu().clone()
+                         for name, net in model.networks.items()
+                         for k, p in net.named_parameters() if p.grad is not None}}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run
+
+    runs = {"kernel": step(contextlib.nullcontext)}
+    if not sharded:
+        runs["plain"] = step(plain_forward)
+        runs["noisy"] = step(norm_ulp_noise)
+    return runs
+
+
+def spatial_infer(out_dir, sharded):
+    """(c): the volume through the deployment `Inferer` of a BRaTS Vnet3D
+    (seeded weights, rank 0's checkpoint) with `infer.spatial_sharding`;
+    sharded, by each method, else the direct forward. Two requests each
+    (the first is cold): outputs, seconds, norm launches."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.parallel import spatial
+    from ganslate_tpu_torch.utils import communication
+    from ganslate_tpu_torch.utils.builders import build_G
+    from ganslate_tpu_torch.utils.testing import make_vnet_conf
+    x = np.random.default_rng(SEED + 102).uniform(-1, 1, SPATIAL_VOLUME).astype(np.float32)
+    ckpt_dir = out_dir / "infer"
+    if communication.is_main_process():
+        g = build_G(make_vnet_conf(str(ckpt_dir), load_iter=1), "AB",
+                    torch.Generator().manual_seed(SEED))
+        (ckpt_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+        torch.save({"G_AB": g.state_dict()}, ckpt_dir / "checkpoints" / "1.pth")
+        del g
+    communication.synchronize()
+    runs = (("gspmd", "bfloat16"), ("gspmd", "float32"), ("halo", "bfloat16")) if sharded \
+        else (("direct", "bfloat16"), ("direct", "float32"))
+    out = {}
+    for method, dtype in runs:
+        fp32 = {"mixed_precision": False, "wire_dtype": "float32"} if dtype == "float32" else {}
+        sharding = {"method": "gspmd" if method == "direct" else method, "dim": 0,
+                    "halo": SPATIAL_HALO}
+        inferer = Inferer(make_vnet_conf(str(ckpt_dir), load_iter=1, spatial_sharding=sharding,
+                                         **fp32))
+        inorm.reset_launches()
+        spatial.reset_counts()
+        seconds = []
+        for _ in range(2):
+            communication.synchronize()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = inferer.infer(x)
+            seconds.append(time.perf_counter() - t0)
+        out[f"{method}_{dtype}"] = {"y": y, "seconds": seconds,
+                                    "launches": dict(inorm.LAUNCHES),
+                                    "exchanges": dict(spatial.COUNTS)}
+        del inferer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_train_cli(out_dir, sharded):
+    """(b): the port's `train` command on `cyclegan.yaml` (bf16, the
+    YAML's), sharded with `train.spatial_mesh`: per iteration the losses,
+    the host time of the iteration (synchronised), the exchanges and each
+    network's gathers; the last iteration's halo and collective seconds;
+    the run's norm launches and peak device memory."""
+    import torch
+    from ganslate_tpu_torch.engines.trainer import Trainer
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.parallel import spatial
+    from ganslate_tpu_torch.utils import communication
+    from ganslate_tpu_torch.utils.cli.interface import interface
+    n_iters = SPATIAL_RUN[0] + SPATIAL_RUN[1]
+    seen = {"losses": {}, "step_ms": {}, "exchanges": {}, "gathers": {}, "seconds": {}}
+    gathers, started, hooked = {}, {}, []
+    run_iteration = Trainer._run_iteration
+
+    def hook(model):
+        for name, net in model.networks.items():
+            def pre(mod, args, name=name):
+                started[name] = spatial.COUNTS["gather"]
+
+            def post(mod, args, result, name=name):
+                gathers[name] = gathers.get(name, 0) + spatial.COUNTS["gather"] - started[name]
+            net.register_forward_pre_hook(pre)
+            net.register_forward_hook(post)
+        hooked.append(True)
+
+    def recorded(self, batches):
+        if not hooked:
+            hook(self.model)
+        seen["layout"] = (communication.get_data_size(), communication.get_spatial_size())
+        spatial.TIMED = sharded and self.iter_idx == n_iters
+        spatial.reset_counts()
+        gathers.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            run_iteration(self, batches)
+            torch.cuda.synchronize()
+        finally:
+            spatial.TIMED = False
+        i = self.iter_idx
+        seen["step_ms"][i] = (time.perf_counter() - t0) * 1e3
+        seen["losses"][i] = {k: float(v) for k, v in self.model.losses.items()}
+        seen["exchanges"][i] = dict(spatial.COUNTS)
+        seen["seconds"][i] = dict(spatial.SECONDS)
+        seen["gathers"][i] = dict(gathers)
+
+    Trainer._run_iteration = recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    inorm.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        interface.main(["train", *spatial_args(out_dir / "run", sharded)],
+                       standalone_mode=False)
+    finally:
+        Trainer._run_iteration = run_iteration
+    torch.cuda.synchronize()
+    return {**seen, "launches": dict(inorm.LAUNCHES), "seconds_run": time.perf_counter() - t0,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_before_bytes": before}
+
+
+def spatial_child(out_dir):
+    """(a)'s second half, (b) and (c) in a child: on 2 ranks, sharded; in
+    one process, the references. The `train` command comes last: it tears
+    down the process group."""
+    import torch
+    from ganslate_tpu_torch.utils import communication
+    _BRATS_ROOT[:] = [Path(os.environ["GANSLATE_SPATIAL_BRATS"])]
+    communication.init_distributed(cuda=True)
+    sharded = communication.get_world_size() > 1
+    out = {"backend": communication.backend(), "world": communication.get_world_size()}
+    if sharded:
+        communication.init_groups(SPATIAL_RANKS)
+        out["norm"] = spatial_norm_check()
+    t0 = time.perf_counter()
+    out["fp32"] = spatial_fp32_step(out_dir, sharded)
+    out["fp32_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["infer"] = spatial_infer(out_dir, sharded)
+    out["infer_seconds"] = time.perf_counter() - t0
+    out["train"] = spatial_train_cli(out_dir, sharded)
+    out["peak_memory_bytes_child"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def spatial_phase(root, bandwidth):
+    """Phase 17; returns the norm launches of its 2-rank children's main
+    paths (the `train` command and the sharded requests)."""
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    t0 = time.perf_counter()
+    stats = spatial_stats_check(bandwidth)
+    os.environ["GANSLATE_SPATIAL_BRATS"] = str(_BRATS_ROOT[0])
+    with experiment_workdir(root) as work:
+        (ref,), ref_seconds = dist_launch("spatial", root / "spatial_1", work)
+        ranks, seconds = dist_launch("spatial", root / "spatial_2", work, nproc=SPATIAL_RANKS)
+    # One card: the ranks share it over gloo (NCCL refuses two ranks on one
+    # device); with a card a rank, NCCL.
+    backend = "nccl" if torch.cuda.device_count() >= SPATIAL_RANKS else "gloo"
+    caveat = ("2 ranks share one card and exchange through host memory (gloo): a check of the "
+              "arithmetic and of the memory per rank, not a scaling figure"
+              if backend == "gloo" else "a card a rank (NCCL)")
+    check([r["backend"] for r in ranks] == [backend] * SPATIAL_RANKS and ref["world"] == 1,
+          [r["backend"] for r in ranks])
+
+    # (a), second half.
+    for dtype, rec in ranks[0]["norm"].items():
+        rec = {"phase": "spatial_sharded_norm", "dtype": dtype, "ranks": SPATIAL_RANKS,
+               "whole": [1, SPATIAL_SLAB[1] * SPATIAL_RANKS, *SPATIAL_SLAB[2:]],
+               **rec, "rank1": ranks[1]["norm"][dtype]}
+        emit(rec)
+        check(all(r["norm"][dtype]["over_tol"] == 0 and r["norm"][dtype]["mean_rel_err"]
+                  <= STAT_RTOL and r["norm"][dtype]["rstd_rel_err"] <= STAT_RTOL
+                  for r in ranks), rec)
+
+    # (b), fp32 step 1 against one process, with its one-ulp control.
+    got, want = ranks[0]["fp32"]["kernel"], ref["fp32"]["kernel"]
+    plain, noisy = ref["fp32"]["plain"], ref["fp32"]["noisy"]
+    control_loss = max(abs(noisy["losses"][k] - v) / abs(v) for k, v in plain["losses"].items())
+    loss_tol = max(DIST_LOSS_RTOL, DIST_CONTROL_RATIO * control_loss)
+    loss_err = {k: abs(got["losses"][k] - v) / abs(v) for k, v in want["losses"].items()}
+    control = {k: rel_l2(noisy["grads"][k], g) for k, g in plain["grads"].items()}
+    grad_tol = {k: max(TRAIN_FP32_GRAD_MAX, DIST_CONTROL_RATIO * c) for k, c in control.items()}
+    check(got["grads"].keys() == want["grads"].keys() == control.keys(),
+          "the sharded step's gradients are not the 1-process step's tensors")
+    grad_err = {k: rel_l2(got["grads"][k], g) for k, g in want["grads"].items()}
+    ratio = {k: e / grad_tol[k] for k, e in grad_err.items()}
+    worst = max(grad_err, key=grad_err.get)
+    closest = max(ratio, key=ratio.get)
+    replicas = all(torch.equal(r["fp32"]["kernel"]["grads"][k], v)
+                   for r in ranks[1:] for k, v in got["grads"].items())
+    rec = {"phase": "spatial_fp32_step", "ranks": SPATIAL_RANKS, "dtype": "float32",
+           "losses": got["losses"], "losses_1_process": want["losses"],
+           "loss_rel_err": loss_err, "loss_tol": loss_tol, "loss_control_rel_err": control_loss,
+           "grad_rel_l2_max": grad_err[worst], "grad_rel_l2_worst": worst,
+           "grad_tol_of_worst": grad_tol[worst],
+           "grad_rel_l2_median": statistics.median(grad_err.values()),
+           "grad_err_over_tol_max": ratio[closest], "grad_err_over_tol_worst": closest,
+           "grad_control_rel_l2_max": max(control.values()),
+           "grad_tols_above_bound": sum(t > TRAIN_FP32_GRAD_MAX for t in grad_tol.values()),
+           "grad_tensors": len(grad_tol), "replicas_bit_equal": replicas,
+           "seconds": {"1_process": ref["fp32_seconds"], "2_ranks": ranks[0]["fp32_seconds"]}}
+    emit(rec)
+    check(all(e <= loss_tol for e in loss_err.values()), rec)
+    check(ratio[closest] <= 1 and replicas, rec)
+
+    # (b), the `train` command.
+    n_iters = SPATIAL_RUN[0] + SPATIAL_RUN[1]
+    train, train_ref = ranks[0]["train"], ref["train"]
+    norms_per_iter = sum(BRATS_CYCLEGAN_LAUNCHES.values())
+    untimed = list(range(SPATIAL_RUN[0] + 1, n_iters))
+    peak = [r["train"]["peak_memory_bytes"] for r in ranks]
+    g_gathers = {i: {k: v for k, v in g.items() if k.startswith("G")}
+                 for i, g in train["gathers"].items()}
+    seconds_timed = train["seconds"][n_iters]
+    rec = {"phase": "spatial_train", "yaml": str((BRATS_PROJECT / "experiments" / "cyclegan.yaml")
+                                                .relative_to(HERE)),
+           "entry": f"torchrun --standalone --nproc_per_node {SPATIAL_RANKS} -> "
+                    f"interface.main(['train', ..., 'train.spatial_mesh={SPATIAL_RANKS}'])",
+           "layout_data_x_spatial": train["layout"], "iterations": n_iters,
+           "patch": list(REVGAN_PATCH), "slab": [REVGAN_PATCH[0] // SPATIAL_RANKS,
+                                                 *REVGAN_PATCH[1:]],
+           "cuts": {"run": SPATIAL_RUN, "left_out": SPATIAL_LEFT_OUT},
+           "losses": train["losses"], "losses_1_process": train_ref["losses"],
+           "step_ms_2_ranks": train["step_ms"], "step_ms_1_process": train_ref["step_ms"],
+           "step_ms_untimed_mean": {"2_ranks": statistics.mean(
+               train["step_ms"][i] for i in untimed), "1_process": statistics.mean(
+               train_ref["step_ms"][i] for i in untimed)},
+           "timed_iteration": n_iters, "timed_iteration_ms": train["step_ms"][n_iters],
+           "halo_ms_per_step": seconds_timed["halo"] * 1e3,
+           "collective_ms_per_step": seconds_timed["collective"] * 1e3,
+           "exchanges_per_step": train["exchanges"][n_iters],
+           "gathers_by_network": train["gathers"][n_iters],
+           "generator_gathers": g_gathers,
+           "peak_memory_bytes_per_rank": peak,
+           "peak_memory_bytes_1_process": train_ref["peak_memory_bytes"],
+           "peak_memory_share_per_rank": [p / train_ref["peak_memory_bytes"] for p in peak],
+           "memory_share_max": SPATIAL_MEMORY_MAX,
+           "launches_per_rank": [r["train"]["launches"] for r in ranks],
+           "launches_1_process": train_ref["launches"], "timing_caveat": caveat,
+           "run_seconds": {"1_process": train_ref["seconds_run"],
+                           "2_ranks": train["seconds_run"]}}
+    emit(rec)
+    check(sorted(train["losses"]) == list(range(1, n_iters + 1))
+          and all(math.isfinite(v) for s in train["losses"].values() for v in s.values()), rec)
+    check(all(r["train"]["losses"] == train["losses"] for r in ranks), "the ranks' losses differ")
+    check(train["layout"] == (1, SPATIAL_RANKS), rec["layout_data_x_spatial"])
+    check(all(v == 0 for g in g_gathers.values() for v in g.values())
+          and all(g for g in g_gathers.values()), f"gathers on a generator: {g_gathers}")
+    check(all(p <= SPATIAL_MEMORY_MAX * train_ref["peak_memory_bytes"] for p in peak), rec)
+    check(train_ref["launches"]["split"] + train_ref["launches"]["onepass"]
+          == n_iters * norms_per_iter, rec["launches_1_process"])
+    check(all(r["train"]["launches"] == {"onepass": 0, "split": n_iters * norms_per_iter}
+              for r in ranks), rec["launches_per_rank"])
+    check(seconds_timed["halo"] > 0 and train["exchanges"][n_iters]["halo"] > 0, rec)
+
+    # (c), inference.
+    want = {dtype: ref["infer"][f"direct_{dtype}"]["y"] for dtype in ("bfloat16", "float32")}
+    for key in ("gspmd_bfloat16", "gspmd_float32", "halo_bfloat16"):
+        method, dtype = key.split("_")
+        ys = [r["infer"][key]["y"] for r in ranks]
+        y, ref_y = ys[0], want[dtype]
+        err = (y.float() - ref_y.float()).abs()
+        rec = {"phase": f"spatial_infer_{method}", "dtype": dtype, "ranks": SPATIAL_RANKS,
+               "volume": list(SPATIAL_VOLUME), "entry": "Inferer.infer (infer.spatial_sharding)",
+               "max_abs_err_vs_1_process": float(err.max()),
+               "mean_abs_err_vs_1_process": float(err.mean()),
+               "max_abs_out": float(ref_y.float().abs().max()),
+               "ranks_equal": all(torch.equal(t, y) for t in ys[1:]),
+               "seconds_2_ranks": ranks[0]["infer"][key]["seconds"],
+               "seconds_1_process": ref["infer"][f"direct_{dtype}"]["seconds"],
+               "exchanges_rank0": ranks[0]["infer"][key]["exchanges"],
+               "launches_rank0": ranks[0]["infer"][key]["launches"],
+               "launches_1_process": ref["infer"][f"direct_{dtype}"]["launches"],
+               "timing_caveat": caveat}
+        sw_output_check(rec, y, SPATIAL_VOLUME[:-1] + (1,))
+        check(rec["ranks_equal"], rec)
+        if method == "halo":
+            boundary = SPATIAL_VOLUME[1] // SPATIAL_RANKS
+            near = err[:, boundary - SPATIAL_HALO:boundary + SPATIAL_HALO]
+            away = torch.cat([err[:, :boundary - SPATIAL_HALO],
+                              err[:, boundary + SPATIAL_HALO:]], 1)
+            rec.update(halo=SPATIAL_HALO, gap_near_boundary={"max": float(near.max()),
+                                                             "mean": float(near.mean())},
+                       gap_away={"max": float(away.max()), "mean": float(away.mean())},
+                       note="per-shard norm statistics: reported, not bounded")
+            emit(rec)
+            continue
+        check(rec["launches_rank0"]["onepass"] == 0 and rec["launches_rank0"]["split"] > 0,
+              rec)
+        if dtype == "float32":
+            rec["tol_max"] = DIST_SW_FP32_REL * rec["max_abs_out"]
+            emit(rec)
+            check(rec["max_abs_err_vs_1_process"] <= rec["tol_max"], rec)
+        else:
+            rec.update(tol_max=SW_BF16_MAX, tol_mean=SW_BF16_MEAN)
+            emit(rec)
+            check(rec["max_abs_err_vs_1_process"] <= SW_BF16_MAX
+                  and rec["mean_abs_err_vs_1_process"] <= SW_BF16_MEAN, rec)
+
+    totals = {k: 0 for k in inorm.LAUNCHES}
+    for r in ranks:
+        for counts in [r["train"]["launches"]] + [v["launches"] for v in r["infer"].values()]:
+            for k, v in counts.items():
+                totals[k] += v
+    emit({"phase": "spatial_summary", "backend": backend, "seconds": time.perf_counter() - t0,
+          "child_seconds": {"1_process": ref_seconds, "2_ranks": seconds},
+          "stats_m2_ms": {r["dtype"]: r["ms"] for r in stats},
+          "peak_memory_bytes_child": {"1_process": ref["peak_memory_bytes_child"],
+                                      "2_ranks": [r["peak_memory_bytes_child"] for r in ranks]},
+          "launches": totals})
+    return totals
+
+
 def main() -> int:
     # The user's switch for OpenCV's EXR codec, read when cv2 is imported.
     os.environ["OPENCV_IO_ENABLE_OPENEXR"] = "1"
@@ -6455,6 +6926,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done("zoo")
 
+        with tempfile.TemporaryDirectory() as tmp:
+            spatial_totals = spatial_phase(Path(tmp), bandwidth)
+        torch.cuda.empty_cache()
+        phase_done("spatial")
+
     with tempfile.TemporaryDirectory() as tmp:
         hx4_totals = hx4_project_phase(Path(tmp))
     torch.cuda.empty_cache()
@@ -6488,7 +6964,8 @@ def main() -> int:
                    "cut": cut_totals[name], "cut2d": cut2d_totals[name],
                    "brats_cyclegan": brats_cyclegan_totals[name], "hx4": hx4_totals[name],
                    "cleargrasp": cleargrasp_totals[name], "fid": fid_totals[name],
-                   "zoo": zoo_totals[name], "distributed": dist_totals[name]}
+                   "zoo": zoo_totals[name], "distributed": dist_totals[name],
+                   "spatial": spatial_totals[name]}
         check(totals[name] > 0, f"the served requests never launched {name}")
         check(train_totals[name] > 0, f"the train steps never launched {name}")
         check(trainer_totals[name] > 0, f"the trainer phase never launched {name}")
@@ -6503,6 +6980,9 @@ def main() -> int:
         check(fid_totals[name] > 0, f"the fid phase never launched {name}")
         check(zoo_totals[name] > 0, f"the zoo phase never launched {name}")
         check(dist_totals[name] > 0, f"the distributed phase never launched {name}")
+        # The sharded slabs' norms take the split pair (the 'halo' requests'
+        # per-shard norms either kernel).
+        check(spatial_totals["split"] > 0, f"the spatial phase's launches: {spatial_totals}")
         totals[name] += sum(by_path[path] for path in by_path if path != "slice")
         kernels.append({"name": f"inorm_{name}", "route": "cuda",
                         "source": "ganslate_tpu_torch/csrc/instance_norm.cu",

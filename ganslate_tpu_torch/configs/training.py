@@ -73,6 +73,11 @@ class TrainConfig(base.BaseEngineConfig):
     # The port runs one step per call: a train-mode model raises for > 1.
     steps_per_dispatch: int = 1
 
-    # Spatially-sharded training in the JAX package; not ported: a
-    # train-mode model raises when it is set.
+    # Spatially sharded training: this many ranks share each sample, each
+    # holding a slab of its first spatial dim (the rest of the world splits
+    # the batch), with halo exchange in the convs and whole-sample norm
+    # statistics, so gradients equal the unsharded ones
+    # (`ganslate_tpu_torch/parallel/spatial.py`). Launch a multiple of it
+    # under torchrun. The CycleGAN family on the Vnet3D, Resnet2D/3D and
+    # PatchGAN2D/3D; other families and networks raise.
     spatial_mesh: Optional[int] = None

@@ -21,13 +21,18 @@ class SlidingWindowConfig:
 
 @dataclass
 class SpatialShardingConfig:
-    """Full-volume inference sharded across devices (the JAX package's
-    `ganslate_tpu/parallel/spatial.py`). The port accepts the section and
-    runs the direct forward: spatially sharded inference comes with the
-    next slice of distribution.
+    """Full-volume inference sharded across ranks
+    (`ganslate_tpu_torch/parallel/spatial.py`, the JAX package's
+    `parallel/spatial.py`): under torchrun every rank holds a slab of the
+    volume along `dim` and the whole output comes back on every rank. It
+    applies when the spatial group has more than one rank (test and infer:
+    the world; val: `train.spatial_mesh`).
 
-    method='gspmd': exact, with global instance-norm statistics.
-    method='halo': neighbour halo exchange with per-shard statistics."""
+    method='gspmd': exact, with halo exchange in the convs and global
+    instance-norm statistics (the CycleGAN family's Vnet3D, Resnet2D/3D;
+    other networks raise).
+    method='halo': neighbour halo exchange of the input with per-shard
+    statistics, for any generator."""
     method: str = "gspmd"
     # ('halo' only) input-slice overlap exchanged between neighboring
     # shards; must cover the network's receptive-field half-width.

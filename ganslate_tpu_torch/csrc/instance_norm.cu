@@ -445,7 +445,11 @@ __device__ void chan_fold(const float* p, size_t stride, int C, int lo, int hi, 
 // order: the last tile of each group of kFoldGroup tiles to arrive merges
 // the group's partials in tile order and writes the group's (mean, M2) over
 // its first tile's; the last group of the sample to arrive merges the
-// groups in order and writes mean and rstd. arrivals holds, per (sample, segment), one counter per group and one for the
+// groups in order and writes mean and rstd, or, with m2_out, mean and the
+// slab's M2 in place of rstd: a spatially sharded tensor's slab, whose
+// (count, mean, M2) the caller merges with the other shards' (Chan) before
+// the normalise kernel runs. (M2 cannot be recovered from rsqrt(var + eps)
+// where var << eps.) arrivals holds, per (sample, segment), one counter per group and one for the
 // sample, at [(n * nseg + seg) * (n_groups + 1)]: zero on entry, and reset
 // to zero by the block that merges.
 template <typename T>
@@ -453,7 +457,7 @@ __global__ void __launch_bounds__(kSplitMaxThreads)
 inorm_split_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
                          int* __restrict__ arrivals, float* __restrict__ mean_out,
                          float* __restrict__ rstd_out, int S, int C, int vecs, int R,
-                         float eps) {
+                         float eps, int m2_out) {
   using V = Vec<T>;
   constexpr int kN = V::kN;
   extern __shared__ uint4 tile[];                  // R x vecs vectors, then red
@@ -555,7 +559,7 @@ inorm_split_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
     chan_fold(p + i, kFoldGroup * stride, C, 0, n_groups, rows_of_group, count, mean, m2);
     const int c = u.n * C + u.seg * width + i;
     mean_out[c] = mean;
-    rstd_out[c] = 1.f / sqrtf(m2 / S + eps);
+    rstd_out[c] = m2_out ? m2 : 1.f / sqrtf(m2 / S + eps);
   }
   if (threadIdx.x == 0) arrival[n_groups] = 0;
 }
@@ -680,8 +684,8 @@ unsigned split_blocks(int n, int s, int c, int seg_bytes, int rows) {
 
 template <typename T>
 int launch_split_stats(const void* x, void* partial, void* arrivals, void* mean, void* rstd,
-                       int n, int s, int c, int seg_bytes, int rows, int threads, float eps,
-                       cudaStream_t stream) {
+                       int n, int s, int c, int seg_bytes, int rows, int threads, int m2_out,
+                       float eps, cudaStream_t stream) {
   constexpr int kN = Vec<T>::kN;
   const int vecs = split_vecs<T>(s, c, seg_bytes, rows, threads);
   if (!vecs) return static_cast<int>(cudaErrorInvalidValue);
@@ -700,7 +704,7 @@ int launch_split_stats(const void* x, void* partial, void* arrivals, void* mean,
   }
   kernel<<<split_blocks<T>(n, s, c, seg_bytes, rows), threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<float*>(partial), static_cast<int*>(arrivals),
-      static_cast<float*>(mean), static_cast<float*>(rstd), s, c, vecs, rows, eps);
+      static_cast<float*>(mean), static_cast<float*>(rstd), s, c, vecs, rows, eps, m2_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -749,16 +753,16 @@ int inorm_onepass(const void* x, void* y, void* mean, void* rstd, int n, int s, 
 // The split form's two kernels, at tiles of tile_rows rows x seg_bytes of
 // each row, threads per block. partial: (n, tiles, 2, c) fp32 scratch, tiles
 // = ceil(s / tile_rows); arrivals: n * (c * itemsize / seg_bytes) *
-// (tiles + 1) ints or more, zero.
+// (tiles + 1) ints or more, zero. m2_out: write the slab's M2 to rstd.
 int inorm_split_stats(const void* x, void* partial, void* arrivals, void* mean, void* rstd,
                       int n, int s, int c, int dtype, int seg_bytes, int tile_rows,
-                      int threads, float eps, void* stream) {
+                      int threads, int m2_out, float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 1
       ? launch_split_stats<__nv_bfloat16>(x, partial, arrivals, mean, rstd, n, s, c, seg_bytes,
-                                          tile_rows, threads, eps, st)
+                                          tile_rows, threads, m2_out, eps, st)
       : launch_split_stats<float>(x, partial, arrivals, mean, rstd, n, s, c, seg_bytes,
-                                  tile_rows, threads, eps, st);
+                                  tile_rows, threads, m2_out, eps, st);
 }
 
 int inorm_split_norm(const void* x, const void* mean, const void* rstd, void* y, int n,

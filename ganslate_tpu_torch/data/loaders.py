@@ -9,7 +9,9 @@
 
 The loader yields numpy batches; the model's `set_input` moves them to the
 device. Each process loads its share of the global batch (`batch_size /
-world_size`); the sampler strides the indices across processes.
+data ranks`); the sampler strides the indices across the data ranks. The
+spatial ranks of one data rank (`train.spatial_mesh`) load the same samples
+with the same random draws, and each keeps its slab (`BaseGAN.set_input`).
 """
 
 import inspect
@@ -45,7 +47,7 @@ class DataLoader:
     """Iterable over collated batches.
 
     `batch_size` is the global batch size; this loader yields this process's
-    share (global / world size). A finite sampler yields a final short batch
+    share (global / data ranks). A finite sampler yields a final short batch
     unless `drop_last`.
     """
 
@@ -80,8 +82,8 @@ class DataLoader:
         """Batches of (index, raw_position) pairs; raw_position is the
         sample's slot in the shared pre-striding stream (rank + pos*world),
         unique and stable across a resume, so it can seed the sample's RNG."""
-        rank = communication.get_rank()
-        world = communication.get_world_size()
+        rank = communication.get_data_rank()
+        world = communication.get_data_size()
         pos = int(getattr(self.sampler, "position", 0))
         batch: List[tuple] = []
         for idx in self.sampler:

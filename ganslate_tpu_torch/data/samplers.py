@@ -1,8 +1,9 @@
 """Index samplers for the host data plane (the JAX package's
 `data/samplers.py`, with the same arithmetic).
 
-`InfiniteSampler`: an infinite shuffled index stream, rank-strided so every
-process draws disjoint indices from one shared-seed permutation stream, and
+`InfiniteSampler`: an infinite shuffled index stream, strided over the data
+ranks so every data rank draws disjoint indices from one shared-seed
+permutation stream (the spatial ranks of one data rank draw the same), and
 resumable from `(seed, position)`. `SequentialShardSampler`: a finite,
 in-order pass for evaluation and inference.
 """
@@ -32,8 +33,8 @@ class InfiniteSampler:
         self._size = size
         self._shuffle = shuffle
         self._seed = communication.shared_random_seed() if seed is None else seed
-        self._rank = communication.get_rank()
-        self._world_size = communication.get_world_size()
+        self._rank = communication.get_data_rank()
+        self._world_size = communication.get_data_size()
         self._position = 0
 
     @property

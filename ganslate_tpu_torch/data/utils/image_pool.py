@@ -18,7 +18,11 @@ Data parallel, the pool is replicated over the global batch, as the JAX
 package's is on its `data` mesh: a query gathers every rank's images in rank
 order, runs the same pool with the same generator on every rank, and
 returns this rank's slice. The pools then stay equal on every rank, and rank
-0's checkpoint holds the one state that all ranks share.
+0's checkpoint holds the one state that all ranks share. Spatially sharded,
+the batch is gathered over the data ranks only: each rank keeps its own slab
+of every image of the global batch, and the draws, the same on every rank,
+keep the slabs of one image together (the checkpoint gathers them,
+`BaseGAN.save_checkpoint`).
 """
 
 from typing import Dict, Optional, Sequence, Tuple
@@ -68,7 +72,7 @@ class ImagePool:
             elif u > 0.5:
                 returned[i].copy_(self.images[idx])
                 self.images[idx].copy_(images[i])
-        start = communication.get_rank() * local
+        start = communication.get_data_rank() * local
         return returned[start:start + local]
 
     def state_dict(self) -> Dict[str, object]:

@@ -1,10 +1,21 @@
 """Engine bases: mode isolation and the shared inference path (the JAX
-package's `ganslate_tpu/engines/base.py`): the direct forward, or the
-sliding window when the mode's config sets `sliding_window`; and the
-dispatch of outputs to the dataset's `save()` hook, with each sample's
-metadata."""
+package's `ganslate_tpu/engines/base.py`): the direct forward, the sliding
+window when the mode's config sets `sliding_window`, or the volume sharded
+over the spatial ranks when it sets `spatial_sharding` and the spatial group
+has more than one rank (`parallel/spatial.py`); and the dispatch of outputs
+to the dataset's `save()` hook, with each sample's metadata.
+
+`spatial_sharding` in test or infer under torchrun makes every rank one
+spatial rank of the whole volume (`communication.init_groups(world)`): each
+rank loads every sample and holds a slab of it. The Validator shards over
+the training's spatial groups (`train.spatial_mesh`); with one spatial rank
+it runs the direct forward. Method 'gspmd' runs the network on the slabs
+with halo exchange and global norm statistics (exact); 'halo' runs it on
+each slab plus `halo` rows of its neighbours' with per-slab statistics.
+Either returns the whole volume on every rank."""
 
 import copy
+import dataclasses
 import logging
 from abc import ABC, abstractmethod
 from pathlib import Path
@@ -12,6 +23,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ganslate_tpu_torch.configs.validation_testing import SpatialShardingConfig
+from ganslate_tpu_torch.parallel import spatial
+from ganslate_tpu_torch.utils import communication
 from ganslate_tpu_torch.utils.io import decollate
 from ganslate_tpu_torch.utils.sliding_window_inferer import SlidingWindowInferer
 
@@ -36,20 +50,33 @@ class BaseEngine(ABC):
         """Set self.conf.mode for this engine ('train', 'val', ...)."""
 
 
+def _spatial_sharding(section) -> SpatialShardingConfig:
+    """The mode's `spatial_sharding` section with the config class's
+    defaults for the fields it leaves out (a section set from the command
+    line alone, `infer.spatial_sharding.method=halo`, has only those)."""
+    return SpatialShardingConfig(**{f.name: getattr(section, f.name)
+                                    for f in dataclasses.fields(SpatialShardingConfig)
+                                    if f.name in section})
+
+
 class BaseEngineWithInference(BaseEngine):
 
     def __init__(self, conf):
         super().__init__(conf)
         self.sliding_window_inferer = self._init_sliding_window_inferer()
         mode_conf = self.conf[self.conf.mode]
-        self.spatial_sharding = mode_conf.spatial_sharding \
-            if "spatial_sharding" in mode_conf else None
+        self.spatial_sharding = _spatial_sharding(mode_conf.spatial_sharding) \
+            if "spatial_sharding" in mode_conf and mode_conf.spatial_sharding else None
         if self.sliding_window_inferer and self.spatial_sharding:
             raise ValueError("Use either sliding_window or spatial_sharding, not both.")
         if self.spatial_sharding:
-            self.logger.info("spatial_sharding (spatially sharded inference) is not ported "
-                             "yet, and comes with the port's next slice of distribution; "
-                             "inference runs the direct forward.")
+            method = self.spatial_sharding.method
+            if method not in ("gspmd", "halo"):
+                raise ValueError(f"spatial_sharding.method must be 'gspmd' or 'halo', "
+                                 f"got {method!r}")
+            if self.conf.mode != "val":
+                # Every rank holds a slab of the same volumes.
+                communication.init_groups(communication.get_world_size())
         # bf16 wire format (InferenceConfig.wire_dtype): a float32 host input
         # crosses to the device as bf16 (bit-identical to the in-network cast)
         # and predictions come back bf16. Modes without the field keep fp32.
@@ -68,9 +95,27 @@ class BaseEngineWithInference(BaseEngine):
             def network(windows):
                 return self.model.infer(windows, *args, out_dtype=None, **kwargs)
             out = self.sliding_window_inferer(data.to(self.model.device), network)
+        elif self.spatial_sharding and communication.get_spatial_size() > 1:
+            out = self._sharded_infer(data.to(self.model.device), *args, **kwargs)
         else:
             out = self.model.infer(data, *args, **kwargs)
         return self._from_wire(out).cpu()
+
+    def _sharded_infer(self, data, *args, **kwargs) -> torch.Tensor:
+        """The volume split along `spatial_sharding.dim` over the spatial
+        ranks, by its method; the whole output on every rank."""
+        dim = self.spatial_sharding.dim + 1          # +1: the batch dim first
+        method = self.spatial_sharding.method
+
+        def network(x):
+            return self.model.infer(x, *args, **kwargs)
+
+        if method == "gspmd":
+            served = {k: v for k, v in self.model.networks.items() if k.startswith("G")}
+            spatial.check_sharded(self.model, served)
+            return spatial.spatially_sharded_infer_gspmd(network, data, dim=dim)
+        return spatial.spatially_sharded_infer(network, data, halo=self.spatial_sharding.halo,
+                                               dim=dim)
 
     def _to_wire(self, data) -> torch.Tensor:
         """Down-cast float32 to bf16 before the host-to-device copy. A tensor
@@ -104,7 +149,8 @@ class BaseEngineWithInference(BaseEngine):
         one, with the sample's metadata, under
         `<output_dir>/<mode>/saved/[<dataset_name>/][<idx>/]`."""
         save_fn = getattr(data_loader.dataset, "save", False)
-        if not save_fn:
+        # The spatial ranks of a data rank hold the same whole outputs.
+        if not save_fn or communication.get_spatial_rank() != 0:
             return
 
         save_dir = "saved/"

@@ -52,9 +52,9 @@ class Inferer(BaseEngineWithInference):
             "`Inferer.run()` cannot be used in deployment, please use `Inferer.infer()`."
         self.logger.info("Inference started.")
 
-        # Examples one loop iteration advances globally: every process
+        # Examples one loop iteration advances globally: every data rank
         # consumes its own batch.
-        stride = communication.get_world_size() * self.conf.infer.batch_size
+        stride = communication.get_data_size() * self.conf.infer.batch_size
         n_examples = len(self.data_loader.dataset)
         input_key = None
 

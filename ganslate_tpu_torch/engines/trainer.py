@@ -60,6 +60,10 @@ class Trainer(BaseEngine):
         if self.conf.train.seed:
             environment.set_seed(self.conf.train.seed)
 
+        # `train.spatial_mesh`: data x spatial ranks, before the loader splits
+        # the samples over the data ranks.
+        communication.init_groups(self.conf.train.spatial_mesh or 1)
+
         self.tracker = TrainingTracker(self.conf)
 
         self.data_loader = build_loader(self.conf)
@@ -219,7 +223,8 @@ class Trainer(BaseEngine):
     # ------------------------------------------------- data-plane checkpoint
 
     def _save_model_checkpoint(self, iter_idx):
-        """The data-plane sidecar `{sampler_seed, position, world_size}` in
+        """The data-plane sidecar `{sampler_seed, position, world_size}` (the
+        data ranks, which stride the stream) in
         `checkpoints/data_state_<iter>.json`, then the model checkpoint,
         both written by rank 0; every rank calls it, and the model's save
         ends at a barrier of all ranks. The position is what training
@@ -231,7 +236,7 @@ class Trainer(BaseEngine):
             state = {
                 "sampler_seed": int(sampler.seed),
                 "position": int(iter_idx * self.data_loader.local_batch_size),
-                "world_size": communication.get_world_size(),
+                "world_size": communication.get_data_size(),
             }
             path = self.model._checkpoint_dir() / f"data_state_{iter_idx}.json"
             path.parent.mkdir(parents=True, exist_ok=True)
@@ -252,7 +257,7 @@ class Trainer(BaseEngine):
         state = json.loads(path.read_text())
         position = int(state["position"])
         saved_ws = int(state.get("world_size") or 1)
-        world_size = communication.get_world_size()
+        world_size = communication.get_data_size()
         if saved_ws != world_size:
             # Ranks interleave the shared raw stream, so a run at world size
             # W with every process at position P consumed the first P*W raw

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ganslate_tpu_torch.nn.layers import Conv, make_initializer
+from ganslate_tpu_torch.parallel import spatial as spatial_sharding
 
 
 class SelfAttentionBlock(nn.Module):
@@ -44,6 +45,7 @@ class SelfAttentionBlock(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
+        spatial_sharding.refuse("The self-attention block")
         n, c, *spatial = x.shape
         # (N, C, *spatial) -> (N, S, C): a view for a channels-last input.
         rows = x.permute(0, *range(2, x.ndim), 1).reshape(n, -1, c)

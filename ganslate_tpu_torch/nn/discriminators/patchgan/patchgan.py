@@ -6,6 +6,14 @@ channels (at most 8 ndf), each with instance norm + LeakyReLU; one k4 s1
 conv with norm + LeakyReLU; a k4 s1 conv to a 1-channel patch map of logits
 (no sigmoid: the adversarial loss takes logits).
 
+Spatially sharded (`parallel/spatial.py`), each conv exchanges halos with
+the neighbouring shards while its output splits evenly over them. The
+stride-1 tail (`penultimate`, `head`) takes an extent E to E - 1, which
+does not: the first conv that does not split gathers its input along the
+sharded dim (an all-gather, counted in `spatial.COUNTS`), and the tail runs
+on the whole tensor on every rank: each rank returns the whole output, and
+`spatial.global_mean` counts it once.
+
 Takes and returns `(N, C, *spatial)`. The conv submodules carry the JAX
 package's names (`stem`, `down{n}`, `penultimate`, `head`) and the norms
 flax's automatic ones (`NormAct_0` .. `NormAct_{n_layers - 1}`, the last
@@ -21,6 +29,7 @@ from torch import nn
 
 from ganslate_tpu_torch.nn.layers import (Conv, NormAct, inert_bias, is_bias_before_norm,
                                           leaky_relu, make_initializer)
+from ganslate_tpu_torch.parallel import spatial
 
 
 def check_output_extents(name: str, spatial: Sequence[int], stages, n_layers: int):
@@ -43,6 +52,7 @@ def check_output_extents(name: str, spatial: Sequence[int], stages, n_layers: in
 
 class PatchGAN(nn.Module):
 
+    spatially_sharded = True
     kernel_size = (4, 4)
 
     def __init__(self, in_channels: int, ndf: int = 64, n_layers: int = 3,
@@ -77,9 +87,26 @@ class PatchGAN(nn.Module):
                          generator=generator)
         self.stages = [(kw, 2, 1)] * n_layers + [(kw, 1, 1)] * 2
 
+    def _steps(self):
+        """(conv, what follows it) in forward order."""
+        steps = [(self.stem, leaky_relu)]
+        steps += [(getattr(self, f"down{n}"), getattr(self, f"NormAct_{n - 1}"))
+                  for n in range(1, self.n_layers)]
+        steps.append((self.penultimate, getattr(self, f"NormAct_{self.n_layers - 1}")))
+        return steps + [(self.head, None)]
+
     def forward(self, x):
-        h = leaky_relu(self.stem(x))
-        for n in range(1, self.n_layers):
-            h = getattr(self, f"NormAct_{n - 1}")(getattr(self, f"down{n}")(h))
-        h = getattr(self, f"NormAct_{self.n_layers - 1}")(self.penultimate(h))
-        return self.head(h)
+        steps = self._steps()
+        scope = spatial.active()
+        for i, (conv, after) in enumerate(steps):
+            if scope is not None:
+                d = scope.spatial_dim
+                if spatial.conv_halo(conv.weight.shape[2 + d], conv.strides[d],
+                                     conv.padding[d], x.shape[2 + d]) is None:
+                    x = spatial.gather(x, 2 + d, scope)
+                    with spatial.suspended():
+                        for conv, after in steps[i:]:
+                            x = conv(x) if after is None else after(conv(x))
+                    return x
+            x = conv(x) if after is None else after(conv(x))
+        return x

@@ -38,6 +38,19 @@ axis), the seed is rank 0's when
 `train.seed` is unset, and rank 0 writes the checkpoints, which every rank
 loads. The model's state is then the same on every rank.
 
+Spatially sharded (`train.spatial_mesh: n`, `communication.init_groups`),
+the ranks of a spatial group train on one sample's slabs along its first
+spatial dim (`parallel/spatial.py`): `set_input` keeps this rank's slab of
+each leaf where the JAX package's rule shards it (`parallel.leaf_is_sharded`;
+otherwise every rank keeps the whole leaf and only the losses are shares),
+each train step runs inside `spatial.spatial_scope`, a loss is this rank's
+share of the global mean, the gradients are summed over the spatial group
+and averaged over the data group, and the reported losses and metrics are
+the spatial group's sums. The pools hold this rank's slabs; checkpoints
+hold whole images. Only a model and networks that declare
+`spatially_sharded` shard (`spatial.check_sharded`): the CycleGAN family on
+the Vnet3D, Resnet2D/3D and PatchGAN2D/3D.
+
 Mixed precision is the JAX package's bf16 compute policy, not autocast: the
 fp32 master parameters and the input are cast to bf16 at each network
 application (differentiably, so Adam updates the fp32 masters), the network
@@ -58,12 +71,13 @@ import torch
 from torch.func import functional_call
 
 from ganslate_tpu_torch.nn.utils import make_lr_schedule
-from ganslate_tpu_torch.parallel import average_gradients, broadcast_module, global_batch
+from ganslate_tpu_torch.parallel import (average_gradients, broadcast_module,
+                                         broadcast_spatial, global_batch, leaf_is_sharded,
+                                         spatial, spatial_slab)
 from ganslate_tpu_torch.utils import communication
 from ganslate_tpu_torch.utils.metrics.train_metrics import TrainingMetrics
 
 logger = logging.getLogger(__name__)
-
 
 def select_device(cuda: bool) -> torch.device:
     """`cuda: true` -> `cuda:(LOCAL_RANK % device_count)` (cuda:0 in one
@@ -125,13 +139,13 @@ class BaseGAN(ABC):
         # The per-step batches of a chunk (`set_input_multi`).
         self._chunk: Optional[list] = None
         self._drawn_seed: Optional[int] = None
-
-        if self.is_train:
-            train = conf.train
-            if train.spatial_mesh:
-                raise NotImplementedError("`train.spatial_mesh` (spatially sharded "
-                                          "training) is not ported yet: the port trains "
-                                          "data parallel only.")
+        # Spatial ranks per sample (`train.spatial_mesh`), and whether the
+        # batches' leaves are slabs (`set_input`).
+        self.n_spatial = 1
+        self._sharded = False
+        if self.is_train and (conf.train.spatial_mesh or 1) > 1:
+            communication.init_groups(conf.train.spatial_mesh)
+            self.n_spatial = communication.get_spatial_size()
 
     def _seed(self) -> int:
         """`train.seed`; when it is unset, a fresh seed drawn once for this
@@ -169,6 +183,8 @@ class BaseGAN(ABC):
             if self.device.type == "cuda" and name.startswith(("G", "D")):
                 net = net.to(memory_format=channels_last_format(net))
             self.networks[name] = net.train(self.is_train)
+        if self.n_spatial > 1:
+            spatial.check_sharded(self, self.networks)
 
     def build_network(self, name: str, generator: torch.Generator) -> torch.nn.Module:
         """A network that is neither a generator nor a discriminator (CUT's
@@ -212,6 +228,7 @@ class BaseGAN(ABC):
             self.init_criterions()
             self.init_optimizers()
             self.init_metrics()
+            example_batch, self._sharded = self._slabs(example_batch)
             self.init_pools(example_batch)
             self.init_rng()
             load_iter = self.conf.train.checkpointing.load_iter
@@ -365,18 +382,72 @@ class BaseGAN(ABC):
             for p in params:
                 p.requires_grad_(True)
 
+    def _slabs(self, batch: Dict):
+        """`(batch, sharded)`: the host batch's arrays, this rank's slab of
+        each along the first spatial dim where the shard rule
+        (`parallel.leaf_is_sharded`) splits them over the spatial ranks.
+        Raises when the rule splits some image leaves and not others."""
+        arrays = {k: v for k, v in batch.items() if hasattr(v, "shape")}
+        images = self._sharded_leaves(arrays)
+        if images:
+            index = communication.get_spatial_rank()
+            arrays = {k: spatial_slab(v, 1, index, self.n_spatial) if k in images else v
+                      for k, v in arrays.items()}
+        return arrays, bool(images)
+
+    def _sharded_leaves(self, arrays: Dict):
+        """The image leaves of `arrays` that the shard rule splits over the
+        spatial ranks: all of them or none."""
+        if self.n_spatial == 1:
+            return []
+        images = {k: leaf_is_sharded(np.shape(v), self.n_spatial) for k, v in arrays.items()
+                  if np.ndim(v) >= 3}
+        if any(images.values()) and not all(images.values()):
+            raise ValueError(f"spatially sharded training needs every image leaf split or "
+                             f"every one replicated over the {self.n_spatial} spatial ranks; "
+                             f"the first spatial dims {[np.shape(arrays[k])[1] for k in images]}"
+                             f" of {list(images)} are split as {list(images.values())}")
+        return [k for k, split in images.items() if split]
+
+    def _place(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The host batch's arrays on the device. Spatially sharded, the
+        spatial group takes its first rank's sample (`parallel.
+        broadcast_spatial`: a dataset that draws from unseeded or global
+        RNGs, or from loader threads, gives each process other draws) and
+        keeps this rank's slab of each leaf the shard rule splits."""
+        arrays = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
+                  if hasattr(v, "shape")}
+        images = self._sharded_leaves(arrays)
+        self._sharded = bool(images)
+        if self.n_spatial == 1:
+            return arrays
+        broadcast_spatial(arrays)
+        index = communication.get_spatial_rank()
+        return {k: spatial_slab(v, 1, index, self.n_spatial).contiguous() if k in images else v
+                for k, v in arrays.items()}
+
+    def _spatial_scope(self):
+        """The train step's spatial scope (None without spatial ranks)."""
+        if self.n_spatial == 1:
+            return None
+        return spatial.make_scope(0, self._sharded)
+
     def set_input(self, batch: Dict):
-        """Place the host batch's arrays `(N, *spatial, C)` on the device."""
+        """Place the host batch's arrays `(N, *spatial, C)` on the device
+        (this rank's slabs, spatially sharded: `_place`)."""
         self._chunk = None
-        self._batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
-                       if hasattr(v, "shape")}
+        self._batch = self._place(batch)
 
     def set_input_multi(self, batches: Sequence[Dict]):
         """Multi-step dispatch (`train.steps_per_dispatch`): stack the array
         keys of k host batches on a new leading axis, place the stack on the
         device in one copy per key, and let `optimize_parameters` run the k
         steps. A chunk may be shorter than k (the end of a run), even of
-        length 1."""
+        length 1. Spatially sharded, each batch is placed by `_place`."""
+        if self.n_spatial > 1:
+            self._chunk = [self._place(b) for b in batches]
+            self._batch = self._chunk[-1]
+            return
         stacked = {k: torch.as_tensor(np.stack([np.asarray(b[k]) for b in batches]))
                    .to(self.device) for k, v in batches[0].items() if hasattr(v, "shape")}
         self._chunk = [{k: v[i] for k, v in stacked.items()} for i in range(len(batches))]
@@ -399,8 +470,10 @@ class BaseGAN(ABC):
                 lr = self.lr_schedules[group](self._update_count(optimizer))
                 for param_group in optimizer.param_groups:
                     param_group["lr"] = lr
-            with global_batch():
+            with global_batch(), spatial.spatial_scope(self._spatial_scope()):
                 self.losses, self.visuals, self.metrics = self.train_step()
+                # Each rank's losses are its shares: the sample's are their sum.
+                self.losses = spatial.total_dict(self.losses)
             logged.append((self.losses, self.metrics))
         if len(logged) > 1:
             self.losses = _chunk_mean([losses for losses, _ in logged])
@@ -422,8 +495,13 @@ class BaseGAN(ABC):
         """Learning rates, and the losses, visuals and metrics of the last
         step as device tensors (visuals in the compute dtype). A reader
         copies what it logs to the host (the training tracker, on its log
-        iterations), so that the other iterations add no device work."""
-        return self.get_learning_rates(), self.losses, self.visuals, self.metrics
+        iterations), so that the other iterations add no device work.
+        Spatially sharded, the visuals are slabs whose `gather()` (a
+        collective: every rank calls it) gives the whole images."""
+        visuals = self.visuals
+        if self._sharded:
+            visuals = SlabVisuals(visuals, self._spatial_scope())
+        return self.get_learning_rates(), self.losses, visuals, self.metrics
 
     # ------------------------------------------------------------ inference
 
@@ -482,20 +560,28 @@ class BaseGAN(ABC):
         wait at a barrier, so that no rank reads the file before it is
         whole."""
         path = self._checkpoint_dir() / f"{iter_idx}.pth"
+        pools = {name: self._pool_state(pool) for name, pool in self._saved_pools().items()}
         if communication.is_main_process():
             path.parent.mkdir(parents=True, exist_ok=True)
             logger.info(f"Saving checkpoint at iteration {iter_idx} -> {path}")
             payload = {name: net.state_dict() for name, net in self.networks.items()}
             payload.update({f"optimizer_{group}": optimizer.state_dict()
                             for group, optimizer in self.optimizers.items()})
-            payload.update({f"pool_{name}": pool.state_dict()
-                            for name, pool in self._saved_pools().items()})
+            payload.update({f"pool_{name}": state for name, state in pools.items()})
             if self.rng is not None and self._stochastic():
                 payload["rng"] = self.rng.get_state()
                 if self._draws_on_host():
                     payload["host_rng"] = self.host_rng.get_state()
             torch.save(payload, path)
         communication.synchronize()
+
+    def _pool_state(self, pool):
+        """A pool's state dict with whole images: this rank's slabs gathered
+        along the first spatial dim (a collective: every rank calls it)."""
+        state = pool.state_dict()
+        if self._sharded:
+            state["images"] = spatial.gather(state["images"], 1, self._spatial_scope())
+        return state
 
     def _saved_pools(self):
         """The pools with a state: `pool_size = 0` is a pass-through."""
@@ -530,7 +616,11 @@ class BaseGAN(ABC):
         pools = self._saved_pools()
         if all(f"pool_{name}" in checkpoint for name in pools):
             for name, pool in pools.items():
-                pool.load_state_dict(checkpoint[f"pool_{name}"])
+                state = checkpoint[f"pool_{name}"]
+                if self._sharded:
+                    state = {**state, "images": spatial_slab(
+                        state["images"], 1, communication.get_spatial_rank(), self.n_spatial)}
+                pool.load_state_dict(state)
         else:
             logger.info("Checkpoint holds no image pools (one of the original ganslate); "
                         "pools start fresh.")
@@ -542,3 +632,15 @@ class BaseGAN(ABC):
             else:
                 logger.info("Checkpoint holds no generator state; train-time randomness "
                             "starts fresh from the seed.")
+
+
+class SlabVisuals(dict):
+    """A train step's visuals as this rank's slabs of spatially sharded
+    samples; `gather()` returns the whole images, on every rank."""
+
+    def __init__(self, visuals, scope):
+        super().__init__(visuals)
+        self.scope = scope
+
+    def gather(self) -> Dict[str, torch.Tensor]:
+        return {k: spatial.gather(v, 1, self.scope) for k, v in self.items()}

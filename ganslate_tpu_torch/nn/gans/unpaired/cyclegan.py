@@ -41,6 +41,8 @@ class CycleGANConfig(configs.base.BaseGANConfig):
 
 class CycleGAN(BaseGAN):
 
+    spatially_sharded = True
+
     def __init__(self, conf):
         super().__init__(conf)
         network_names = ["G_AB", "G_BA", "D_B", "D_A"] if self.is_train else ["G_AB"]

@@ -36,6 +36,9 @@ class RevGANConfig(configs.base.BaseGANConfig):
 
 class RevGAN(cyclegan.CycleGAN):
 
+    # Its couplings are not sharded yet.
+    spatially_sharded = False
+
     def __init__(self, conf):
         super().__init__(conf)
         network_names = ["G", "D_B", "D_A"] if self.is_train else ["G"]

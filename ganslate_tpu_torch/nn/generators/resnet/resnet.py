@@ -42,6 +42,7 @@ from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, NormAct, batch_no
 
 
 class ResidualBlock(nn.Module):
+    spatially_sharded = True
 
     def __init__(self, features: int, norm_type: str, pad_mode: str, spatial_dims: int,
                  kernel_init, generator: Optional[torch.Generator] = None):
@@ -65,6 +66,7 @@ class ResidualBlock(nn.Module):
 class ResnetGenerator(nn.Module):
     """Takes and returns `(N, C, *spatial)`."""
 
+    spatially_sharded = True
     spatial_dims = 2
     # 2D reference uses ReflectionPad, 3D uses ReplicationPad.
     pad_mode = "reflect"
@@ -91,8 +93,9 @@ class ResnetGenerator(nn.Module):
         k3 = (3,) * self.spatial_dims
         k7 = (7,) * self.spatial_dims
 
-        self.initial = Conv(in_channels, ngf, k7, padding=0, use_bias=use_bias,
-                            bias_inert=inert, kernel_init=init, generator=generator)
+        self.initial = Conv(in_channels, ngf, k7, padding=3, pad_mode=self.pad_mode,
+                            use_bias=use_bias, bias_inert=inert, kernel_init=init,
+                            generator=generator)
         self.BatchNorm_0 = batch_norm_or_none(norm_type, ngf)
 
         feats = ngf
@@ -131,8 +134,8 @@ class ResnetGenerator(nn.Module):
 
     def _encoder(self, x):
         """The encoder's activations in tap order, computed as they are read."""
-        h = pad_spatial(x, (3,) * self.spatial_dims, self.pad_mode)
-        yield h
+        yield pad_spatial(x, (3,) * self.spatial_dims, self.pad_mode)
+        h = x
         for i, conv in enumerate(("initial", "down0", "down1")):
             h = getattr(self, conv)(h, live_bias=True)
             yield h
@@ -159,8 +162,7 @@ class ResnetGenerator(nn.Module):
                                  f"{self.num_feature_levels}")
             taps = list(itertools.islice(self._encoder(x), max(indices, default=-1) + 1))
             return [taps[i] for i in indices]
-        h = pad_spatial(x, (3,) * self.spatial_dims, self.pad_mode)
-        h = self._norm(0, self.initial(h))
+        h = self._norm(0, self.initial(x))
         for i in range(2):
             h = self._norm(i + 1, getattr(self, f"down{i}")(h))
         for i in range(self.n_residual_blocks):

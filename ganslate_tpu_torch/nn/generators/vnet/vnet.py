@@ -72,6 +72,8 @@ def _norm_prelu(block, h):
 class VnetInvBlock(nn.Module):
     """The half-width function inside the couplings: k5 conv + norm + PReLU."""
 
+    spatially_sharded = True
+
     def __init__(self, features, norm_type, spatial_dims, kernel_init, generator=None,
                  is_separable=False):
         super().__init__()
@@ -86,6 +88,8 @@ class VnetInvBlock(nn.Module):
 
 
 class InputBlock(nn.Module):
+
+    spatially_sharded = True
 
     def __init__(self, in_channels, out_channels, norm_type, spatial_dims, kernel_init,
                  generator=None, is_separable=False):
@@ -107,6 +111,8 @@ class InputBlock(nn.Module):
 
 class _DownConv(nn.Module):
 
+    spatially_sharded = True
+
     def __init__(self, in_features, features, norm_type, spatial_dims, kernel_init,
                  generator=None, is_separable=False):
         super().__init__()
@@ -121,6 +127,8 @@ class _DownConv(nn.Module):
 
 
 class _UpConv(nn.Module):
+
+    spatially_sharded = True
 
     def __init__(self, in_features, features, norm_type, spatial_dims, kernel_init,
                  generator=None, is_separable=False):
@@ -145,6 +153,8 @@ def _core(channels, n_blocks, norm_type, spatial_dims, use_memory_saving, kernel
 
 class DownBlock(nn.Module):
 
+    spatially_sharded = True
+
     def __init__(self, in_channels, n_conv_blocks, norm_type, spatial_dims, use_memory_saving,
                  use_inverse, kernel_init, generator=None, is_separable=False):
         super().__init__()
@@ -163,6 +173,8 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
+
+    spatially_sharded = True
 
     def __init__(self, in_channels, out_channels, n_conv_blocks, norm_type, spatial_dims,
                  use_memory_saving, use_inverse, kernel_init, generator=None,
@@ -184,6 +196,8 @@ class UpBlock(nn.Module):
 
 
 class OutBlock(nn.Module):
+
+    spatially_sharded = True
 
     def __init__(self, in_channels, out_channels, norm_type, spatial_dims, kernel_init,
                  generator=None, is_separable=False):

@@ -23,4 +23,5 @@ class Vnet3DConfig(configs.base.BaseGeneratorConfig):
 
 
 class Vnet3D(VnetGenerator):
+    spatially_sharded = True
     spatial_dims = 3

@@ -112,6 +112,11 @@ class InvertibleSequence(nn.Module):
         self.blocks = nn.ModuleList(
             nn.ModuleDict({"F": make_block(), "G": make_block()}) for _ in range(n_blocks))
 
+    @property
+    def spatially_sharded(self) -> bool:
+        # The recompute-by-inverse backward is not sharded yet.
+        return not self.use_memory_saving
+
     def block_tensors(self) -> Tuple[List[Tuple[int, str, str]], List[torch.Tensor]]:
         """`(names, tensors)`: every tensor the blocks compute with in this
         call, as `(block, "F" or "G", parameter name)` and the tensor bound

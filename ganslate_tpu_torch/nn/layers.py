@@ -9,6 +9,12 @@ registers them. On the GPU the generator keeps its activations in
 kernels take (the JAX package's layout) is a free permute.
 
 One implementation serves 2D and 3D: the spatial rank is `len(kernel_size)`.
+
+Inside a sharded `parallel.spatial.spatial_scope` the tensors are slabs of
+the samples along one spatial dim: the convs and `pad_spatial` exchange
+halo rows with the neighbouring shards, instance norm takes the whole
+sample's statistics and batch norm the world's, and the dropout mask is
+drawn over the whole extent and sliced (`parallel/spatial.py`).
 """
 
 import functools
@@ -20,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ganslate_tpu_torch.ops.instance_norm import instance_norm
-from ganslate_tpu_torch.parallel import all_reduce_sum, batch_spans_ranks
+from ganslate_tpu_torch.parallel import all_reduce_sum, batch_spans_ranks, spatial
 from ganslate_tpu_torch.utils import communication
 
 # ------------------------------------------------------------- initializers
@@ -110,12 +116,22 @@ def pad_spatial(x: torch.Tensor, pad: Sequence[int], mode: str = "zeros") -> tor
     channels-last view `(N, S, C)` in one pass, so a channels-last input
     gives a channels-last output. (`F.pad`'s CUDA reflection kernel copies
     a channels-last input to NCHW and returns NCHW, which cuDNN then copies
-    back: three passes instead of one.)"""
+    back: three passes instead of one.)
+
+    In a sharded scope the sharded dim takes the neighbours' rows on its
+    interior sides and pads by `mode` only at the global edges."""
     if mode not in _PAD_MODES:
         raise ValueError(f"pad mode must be one of {_PAD_MODES}, got {mode!r}")
     pad = tuple(pad)
     if all(p == 0 for p in pad):
         return x
+    scope = spatial.active()
+    if scope is not None:
+        d = scope.spatial_dim
+        x = spatial.pad_halo(x, pad[d], pad[d], 2 + d, mode, scope)
+        pad = pad[:d] + (0,) + pad[d + 1:]
+        with spatial.suspended():
+            return pad_spatial(x, pad, mode)
     if mode == "zeros":
         flat = []
         for p in reversed(pad):     # F.pad lists the last dim first
@@ -160,6 +176,8 @@ class Conv(nn.Module):
     `inert_bias`; `forward(x, live_bias=True)` gives the bias its gradient
     for that call (`_bias`)."""
 
+    spatially_sharded = True
+
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  strides: Union[int, Sequence[int]] = 1,
                  padding: Union[int, Sequence[int]] = 0, pad_mode: str = "zeros",
@@ -179,10 +197,19 @@ class Conv(nn.Module):
         self.bias_inert = bias_inert
 
     def forward(self, x, live_bias: bool = False):
-        if self.pad_mode == "zeros":
-            padding = self.padding
-        else:
-            x = pad_spatial(x, self.padding, self.pad_mode)
+        padding, pad_mode = self.padding, self.pad_mode
+        scope = spatial.active()
+        if scope is not None:
+            d = scope.spatial_dim
+            halo = spatial.conv_halo(self.weight.shape[2 + d], self.strides[d], padding[d],
+                                     x.shape[2 + d])
+            if halo is None:
+                spatial.uneven(type(self).__name__, x.shape[2 + d], scope)
+            x = spatial.pad_halo(x, *halo, 2 + d, pad_mode, scope)
+            padding = padding[:d] + (0,) + padding[d + 1:]
+        if pad_mode != "zeros":
+            with spatial.suspended():
+                x = pad_spatial(x, padding, pad_mode)
             padding = 0
         return self._conv(x, self.weight, _bias(self, live_bias), self.strides, padding)
 
@@ -191,6 +218,8 @@ class ConvTranspose(nn.Module):
     """Fractionally-strided conv with torch's output geometry,
     out = (in - 1) * stride - 2 * padding + kernel + output_padding.
     `bias_inert`: see `inert_bias`."""
+
+    spatially_sharded = True
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
                  strides: Union[int, Sequence[int]] = 1,
@@ -212,8 +241,24 @@ class ConvTranspose(nn.Module):
         self.bias_inert = bias_inert
 
     def forward(self, x):
-        return self._conv(x, self.weight, _bias(self), self.strides, self.padding,
-                          self.output_padding)
+        scope = spatial.active()
+        if scope is None:
+            return self._conv(x, self.weight, _bias(self), self.strides, self.padding,
+                              self.output_padding)
+        # Each shard's output is its own slab of out = in * stride rows: the
+        # conv runs unpadded over the shard and its halo rows, and the slab
+        # is cut from the result.
+        d = scope.spatial_dim
+        k, s, p = self.weight.shape[2 + d], self.strides[d], self.padding[d]
+        halo = spatial.conv_transpose_halo(k, s, p, self.output_padding[d])
+        if halo is None:
+            spatial.uneven(type(self).__name__, x.shape[2 + d], scope)
+        size = x.shape[2 + d]
+        x = spatial.halo_exchange(x, *halo, 2 + d, scope)
+        padding = self.padding[:d] + (0,) + self.padding[d + 1:]
+        output_padding = self.output_padding[:d] + (0,) + self.output_padding[d + 1:]
+        y = self._conv(x, self.weight, _bias(self), self.strides, padding, output_padding)
+        return y.narrow(2 + d, halo[0] * s + p, size * s)
 
 
 # -------------------------------------------------------------------- norms
@@ -247,7 +292,12 @@ class BatchNorm(nn.Module):
     reductions span the ranks too. Outside a train step (the Validator,
     `infer`) each rank keeps its own batch, since the ranks serve different
     samples. Without a process group the arithmetic is the one-process
-    one."""
+    one. Spatially sharded, a train step's statistics span the data and
+    spatial ranks (the world), a replicated leaf's the data ranks only, and
+    a sharded forward outside a train step (inference) its spatial
+    group."""
+
+    spatially_sharded = True
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -258,14 +308,22 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         axes = (0, *range(2, x.ndim))
         x32 = x.float()
-        if not batch_spans_ranks():
+        scope = spatial.active()
+        if batch_spans_ranks():
+            # Every rank holds an equal share (`parallel.check_local_batch`).
+            over, ranks = ("world", communication.get_world_size()) if scope is not None \
+                else ("data", communication.get_data_size())
+        elif scope is not None:
+            over, ranks = "spatial", scope.size
+        else:
+            over = None
+        if over is None:
             mean = x32.mean(dim=axes, keepdim=True)
             var = (x32 - mean).square().mean(dim=axes, keepdim=True)
         else:
-            # Every rank holds an equal share (`parallel.check_local_batch`).
-            count = x32.numel() // x32.shape[1] * communication.get_world_size()
-            mean = all_reduce_sum(x32.sum(dim=axes, keepdim=True)) / count
-            var = all_reduce_sum((x32 - mean).square().sum(dim=axes, keepdim=True)) / count
+            count = x32.numel() // x32.shape[1] * ranks
+            mean = all_reduce_sum(x32.sum(dim=axes, keepdim=True), over) / count
+            var = all_reduce_sum((x32 - mean).square().sum(dim=axes, keepdim=True), over) / count
         y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return (y * self.scale.view(shape) + self.bias.view(shape)).to(x.dtype)
@@ -277,7 +335,8 @@ def norm_act(x, norm_type: str, activation: str = "none", negative_slope: float 
     kernels with the activation fused; batch norm needs the network's own
     `BatchNorm` module (`batch_norm`), which holds its parameters."""
     if norm_type == "instance":
-        y = instance_norm(_channels_last_view(x), epsilon, activation, negative_slope)
+        y = instance_norm(_channels_last_view(x), epsilon, activation, negative_slope,
+                          shards=spatial.active())
         return _channels_first_view(y)
     if norm_type == "batch":
         if batch_norm is None:
@@ -305,6 +364,8 @@ class NormAct(nn.Module):
     types run norm, then activation. `forward(x, activation=...)` overrides
     the activation for one call (a CUT feature tap reads a norm's output
     before its ReLU)."""
+
+    spatially_sharded = True
 
     def __init__(self, norm_type: str = "instance", activation: str = "none",
                  negative_slope: float = 0.2, epsilon: float = 1e-5,
@@ -414,6 +475,8 @@ class PReLU(nn.Module):
     space-to-depth forms; the port runs the plain computation and takes them
     only at their plain values."""
 
+    spatially_sharded = True
+
     def __init__(self, features: Optional[int] = None, init_slope: float = 0.25,
                  s2d_rn: int = 0, fused_norm: bool = False):
         super().__init__()
@@ -436,11 +499,20 @@ def dropout_mask(shape: Sequence[int], keep: float, generator: torch.Generator,
     activation): each element True with probability `keep`, drawn from
     `generator` on `device`. Data parallel, the mask is drawn over the
     global batch, as the JAX package draws it, and this rank's slice of it
-    kept, so that the generator stays the same on every rank."""
-    n, rank = shape[0], communication.get_rank()
-    draw = torch.rand((n * communication.get_world_size(), *shape[1:]), generator=generator,
-                      device=device)
-    return draw[rank * n:(rank + 1) * n] < keep
+    kept, so that the generator stays the same on every rank; spatially
+    sharded, over the whole extent of the sharded dim too, and this rank's
+    slab kept."""
+    n, rank = shape[0], communication.get_data_rank()
+    scope = spatial.active()
+    whole = list(shape)
+    whole[0] = n * communication.get_data_size()
+    if scope is not None:
+        whole[1 + scope.spatial_dim] *= scope.size
+    draw = torch.rand(whole, generator=generator, device=device)[rank * n:(rank + 1) * n]
+    if scope is not None:
+        d = 1 + scope.spatial_dim
+        draw = draw.narrow(d, scope.index * shape[d], shape[d])
+    return draw < keep
 
 
 class Dropout(nn.Module):
@@ -450,6 +522,8 @@ class Dropout(nn.Module):
     per apply), drawn in the channels-last order of the activation, so that
     the masked output keeps its memory format. In eval mode, and in any call
     without a generator, it is the identity."""
+
+    spatially_sharded = True
 
     def __init__(self, rate: float = 0.5):
         super().__init__()

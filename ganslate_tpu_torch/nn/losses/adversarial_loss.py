@@ -4,11 +4,15 @@
 Modes lsgan (MSE), vanilla (BCE with logits), wgangp (signed mean) and
 nonsaturating (softplus); a dict of predictions (multiscale discriminators)
 gives the mean of its losses. Discriminators output logits: no sigmoid
-anywhere. Computed in fp32 whatever the compute dtype.
+anywhere. Computed in fp32 whatever the compute dtype. Each mean is
+`parallel.spatial.global_mean`: spatially sharded, this rank's share of the
+mean over the whole sample.
 """
 
 import torch
 import torch.nn.functional as F
+
+from ganslate_tpu_torch.parallel.spatial import global_mean
 
 _MODES = ("lsgan", "vanilla", "wgangp", "nonsaturating")
 
@@ -28,16 +32,16 @@ class AdversarialLoss:
         pred = prediction.float()
         if self.gan_mode == "lsgan":
             target = self.real_label if target_is_real else self.fake_label
-            return (pred - target).square().mean()
+            return global_mean((pred - target).square())
         if self.gan_mode == "vanilla":
             target = self.real_label if target_is_real else self.fake_label
             # BCE with logits: max(x, 0) - x * t + log(1 + exp(-|x|))
-            return (pred.clamp_min(0) - pred * target
-                    + torch.log1p(torch.exp(-pred.abs()))).mean()
+            return global_mean(pred.clamp_min(0) - pred * target
+                               + torch.log1p(torch.exp(-pred.abs())))
         if self.gan_mode == "wgangp":
-            return -pred.mean() if target_is_real else pred.mean()
+            return -global_mean(pred) if target_is_real else global_mean(pred)
         # nonsaturating
-        return F.softplus(-pred if target_is_real else pred).mean()
+        return global_mean(F.softplus(-pred if target_is_real else pred))
 
     def __call__(self, prediction, target_is_real: bool) -> torch.Tensor:
         if isinstance(prediction, dict):

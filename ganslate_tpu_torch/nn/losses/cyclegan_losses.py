@@ -1,14 +1,16 @@
 """CycleGAN generator losses: cycle consistency (L1, optionally mixed with
 the SSIM distance) and identity (the JAX package's
 `ganslate_tpu/nn/losses/cyclegan_losses.py`). Functions of the visuals dict
-of channels-last tensors; fp32.
+of channels-last tensors; fp32. Spatially sharded, each mean is this rank's
+share of the whole sample's (`parallel.spatial.global_mean`).
 """
 
 from ganslate_tpu_torch.nn.losses.utils.ssim import SSIMLoss
+from ganslate_tpu_torch.parallel.spatial import global_mean
 
 
 def l1(a, b):
-    return (a.float() - b.float()).abs().mean()
+    return global_mean((a.float() - b.float()).abs())
 
 
 class CycleLoss:

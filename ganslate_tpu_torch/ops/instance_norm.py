@@ -45,6 +45,18 @@ above, saves `(x, mean, rstd)` and computes the gradient with
 `instance_norm_backward`, plain PyTorch in fp32 from the saved statistics, on
 the CPU and on the card alike. It is the counterpart of the JAX package's
 `_bwd`, which is XLA there too: no TPU kernel stands behind it.
+
+A spatially sharded tensor (`parallel/spatial.py`: each rank holds a slab of
+every sample) is normalised with the statistics of the whole sample by
+`instance_norm(x, ..., shards=...)`, through the split pair whatever
+`pick_kernel` would choose: the stats kernel in its (mean, M2) mode gives the
+slab's per-(n, c) statistics; each rank writes them into its slot of a
+zeroed (shards, N, 2, C) fp32 tensor, one sum all-reduce fills every slot,
+and `fold_shard_stats` merges the slots in rank order (Chan), the same on
+every rank; the normalise kernel then runs on the slab with the global mean
+and rstd. The backward all-reduces its two per-(n, c) sums over the shards.
+On the CPU the plain version computes the slab's (mean, M2)
+(`partial_stats_reference`) and the normalisation, with the same fold.
 """
 
 import ctypes
@@ -239,7 +251,7 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
     "inorm_split_stats": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
     "inorm_split_norm": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p],
@@ -346,9 +358,9 @@ def _launch_split(x, tile_rows, seg_bytes, threads, reverse, eps, activation,
     return out, mean, rstd
 
 
-def _split_stats(x, mean, rstd, tile_rows, seg_bytes, threads, eps):
+def _split_stats(x, mean, rstd, tile_rows, seg_bytes, threads, eps, m2_out=False):
     """The split stats kernel, whose last block per sample folds: writes
-    `mean` and `rstd`."""
+    `mean` and `rstd` (with `m2_out`, the slab's M2 in place of rstd)."""
     n, c, s = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
     tiles = -(-s // min(tile_rows, s))
     partial = torch.empty((n, tiles, 2, c), device=x.device, dtype=torch.float32)
@@ -358,8 +370,8 @@ def _split_stats(x, mean, rstd, tile_rows, seg_bytes, threads, eps):
     arrivals = _arrivals(x.device, stream, n * (c * x.element_size() // seg_bytes) * (tiles + 1))
     _check(library().inorm_split_stats(
         x.data_ptr(), partial.data_ptr(), arrivals.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), n, s, c, _DTYPE_CODES[x.dtype], seg_bytes, tile_rows, threads, eps,
-        stream), "inorm_split_stats")
+        rstd.data_ptr(), n, s, c, _DTYPE_CODES[x.dtype], seg_bytes, tile_rows, threads,
+        int(m2_out), eps, stream), "inorm_split_stats")
 
 
 def _split_norm(x, mean, rstd, out, tile_rows, seg_bytes, threads, reverse, activation,
@@ -374,6 +386,42 @@ def _split_norm(x, mean, rstd, out, tile_rows, seg_bytes, threads, reverse, acti
 
 
 KERNELS = {"onepass": onepass, "split": split}
+
+
+def split_partial_stats(x):
+    """The split stats kernel in its (mean, M2) mode on a CUDA tensor, at
+    `split_geometry`: the slab's fp32 mean and M2 (sum of squared deviations
+    from that mean), each (N, C). Not counted in `LAUNCHES` (the sharded
+    norm counts its whole pass)."""
+    _check_input(x)
+    pick_kernel(x.shape, x.dtype)
+    c, cb = x.shape[-1], channel_block(x.dtype)
+    if c % cb:
+        x = torch.nn.functional.pad(x, (0, cb - c % cb))
+    mean, m2 = _split_m2(x)
+    return mean[:, :c].contiguous(), m2[:, :c].contiguous()
+
+
+def _split_m2(x):
+    """The stats kernel's (mean, M2) mode on a checked `x` whose C is a
+    multiple of `channel_block`."""
+    rows, seg, threads, _ = split_geometry(x.shape, x.dtype)
+    mean, m2 = (torch.empty((x.shape[0], x.shape[-1]), device=x.device, dtype=torch.float32)
+                for _ in range(2))
+    _split_stats(x, mean, m2, rows, seg, threads, 0.0, m2_out=True)
+    return mean, m2
+
+
+def _sharded_split(x, eps, activation, negative_slope, shards):
+    """The split pair on a checked `x` whose C is a multiple of
+    `channel_block`, normalising with the whole samples' statistics
+    (`_merge_shards` of the stats kernel's (mean, M2))."""
+    mean, rstd = _merge_shards(*_split_m2(x), x, eps, shards)
+    rows, seg, threads, _ = split_geometry(x.shape, x.dtype)
+    out = torch.empty_like(x)
+    _split_norm(x, mean, rstd, out, rows, seg, threads, SPLIT_REVERSE, activation,
+                negative_slope)
+    return out, mean, rstd
 
 
 # ------------------------------------------------------------------- public
@@ -399,11 +447,12 @@ def _act_grad(y, activation: str, negative_slope: float):
 
 
 def instance_norm_backward(x, mean, rstd, grad, activation: str = "none",
-                           negative_slope: float = 0.2):
+                           negative_slope: float = 0.2, shards=None):
     """The gradient with respect to `x` of `instance_norm`, given the
     forward's fp32 `mean` and `rstd` (N, C) and the output's gradient `grad`
     (any layout). Computed in fp32 and returned in `x.dtype`; mirrors the
-    JAX package's `_bwd`."""
+    JAX package's `_bwd`. `shards`: `x` is a slab of sharded samples, and
+    the two means span the whole samples."""
     n, c = x.shape[0], x.shape[-1]
     axes = tuple(range(1, x.ndim - 1))
     stat_shape = (n,) + (1,) * (x.ndim - 2) + (c,)
@@ -412,8 +461,14 @@ def instance_norm_backward(x, mean, rstd, grad, activation: str = "none",
     gy = grad.float()
     if activation != "none":
         gy = gy * _act_grad(y, activation, negative_slope)
-    mean_gy = gy.mean(dim=axes, keepdim=True)
-    mean_gy_y = (gy * y).mean(dim=axes, keepdim=True)
+    if shards is None:
+        mean_gy = gy.mean(dim=axes, keepdim=True)
+        mean_gy_y = (gy * y).mean(dim=axes, keepdim=True)
+    else:
+        sums = torch.stack([gy.sum(dim=axes, keepdim=True), (gy * y).sum(dim=axes, keepdim=True)])
+        shards.all_reduce(sums)
+        sums = sums / (math.prod(x.shape[1:-1]) * shards.size)
+        mean_gy, mean_gy_y = sums[0], sums[1]
     return (rstd * (gy - mean_gy - y * mean_gy_y)).to(x.dtype)
 
 
@@ -435,11 +490,102 @@ class InstanceNormFunction(torch.autograd.Function):
         return dx, None, None, None
 
 
+# ------------------------------------------------------- sharded statistics
+
+
+def partial_stats_reference(x):
+    """Plain PyTorch (mean, M2) of each (sample, channel) of an
+    `(N, *spatial, C)` slab, fp32, each (N, C): what the stats kernel's
+    (mean, M2) mode writes."""
+    axes = tuple(range(1, x.ndim - 1))
+    x32 = x.float()
+    mean = x32.mean(dim=axes, keepdim=True)
+    m2 = (x32 - mean).square().sum(dim=axes)
+    n, c = x.shape[0], x.shape[-1]
+    return mean.reshape(n, c), m2
+
+
+def fold_shard_stats(slots, count: int, eps: float):
+    """Chan et al.'s merge, in rank order, of the shards' (mean, M2) in
+    `slots` (shards, N, 2, C) fp32, each shard over `count` rows; returns
+    the global fp32 `(mean, rstd)`, each (N, C). Every rank folds the same
+    slots in the same order, so every rank gets the same numbers."""
+    total, mean, m2 = 0.0, torch.zeros_like(slots[0, :, 0]), torch.zeros_like(slots[0, :, 1])
+    for part in slots:
+        merged = total + count
+        delta = part[:, 0] - mean
+        mean = mean + delta * (count / merged)
+        m2 = m2 + part[:, 1] + delta.square() * (total * count / merged)
+        total = merged
+    return mean, torch.rsqrt(m2 / total + eps)
+
+
+def _merge_shards(mean, m2, x, eps, shards):
+    """The whole samples' (mean, rstd) from this slab's `mean` and `m2` of
+    `x`: written into this rank's slot of a zeroed (shards, N, 2, C) fp32
+    tensor, summed over the shards, folded (`fold_shard_stats`)."""
+    slots = torch.zeros((shards.size, mean.shape[0], 2, mean.shape[1]), dtype=torch.float32,
+                        device=x.device)
+    slots[shards.index, :, 0] = mean
+    slots[shards.index, :, 1] = m2
+    shards.all_reduce(slots)
+    return fold_shard_stats(slots, math.prod(x.shape[1:-1]), eps)
+
+
+def sharded_instance_norm_forward(x, eps, activation, negative_slope, shards):
+    """`(out, mean, rstd)` of a spatially sharded `x` with the whole
+    sample's statistics (`shards`: `.size`, `.index` and an in-place sum
+    `.all_reduce(t)` over the ranks that hold the sample's slabs). A CUDA
+    tensor takes the split kernel pair, counted as one split launch; a CPU
+    tensor the plain version (`partial_stats_reference`, the same merge)."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation must be one of {ACTIVATIONS}, got {activation!r}")
+    if x.device.type == "cpu":
+        mean, rstd = _merge_shards(*partial_stats_reference(x), x, eps, shards)
+        stat_shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        y = (x.float() - mean.reshape(stat_shape)) * rstd.reshape(stat_shape)
+        return _act(y, activation, negative_slope).to(x.dtype), mean, rstd
+    x = x.contiguous()
+    _check_input(x)
+    pick_kernel(x.shape, x.dtype)
+    result = _channel_padded(_sharded_split, x, eps, activation, negative_slope, shards)
+    LAUNCHES["split"] += 1
+    return result
+
+
+class ShardedInstanceNormFunction(torch.autograd.Function):
+    """`instance_norm(..., shards=...)` under autograd: the backward of
+    `instance_norm_backward` with its two per-(n, c) means taken over the
+    whole sample (sums all-reduced over the shards, over the global
+    count)."""
+
+    @staticmethod
+    def forward(ctx, x, eps, activation, negative_slope, shards):
+        out, mean, rstd = sharded_instance_norm_forward(x, eps, activation, negative_slope,
+                                                        shards)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.activation, ctx.negative_slope, ctx.shards = activation, negative_slope, shards
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, mean, rstd = ctx.saved_tensors
+        dx = instance_norm_backward(x, mean, rstd, grad, ctx.activation, ctx.negative_slope,
+                                    shards=ctx.shards)
+        return dx, None, None, None, None
+
+
 def instance_norm(x, eps: float = 1e-5, activation: str = "none",
-                  negative_slope: float = 0.2):
+                  negative_slope: float = 0.2, shards=None):
     """Fused instance norm + optional activation over `(N, *spatial, C)`,
     differentiable with respect to `x`. Without a gradient to record (as in
-    serving), the forward runs without the autograd wrapper."""
+    serving), the forward runs without the autograd wrapper. `shards`: `x`
+    is one rank's slab of spatially sharded samples, normalised with the
+    whole samples' statistics (`sharded_instance_norm_forward`)."""
+    if shards is not None:
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return sharded_instance_norm_forward(x, eps, activation, negative_slope, shards)[0]
+        return ShardedInstanceNormFunction.apply(x, eps, activation, negative_slope, shards)
     if not (torch.is_grad_enabled() and x.requires_grad):
         return instance_norm_forward(x, eps, activation, negative_slope)[0]
     return InstanceNormFunction.apply(x, eps, activation, negative_slope)

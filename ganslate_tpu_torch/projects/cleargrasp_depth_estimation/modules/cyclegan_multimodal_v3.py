@@ -31,6 +31,8 @@ class CycleGANMultiModalV3Config(cyclegan.CycleGANConfig):
 
 
 class CycleGANMultiModalV3(cyclegan.CycleGAN):
+    # Its own losses and pools are not sharded yet.
+    spatially_sharded = False
 
     def init_criterions(self):
         self.criterion_adv = AdversarialLoss(

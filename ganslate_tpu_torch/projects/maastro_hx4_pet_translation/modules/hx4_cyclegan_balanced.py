@@ -28,6 +28,8 @@ class HX4CycleGANBalancedConfig(cyclegan.CycleGANConfig):
 
 
 class HX4CycleGANBalanced(cyclegan.CycleGAN):
+    # Its own losses and pools are not sharded yet.
+    spatially_sharded = False
 
     def init_criterions(self):
         self.criterion_adv = AdversarialLoss(

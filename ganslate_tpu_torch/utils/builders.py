@@ -54,8 +54,9 @@ def build_loader(conf):
     if conf.mode == "train":
         sampler = InfiniteSampler(size=len(dataset), shuffle=True)
     else:
-        sampler = SequentialShardSampler(size=len(dataset), shard=communication.get_rank(),
-                                         num_shards=communication.get_world_size())
+        # The spatial ranks of a data rank share its samples.
+        sampler = SequentialShardSampler(size=len(dataset), shard=communication.get_data_rank(),
+                                         num_shards=communication.get_data_size())
 
     return DataLoader(dataset, sampler=sampler, batch_size=global_batch_size,
                       num_workers=mode_conf.dataset.num_workers,

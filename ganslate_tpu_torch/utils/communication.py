@@ -19,6 +19,19 @@ not `dst`, `reduce` onto rank 0 unless `all_reduce`. With one process they
 return their input. The tensor collectives of the train step (gradients,
 batch-norm statistics, image pools, the sliding window's canvas) live in
 `ganslate_tpu_torch.parallel`.
+
+Spatially sharded runs (`train.spatial_mesh`, `spatial_sharding` in
+val/test/infer) split the world into data x spatial ranks, the JAX
+package's `{"data": -1, "spatial": n}` mesh reshaped row-major: rank
+`d * n_spatial + s` is spatial rank `s` of data rank `d`. `init_groups`
+builds two sets of process groups from it, created on every rank in the
+same order: a spatial group (the ranks with the same `d`, which share one
+sample, each holding a slab of it) and a data group (the ranks with the
+same `s`). Without them (`n_spatial = 1`) the data group is the default
+group and the spatial group is this rank alone, which is the data-parallel
+layout. Unlike the JAX package, whose spatial axis stays inside one
+process, the spatial axis here crosses processes: every rank is one
+process.
 """
 
 import datetime
@@ -36,6 +49,12 @@ TIMEOUT = datetime.timedelta(minutes=10)
 
 # Did `init_distributed` make the default group (and so owns its teardown)?
 _owned_group = False
+
+# The data x spatial layout (`init_groups`): spatial ranks per sample, and
+# this rank's spatial and data groups (None: the default group, or no group).
+_n_spatial = 1
+_spatial_group = None
+_data_group = None
 
 
 def pick_backend(cuda: bool) -> str:
@@ -70,8 +89,84 @@ def destroy_distributed() -> None:
     """Tear down the default group, if `init_distributed` made it."""
     global _owned_group
     if _owned_group and is_distributed():
+        reset_groups()
         dist.destroy_process_group()
     _owned_group = False
+
+
+def init_groups(n_spatial: int) -> None:
+    """Split the world into `world / n_spatial` data ranks of `n_spatial`
+    spatial ranks each (rank = d * n_spatial + s), and build the spatial
+    and data groups. Every rank calls it with the same `n_spatial`; a second
+    call with the layout in place does nothing. `n_spatial = 1` is the
+    data-parallel layout, with no group made. Raises when `n_spatial` does
+    not divide the world."""
+    global _n_spatial, _spatial_group, _data_group
+    n_spatial, world = int(n_spatial or 1), get_world_size()
+    if n_spatial < 1 or world % n_spatial:
+        raise ValueError(f"{n_spatial} spatial ranks do not divide the world of {world} "
+                         f"ranks: launch a multiple of them (torchrun --nproc_per_node)")
+    if n_spatial == _n_spatial:
+        return
+    reset_groups()
+    if n_spatial == 1:
+        return
+    rank = get_rank()
+    for d in range(world // n_spatial):     # every rank makes every group, in one order
+        group = dist.new_group([d * n_spatial + s for s in range(n_spatial)], timeout=TIMEOUT)
+        if rank // n_spatial == d:
+            _spatial_group = group
+    for s in range(n_spatial):
+        group = dist.new_group(list(range(s, world, n_spatial)), timeout=TIMEOUT)
+        if rank % n_spatial == s:
+            _data_group = group
+    _n_spatial = n_spatial
+    logger.info(f"Spatial layout: {world // n_spatial} data x {n_spatial} spatial ranks; "
+                f"rank {rank} is spatial rank {get_spatial_rank()} of data rank "
+                f"{get_data_rank()}")
+
+
+def reset_groups() -> None:
+    """Back to the data-parallel layout (the groups are left to the default
+    group's teardown)."""
+    global _n_spatial, _spatial_group, _data_group
+    _n_spatial, _spatial_group, _data_group = 1, None, None
+
+
+def get_spatial_size() -> int:
+    """Spatial ranks per sample (1 without `init_groups`)."""
+    return _n_spatial
+
+
+def get_spatial_rank() -> int:
+    """This rank's place in its spatial group: the slab it holds."""
+    return get_rank() % _n_spatial
+
+
+def get_spatial_ranks() -> List[int]:
+    """The global ranks of this rank's spatial group, in spatial order."""
+    first = get_rank() - get_spatial_rank()
+    return list(range(first, first + _n_spatial))
+
+
+def get_spatial_group():
+    """The spatial group (None when it is this rank alone)."""
+    return _spatial_group
+
+
+def get_data_size() -> int:
+    """Data ranks: the ways the global batch is split."""
+    return get_world_size() // _n_spatial
+
+
+def get_data_rank() -> int:
+    """This rank's share of the global batch."""
+    return get_rank() // _n_spatial
+
+
+def get_data_group():
+    """The data group (None: the default group)."""
+    return _data_group
 
 
 def is_distributed() -> bool:
@@ -128,6 +223,15 @@ def all_gather(data: Any) -> List[Any]:
     out = [None] * get_world_size()
     dist.all_gather_object(out, data)
     return out
+
+
+def gather_data(data: Any) -> List[Any]:
+    """`gather` to rank 0 of every data rank's `data`, in data-rank order:
+    one entry per spatial group (its spatial rank 0's), whose ranks hold the
+    same whole samples after a spatially sharded inference. The same as
+    `gather` without spatial groups."""
+    gathered = gather(data)
+    return gathered[::_n_spatial]
 
 
 def gather(data: Any, dst: int = 0) -> List[Any]:

@@ -90,7 +90,8 @@ class FID:
             return
         for which in ("real", "fake"):
             local = np.concatenate(self._feats[which], axis=0) if self._feats[which] else None
-            self._feats[which] = [g for g in communication.gather(local) if g is not None]
+            # One entry per data rank: its spatial ranks hold the same samples.
+            self._feats[which] = [g for g in communication.gather_data(local) if g is not None]
 
     def compute(self) -> float:
         real = np.concatenate(self._feats["real"], axis=0)

@@ -1,10 +1,12 @@
 """Training-time metrics: discriminator output evolution and cycle SSIM (the
 JAX package's `ganslate_tpu/utils/metrics/train_metrics.py`). They stay on
-the device: reading them is the caller's host sync."""
+the device: reading them is the caller's host sync. Spatially sharded,
+each is the whole sample's (`parallel.spatial.total` of the shares)."""
 
 import torch
 
 from ganslate_tpu_torch.nn.losses.utils.ssim import SSIMLoss
+from ganslate_tpu_torch.parallel.spatial import global_mean, total
 
 
 class TrainingMetrics:
@@ -20,7 +22,7 @@ class TrainingMetrics:
             return None
         if isinstance(out, dict):
             return torch.stack([v.mean() for v in out.values()]).mean()
-        return out.mean()
+        return total(global_mean(out))
 
     def get_SSIM_metric(self, input, target):
         if self.ssim is None:
@@ -28,7 +30,7 @@ class TrainingMetrics:
         # Shift from [-1, 1] to [0, 1] (SSIM needs positive normalized data).
         input = (input + 1) / 2
         target = (target + 1) / 2
-        return 1 - self.ssim(input, target, data_range=1)
+        return 1 - total(self.ssim(input, target, data_range=1))
 
     def compute_metrics_D(self, discriminator, pred_real, pred_fake):
         metrics = {

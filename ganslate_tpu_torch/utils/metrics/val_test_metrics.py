@@ -13,9 +13,7 @@ the training losses is the device one in `nn/losses/utils/ssim.py`.
 from typing import Optional
 
 import numpy as np
-import scipy.ndimage
 import torch
-from scipy.stats import entropy
 
 
 def get_npy(x):
@@ -44,6 +42,7 @@ def structural_similarity(im1: np.ndarray, im2: np.ndarray, data_range: float) -
     np_win = win ** 2
     cov_norm = np_win / (np_win - 1)
 
+    import scipy.ndimage     # imported on use: scipy takes seconds to import
     filt = lambda x: scipy.ndimage.uniform_filter(x, size=win)
     ux, uy = filt(im1), filt(im2)
     uxx, uyy, uxy = filt(im1 * im1), filt(im2 * im2), filt(im1 * im2)
@@ -123,6 +122,7 @@ def ssim(gt: np.ndarray, pred: np.ndarray, maxval: Optional[float] = None) -> fl
 
 def nmi(gt: np.ndarray, pred: np.ndarray) -> float:
     """Normalized Mutual Information over 100-bin joint histograms."""
+    from scipy.stats import entropy     # imported on use, as in `structural_similarity`
     bins = 100
     gt_arr = np.ma.compressed(gt) if np.ma.isMaskedArray(gt) else np.reshape(gt, -1)
     pred_arr = np.ma.compressed(pred) if np.ma.isMaskedArray(pred) else np.reshape(pred, -1)

@@ -99,9 +99,12 @@ def make_vnet_conf(output_dir: str,
                    overlap: float = 0.25,
                    mixed_precision: bool = True,
                    wire_dtype: str = "bfloat16",
-                   cuda: bool = True):
+                   cuda: bool = True,
+                   spatial_sharding: Optional[dict] = None):
     """Infer-mode config: `Inferer(make_vnet_conf(...))` serves
-    `<output_dir>/checkpoints/<load_iter>.pth`."""
+    `<output_dir>/checkpoints/<load_iter>.pth`, through the sliding window,
+    or, given `spatial_sharding` (the config section's fields), sharded
+    over the ranks."""
     raw = {
         "train": {
             "output_dir": output_dir,
@@ -141,6 +144,9 @@ def make_vnet_conf(output_dir: str,
             },
         },
     }
+    if spatial_sharding is not None:
+        del raw["infer"]["sliding_window"]
+        raw["infer"]["spatial_sharding"] = dict(spatial_sharding)
     return init_config(Conf.create(raw), config_class=Config)
 
 

@@ -1,5 +1,6 @@
 """Inference tracker: per-iteration image grids and load / infer / save
-timers (the JAX package's `utils/trackers/inference.py`)."""
+timers (the JAX package's `utils/trackers/inference.py`). Grids are
+gathered to rank 0 once per data rank (`communication.gather_data`)."""
 
 import logging
 import time
@@ -20,7 +21,7 @@ class InferenceTracker(BaseTracker):
 
     def log_iter(self, visuals, len_dataset):
         visuals = {k: to_numpy(v) for k, v in visuals.items() if v is not None}
-        gathered = communication.gather(visuals)
+        gathered = communication.gather_data(visuals)
         if not communication.is_main_process():
             return
         merged = concat_batch_of_visuals_after_gather(gathered)

@@ -5,6 +5,7 @@ metrics, learning rates and a visuals grid.
 Losses, metrics and visuals arrive as device tensors from the train step;
 they are read to the host only on log iterations (the visuals' first
 example only), so that other iterations add no device work and no sync.
+Spatially sharded visuals are gathered whole there first.
 """
 
 import logging
@@ -25,6 +26,8 @@ class TrainingTracker(BaseTracker):
     def log_iter(self, learning_rates, losses, visuals, metrics):
         if self.iter_idx % self.log_freq != 0:
             return
+        if hasattr(visuals, "gather"):      # slabs of spatially sharded samples
+            visuals = visuals.gather()
 
         losses = {k: float(v) for k, v in losses.items() if v is not None}
         losses = communication.reduce(losses, average=True, all_reduce=False)

@@ -1,5 +1,6 @@
 """Val/test tracker (the JAX package's `utils/trackers/validation_testing.py`):
-buffers per-iteration visuals and metrics (gathered to rank 0), then logs
+buffers per-iteration visuals and metrics (gathered to rank 0, one entry per
+data rank: the spatial ranks of one hold the same whole samples), then logs
 the averages, a per-sample CSV and image grids per dataset."""
 
 import logging
@@ -28,14 +29,14 @@ class ValTestTracker(BaseTracker):
 
     def add_sample(self, visuals, metrics):
         visuals = {k: to_numpy(v) for k, v in visuals.items() if v is not None}
-        gathered_visuals = communication.gather(visuals)
+        gathered_visuals = communication.gather_data(visuals)
         if communication.is_main_process():
             merged = concat_batch_of_visuals_after_gather(gathered_visuals)
             self.visuals.extend(process_visuals_for_logging(
                 self.conf, merged, single_example=False, mid_slice_only=True))
 
         metrics = {k: v for k, v in metrics.items() if v is not None}
-        gathered_metrics = communication.gather(metrics)
+        gathered_metrics = communication.gather_data(metrics)
         if communication.is_main_process():
             self.metrics.extend(gathered_metrics)
 

@@ -65,7 +65,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "ganslate_tpu_torch.utils.cli.scaffold",
             "ganslate_tpu_torch.utils.cli.scripts.download_datasets",
             "ganslate_tpu_torch.utils.metrics.fid", "ganslate_tpu_torch.nn.inception",
-            "ganslate_tpu_torch.utils.torch_import"} <= names
+            "ganslate_tpu_torch.utils.torch_import", "ganslate_tpu_torch.parallel.mesh",
+            "ganslate_tpu_torch.parallel.spatial"} <= names
     # The data plane, the engines and the trackers.
     assert {f"ganslate_tpu_torch.{m}" for m in (
         "data", "data.samplers", "data.loaders", "data.image_folder",

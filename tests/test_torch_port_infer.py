@@ -286,8 +286,9 @@ def test_missing_checkpoint_raises(experiment):
 
 
 def test_cyclegan_train_mode_raises(experiment):
-    """Train mode builds, but raises for the JAX package's training options
-    that the port does not have."""
+    """Train mode builds with the JAX package's training options, which the
+    port has; spatially sharded training raises in one process, whose world
+    cannot hold the spatial ranks it names."""
     from ganslate_tpu_torch.utils.builders import build_conf, build_gan
     conf = build_conf([f"config={experiment()}"])
     conf.mode = "train"
@@ -295,6 +296,6 @@ def test_cyclegan_train_mode_raises(experiment):
     conf.train.steps_per_dispatch = 2       # multi-step dispatch is ported
     assert build_gan(conf).is_train
     conf.train.steps_per_dispatch = 1
-    conf.train.spatial_mesh = 2
-    with pytest.raises(NotImplementedError, match="spatially sharded training"):
+    conf.train.spatial_mesh = 2             # ported: it needs 2 ranks a sample
+    with pytest.raises(ValueError, match="2 spatial ranks do not divide the world of 1"):
         build_gan(conf)

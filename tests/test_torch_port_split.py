@@ -11,6 +11,7 @@ held against the JAX package's `_xla_forward` and against
 `_pallas_forward_tiled` in interpret mode, including a ragged last tile and
 |mean| >> std, where E[x^2] - E[x]^2 cancels."""
 
+import ctypes
 import importlib.util
 import math
 import re
@@ -75,20 +76,20 @@ def _chan_merge(parts, n, c):
     return count, mean, m2
 
 
-def _emulate(x, dtype, eps, activation, slope, tile_rows=None):
-    """The split kernels' arithmetic on an (N, *spatial, C) numpy array at
+def _emulate_stats(x, dtype, tile_rows=None):
+    """The stats kernel's fold on an (N, *spatial, C) numpy array at
     `split_geometry`'s tiles for `dtype` (or `tile_rows`), in fp32: per-tile
     (mean, M2), then Chan's merge in tile order, in groups of `FOLD_GROUP`
-    tiles and then over the groups. Returns (out in fp32, mean, rstd)."""
+    tiles and then over the groups. Returns (count, mean, M2): what its
+    (mean, M2) mode writes."""
     n, c = x.shape[0], x.shape[-1]
     rows, seg, threads, _ = port.split_geometry(x.shape, dtype)
     rows = tile_rows or rows
     # threads / (seg / 16) rows are read in one step of a block.
     step = threads // (seg // 16)
     x32 = x.reshape(n, -1, c).astype(np.float32)
-    s = x32.shape[1]
     tiles = []
-    for lo, hi in _tiles(s, rows):
+    for lo, hi in _tiles(x32.shape[1], rows):
         tile = x32[:, lo:hi]
         nb = np.float32(hi - lo)
         mb = _block_sum(tile, step) / nb
@@ -97,7 +98,18 @@ def _emulate(x, dtype, eps, activation, slope, tile_rows=None):
     # the groups.
     groups = [_chan_merge(tiles[g:g + FOLD_GROUP], n, c)
               for g in range(0, len(tiles), FOLD_GROUP)]
-    count, mean, m2 = _chan_merge(groups, n, c)
+    return _chan_merge(groups, n, c)
+
+
+def _emulate(x, dtype, eps, activation, slope, tile_rows=None):
+    """The split kernels' arithmetic on an (N, *spatial, C) numpy array at
+    `split_geometry`'s tiles for `dtype` (or `tile_rows`), in fp32: the
+    stats kernel's fold (`_emulate_stats`), rstd, and the normalise.
+    Returns (out in fp32, mean, rstd)."""
+    n, c = x.shape[0], x.shape[-1]
+    x32 = x.reshape(n, -1, c).astype(np.float32)
+    s = x32.shape[1]
+    count, mean, m2 = _emulate_stats(x, dtype, tile_rows)
     rstd = np.float32(1) / np.sqrt(m2 / np.float32(s) + np.float32(eps))
     y = (x32 - mean[:, None]) * rstd[:, None]
     if activation == "relu":
@@ -227,6 +239,21 @@ def test_launcher_signatures_match_the_source():
     assert re.search(r"constexpr int kFoldGroup = (\d+);", source).group(1) == str(FOLD_GROUP)
 
 
+def test_stats_kernel_has_the_m2_flag():
+    """The stats launcher's flag that makes its last group write the slab's
+    M2 in place of rstd (a spatially sharded slab): the 13th argument, an
+    int before eps, as the ctypes declaration has it, and the kernel's last
+    write chooses by it."""
+    source = (Path(port.__file__).resolve().parents[1] / "csrc" / port.SOURCE).read_text()
+    body = source[source.index('extern "C" {'):]
+    args = [a.strip() for a in
+            re.search(r"^int inorm_split_stats\(([^)]*)\)", body, re.M).group(1).split(",")]
+    assert args[12:14] == ["int m2_out", "float eps"]
+    argtypes = port._SIGNATURES["inorm_split_stats"][0]
+    assert argtypes[12] is ctypes.c_int and argtypes[13] is ctypes.c_float
+    assert "rstd_out[c] = m2_out ? m2 : 1.f / sqrtf(m2 / S + eps);" in source
+
+
 def test_arrival_counters_are_kept_per_stream():
     """One zeroed buffer per (device, stream), grown when a launch needs
     more counters."""
@@ -324,3 +351,45 @@ def test_emulation_large_mean(shape):
         np.square(x32.mean(axis=1, dtype=np.float32))
     naive_rstd = 1 / np.sqrt(np.maximum(naive_var, 0) + np.float32(1e-5))
     assert np.abs(naive_rstd / rstd64 - 1).max() > 0.1
+
+
+@pytest.mark.parametrize("scale, shift", ((2.0, 1.5), (0.1, 1e3), (1e-4, 1.0)),
+                         ids=("plain", "large-mean", "var-below-eps"))
+@pytest.mark.parametrize("shards", (2, 4))
+@pytest.mark.parametrize("dtype", DTYPES, ids=("bf16", "f32"))
+def test_emulation_m2_mode_and_shard_fold(dtype, shards, scale, shift):
+    """A spatially sharded sample's statistics: each slab's (mean, M2) as
+    the stats kernel's (mean, M2) mode folds them (emulated in fp32), the
+    slabs merged in rank order by the port's `fold_shard_stats`, held
+    against the whole sample's float64 statistics; and each slab's against
+    the plain version the CPU runs (`partial_stats_reference`). The last
+    case has var << eps, where M2 read back from rsqrt(var + eps) would be
+    lost."""
+    shape = (2, 64, 40, 16)
+    x = _inputs(shape, "bfloat16" if dtype == torch.bfloat16 else "float32", seed=19,
+                scale=scale, shift=shift)
+    slabs = np.split(x, shards, axis=1)
+    slots = np.zeros((shards, shape[0], 2, shape[-1]), np.float32)
+    for i, slab in enumerate(slabs):
+        count, mean, m2 = _emulate_stats(slab, dtype)
+        assert count == slab[0, ..., 0].size
+        slots[i, :, 0], slots[i, :, 1] = mean, m2
+        plain_mean, plain_m2 = port.partial_stats_reference(torch.from_numpy(slab))
+        np.testing.assert_allclose(mean, plain_mean.numpy(), rtol=1e-5, atol=1e-6 * abs(shift))
+        # At mean 1e3 a tile's fp32 mean is off by ~1e-3 of the std (its
+        # sum's ulp over its rows), and the merge's between-tile terms,
+        # ~1% of M2 here, carry that twice.
+        np.testing.assert_allclose(m2, plain_m2.numpy(), rtol=1e-3 if shift > 100 else 2e-4,
+                                   atol=1e-6 * float(plain_m2.abs().max()))
+    mean, rstd = port.fold_shard_stats(torch.from_numpy(slots), slabs[0][0, ..., 0].size, 1e-5)
+    x64 = x.reshape(shape[0], -1, shape[-1]).astype(np.float64)
+    mean64 = x64.mean(axis=1)
+    var64 = np.square(x64 - mean64[:, None]).mean(axis=1)
+    # fp32 means of values near `shift`: a few of their ulps.
+    np.testing.assert_allclose(mean.numpy(), mean64, rtol=0, atol=8 * np.spacing(
+        np.float32(abs(shift) + 4 * scale)))
+    # At mean 1e3 and std 0.1 each slab's and tile's fp32 mean carries an
+    # ulp (6e-5) of 6e-4 of the std into the merge (`test_emulation_large_
+    # mean`): the variance keeps about 3.5 digits after the slabs' merge.
+    np.testing.assert_allclose(rstd.numpy(), 1 / np.sqrt(var64 + 1e-5),
+                               rtol=5e-4 if shift > 100 else 1e-5)

@@ -1,5 +1,5 @@
-"""One rank of the port's data-parallel CPU tests
-(`tests/test_torch_port_distributed*.py`).
+"""One rank of the port's data-parallel and spatially sharded CPU tests
+(`tests/test_torch_port_distributed*.py`, `tests/test_torch_port_spatial*.py`).
 
     RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=p \\
         python tests/torch_distributed_child.py JOB.pt OUT_DIR
@@ -47,13 +47,16 @@ class Ranks:
     """This script running as `world` gloo ranks on `job` (saved to
     `out_dir/job.pt`), started at once; `results()` waits for them. Every
     rank gets `timeout` seconds of wall time from the start, then it is
-    killed and the launch fails; a rank that fails fails the launch."""
+    killed and the launch fails; a rank that fails fails the launch. With
+    `torchrun`, one `python -m torch.distributed.run --standalone` launch
+    starts the ranks (its output in `rank0.log`)."""
 
-    def __init__(self, job, out_dir, world: int = 2, timeout: float = 120.0):
+    def __init__(self, job, out_dir, world: int = 2, timeout: float = 120.0,
+                 torchrun: bool = False):
         self.out_dir, self.world = Path(out_dir), world
         self.deadline = time.monotonic() + timeout
         self.timeout = timeout
-        self.procs = _start(job, self.out_dir, world)
+        self.procs = (_start_torchrun if torchrun else _start)(job, self.out_dir, world)
 
     def results(self):
         try:
@@ -95,6 +98,19 @@ def _start(job, out_dir, world):
                 [sys.executable, __file__, str(out_dir / "job.pt"), str(out_dir)],
                 cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
     return procs
+
+
+def _start_torchrun(job, out_dir, world):
+    """Save `job` and start `world` ranks under torchrun, its output in
+    `rank0.log`."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(job, out_dir / "job.pt")
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    with open(out_dir / "rank0.log", "w") as log:
+        return [subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={world}", __file__, str(out_dir / "job.pt"), str(out_dir)],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)]
 
 
 def _share(array):
@@ -358,17 +374,269 @@ def check_infer(job, out_dir):
     return served
 
 
+# ------------------------------------------------------- spatial sharding
+
+
+def _slab(array, dim, scope):
+    """This rank's equal slab of a global numpy `array` along `dim`, as a
+    tensor."""
+    n = array.shape[dim] // scope.size
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(array, range(scope.index * n, (scope.index + 1) * n), axis=dim)))
+
+
+def check_spatial_halo(job, out_dir):
+    """`halo_exchange` of this rank's slab (dim 2) with (lo, hi) rows, and
+    its backward of the job's cotangent."""
+    from ganslate_tpu_torch.parallel import spatial
+    spec = job["spatial_halo"]
+    scope = spatial.make_scope()
+    out = {}
+    for lo, hi in spec["halos"]:
+        x = _slab(spec["x"], 2, scope).requires_grad_()
+        y = spatial.halo_exchange(x, lo, hi, 2, scope)
+        cot = torch.from_numpy(spec["cotangents"][(lo, hi)][scope.index])
+        (y * cot).sum().backward()
+        out[(lo, hi)] = {"y": y.detach(), "dx": x.grad}
+    return out
+
+
+def check_spatial_dropout(job, out_dir):
+    """A dropout mask of this rank's slab (dim 1 of channels-last) drawn in
+    the spatial scope from the job's seed."""
+    from ganslate_tpu_torch.nn.layers import dropout_mask
+    from ganslate_tpu_torch.parallel import spatial
+    spec = job["spatial_dropout"]
+    scope = spatial.make_scope()
+    shape = list(spec["whole"])
+    shape[1] //= scope.size
+    with spatial.spatial_scope(scope):
+        return dropout_mask(shape, 0.5, torch.Generator().manual_seed(spec["seed"]), "cpu")
+
+
+def _layer(case):
+    """The port layer of a conv case, with the case's parameters."""
+    from ganslate_tpu_torch.nn.layers import Conv, ConvTranspose
+    from ganslate_tpu_torch.nn.discriminators.patchgan.patchgan2d import PatchGAN2D
+    if case["kind"] == "patchgan":
+        net = PatchGAN2D(case["in"], ndf=4, n_layers=1, norm_type="instance",
+                         generator=torch.Generator().manual_seed(0))
+        net.load_state_dict(case["state"])
+        return net
+    layer = (ConvTranspose if case["kind"] == "transposed" else Conv)(
+        case["in"], case["out"], case["k"], strides=case["s"], padding=case["p"],
+        **({"output_padding": case["op"]} if case["kind"] == "transposed"
+           else {"pad_mode": case["mode"]}))
+    layer.load_state_dict(case["state"])
+    return layer
+
+
+def run_layer(case, x, cotangent):
+    """A layer's output and its input and parameter gradients of
+    sum(out * cotangent)."""
+    layer = _layer(case).to(x.dtype)
+    x = x.clone().requires_grad_()
+    y = layer(x)
+    (y * cotangent).sum().backward()
+    return {"y": y.detach(), "dx": x.grad,
+            "grads": {k: p.grad.clone() for k, p in layer.named_parameters()
+                      if p.grad is not None}}
+
+
+def check_spatial_convs(job, out_dir):
+    """Every conv case on this rank's slab (dim 2) inside the spatial
+    scope, and the gathers it made; `sharded_conv` of the 'same' cases."""
+    from ganslate_tpu_torch.parallel import spatial
+    scope = spatial.make_scope()
+    out = {}
+    for name, case in job["spatial_convs"].items():
+        cot = case["cotangent"]
+        spatial.reset_counts()
+        with spatial.spatial_scope(scope):
+            x = _slab(case["x"], 2, scope)
+            if case["kind"] == "patchgan":
+                # Every rank returns the tail's whole output: its share of
+                # the cotangent is 1 / size.
+                c = torch.from_numpy(cot) / scope.size
+            else:
+                c = _slab(cot, 2, scope)
+            out[name] = run_layer(case, x, c)
+            if case.get("same"):
+                w = case["state"]["weight"].to(x.dtype)
+                out[name]["sharded_conv"] = spatial.sharded_conv(x, w, dim=2, scope=scope)
+        out[name]["counts"] = dict(spatial.COUNTS)
+    return out
+
+
+def check_spatial_norm(job, out_dir):
+    """The port's instance norm (+ leaky ReLU) on this rank's slab inside
+    the spatial scope: output and input gradient."""
+    from ganslate_tpu_torch.nn.layers import NormAct
+    from ganslate_tpu_torch.parallel import spatial
+    spec = job["spatial_norm"]
+    scope = spatial.make_scope()
+    norm = NormAct("instance", "leaky_relu")
+    with spatial.spatial_scope(scope):
+        x = _slab(spec["x"], 2, scope).requires_grad_()
+        y = norm(x)
+        (y * _slab(spec["cotangent"], 2, scope)).sum().backward()
+        with torch.no_grad():
+            y_nograd = norm(x)
+    return {"y": y.detach(), "dx": x.grad, "y_nograd": y_nograd}
+
+
+def _infer_engine(spec, out_dir):
+    """A deployment `Inferer` set up as the JAX package's engine test sets
+    one up: the config's `infer.spatial_sharding`, a train-mode model of the
+    config's G with the job's weights."""
+    import copy
+    from ganslate_tpu_torch.engines.base import BaseEngineWithInference
+    from ganslate_tpu_torch.engines.inferer import Inferer
+    conf = init_config(Conf.create(spec["raw"]), config_class=Config)
+    train_conf = copy.deepcopy(conf)
+    train_conf.mode = "train"
+    model = build_gan(train_conf)
+    model.setup(example_batch=spec["example"])
+    model.networks["G_AB"].load_state_dict(spec["G_AB"])
+    inferer = Inferer.__new__(Inferer)
+    BaseEngineWithInference.__init__(inferer, conf)
+    inferer.model = model
+    return inferer
+
+
+def check_spatial_infer(job, out_dir):
+    """`BaseEngineWithInference.infer` with `spatial_sharding` of each
+    method on the job's volume: the whole output on every rank."""
+    out = {}
+    for name, spec in job["spatial_infer"].items():
+        inferer = _infer_engine(spec, out_dir / name)
+        out[name] = inferer.infer(spec["x"])
+    return out
+
+
+def check_spatial_vnet(job, out_dir):
+    """A small Vnet3D on this rank's depth slabs of both samples, inside
+    the spatial scope: this rank's share of mean((G(x) - y)^2) and of its
+    gradients (the test sums them over the ranks)."""
+    from ganslate_tpu_torch.nn.generators import Vnet3D
+    from ganslate_tpu_torch.parallel import spatial
+    spec = job["spatial_vnet"]
+    net = Vnet3D(in_channels=1, out_channels=1, first_layer_channels=4, down_blocks=(1, 1),
+                 up_blocks=(1, 1), use_memory_saving=False, use_inverse=False)
+    net.load_state_dict(spec["state"])
+    scope = spatial.make_scope()
+    with spatial.spatial_scope(scope):
+        x = _slab(spec["x"], 1, scope).permute(0, 4, 1, 2, 3)
+        y = _slab(spec["y"], 1, scope).permute(0, 4, 1, 2, 3)
+        loss = spatial.global_mean((net(x) - y).square())
+        loss.backward()
+    # An inert bias (before an instance norm) has no gradient: zero.
+    return {"loss": loss.detach(), "grads": {
+        k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+        for k, p in net.named_parameters()}}
+
+
+def check_spatial_replicated(job, out_dir):
+    """A leaf the shard rule replicates (its first spatial dim 3 on 2 ranks):
+    `BaseGAN._slabs` keeps it whole, and a conv-norm stack in the replicated
+    scope gives this rank's share of the loss and of the gradients."""
+    from ganslate_tpu_torch.nn.layers import Conv, NormAct
+    from ganslate_tpu_torch.parallel import leaf_is_sharded, spatial
+    spec = job["spatial_replicated"]
+    assert not leaf_is_sharded(spec["x"].shape, 2)
+    conv = Conv(1, 4, (3, 3, 3), padding=1)
+    conv.load_state_dict(spec["state"])
+    scope = spatial.make_scope(sharded=False)
+    with spatial.spatial_scope(scope):
+        x = torch.from_numpy(spec["x"]).permute(0, 4, 1, 2, 3)
+        loss = spatial.global_mean(NormAct("instance", "relu")(conv(x)).square())
+        loss.backward()
+        total = spatial.total(loss)
+    return {"loss": loss.detach(), "total": total,
+            "grads": {k: p.grad.clone() for k, p in conv.named_parameters()}}
+
+
+def check_spatial_cyclegan(job, out_dir):
+    """One CycleGAN step with `train.spatial_mesh` on this rank's share of
+    the job's global batch (its data rank's samples, its slabs; the other
+    spatial ranks are handed other values, which the spatial group's first
+    rank's replace): the losses, the parameters after it, and the gathers
+    each network made."""
+    from ganslate_tpu_torch.parallel import spatial
+    spec = job["spatial_cyclegan"]
+    conf = make_cyclegan_conf(str(out_dir / "spatial_cyclegan"), **spec["conf"])
+    conf.train.spatial_mesh = spec["spatial_mesh"]
+    model = build_gan(conf)
+    batch = spec["batch"]
+    n = len(batch["A"]) // communication.get_data_size()
+    d = communication.get_data_rank()
+    local = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+    model.setup(local)
+    for name, sd in spec["state"].items():
+        model.networks[name].load_state_dict(sd)
+    spatial.reset_counts()
+    if communication.get_spatial_rank():
+        # Other draws than the group's first rank's (a dataset with unseeded
+        # RNGs): the step must train on the first rank's sample.
+        local = {k: v + 1 for k, v in local.items()}
+    model.set_input(local)
+    model.optimize_parameters()
+    # The global batch's losses: every spatial rank holds its sample's.
+    losses = communication.reduce({k: float(v) for k, v in model.losses.items()},
+                                  all_reduce=True)
+    return {"losses": losses,
+            "params": {f"{name}.{k}": p.detach().clone() for name, net in model.networks.items()
+                       for k, p in net.named_parameters()},
+            "counts": dict(spatial.COUNTS), "sharded": model._sharded,
+            "ranks": (communication.get_data_rank(), communication.get_spatial_rank())}
+
+
+def check_spatial_trainer(job, out_dir):
+    """The Trainer from each of the job's argument lists (`init_engine`):
+    its iterations with a checkpoint at each; for the resumable one (a
+    dataset that draws from the sampler's stream), then, in another output
+    directory holding checkpoint 1, a resume from 1."""
+    out = {"ranks": (communication.get_data_rank(), communication.get_spatial_rank())}
+    for name, args in job["spatial_trainer"].items():
+        run_dir = Path(next(a for a in args if a.startswith("train.output_dir="))
+                       .split("=", 1)[1])
+
+        def run(extra):
+            trainer = init_engine("train", args + extra)
+            recorder = Recorder(trainer)
+            trainer.run()
+            return recorder
+
+        out[name] = {"losses": run([]).losses}
+        if name == "resumable":
+            resumed_dir = run_dir.parent / f"{run_dir.name}_resumed"
+            if communication.is_main_process():
+                copy_checkpoint(run_dir, resumed_dir, 1)
+            communication.synchronize()
+            out[name]["resumed_losses"] = run([
+                f"train.output_dir={resumed_dir}", "train.checkpointing.load_iter=1",
+                "train.checkpointing.load_optimizers=true"]).losses
+    return out
+
+
 CHECKS = {"cyclegan": check_cyclegan, **{name: check_model(name) for name in MODELS},
           "batchnorm": check_batchnorm, "pool": check_pool, "verbs": check_verbs,
           "sliding_window": check_sliding_window, "fid": check_fid,
-          "trainer": check_trainer, "infer": check_infer}
+          "trainer": check_trainer, "infer": check_infer,
+          "spatial_halo": check_spatial_halo, "spatial_dropout": check_spatial_dropout,
+          "spatial_convs": check_spatial_convs,
+          "spatial_norm": check_spatial_norm, "spatial_infer": check_spatial_infer,
+          "spatial_vnet": check_spatial_vnet, "spatial_replicated": check_spatial_replicated,
+          "spatial_cyclegan": check_spatial_cyclegan, "spatial_trainer": check_spatial_trainer}
 
 
 def main(job_path, out_dir):
-    torch.set_num_threads(2)
+    job = torch.load(job_path, weights_only=False)
+    torch.set_num_threads(job.get("threads", 2))
     communication.TIMEOUT = datetime.timedelta(seconds=60)
     communication.init_distributed(cuda=False)
-    job = torch.load(job_path, weights_only=False)
+    if job.get("spatial_groups"):
+        communication.init_groups(job["spatial_groups"])
     out_dir = Path(out_dir)
     results = {"backend": communication.backend()}
     for name in job["checks"]:
