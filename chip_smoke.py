@@ -257,7 +257,7 @@ project's datasets, which the port's config loader takes from its twin
    steps, conv FLOPs and a profile by family (the attention's q/k/v GEMM,
    its two products and its softmax are families); both directions served
    from the checkpoint by a deployment `Inferer` against the plain norms;
-   4 fp32 steps in chunks of 2 against single steps from one seed under
+   2 fp32 steps in a chunk of 2 against single steps from one seed under
    deterministic algorithms, every parameter bit for bit; one step against
    the plain norms (fp32 and bf16, phase 11's limits; gammas 0.5, since at
    their zero init the attention's convs get no gradient). (b)
@@ -278,15 +278,17 @@ project's datasets, which the port's config loader takes from its twin
    port's `train` command (`interface.main`) under `python -m
    torch.distributed.run --standalone --nproc_per_node 1`, one NCCL rank,
    with deterministic algorithms: its losses and last checkpoint bit for
-   bit against the same child without torchrun (no process group), and
-   the NCCL kernels of one profiled iteration counted. (b) The same
+   bit against the same child without torchrun (no process group), run
+   at the same time on the card, and the NCCL kernels of one profiled
+   iteration counted. (b) The same
    CycleGAN model-level, fp32, global batch 2 on 2 gloo ranks (NCCL
    refuses two ranks on one device) with its pool of 50, 3 steps, against
    1 process at batch 2: losses per step (1e-5 relative), gradients of
    step 1 (1e-2 relative L2, beside the one-ulp control) and each weight
    tensor after step 3 (1e-2, or 3 times that tensor's own gap in the
    one-ulp control where that is larger); step and all-reduce times, which
-   are two ranks sharing a card and no scaling figure. (c) The Cityscapes
+   are two ranks sharing a card, beside the 1-rank reference, and no
+   scaling figure. (c) The Cityscapes
    Pix2Pix YAML (Unet2D, 7 levels, ngf 128) with batch norm and dropout, 2
    steps, likewise. (d) The BRaTS Vnet3D request of phase 7 through the
    deployment `Inferer`'s generator and its sliding window with the
@@ -313,8 +315,19 @@ project's datasets, which the port's config loader takes from its twin
    deployment `Inferer` with `infer.spatial_sharding` method `gspmd` (bf16
    and fp32, held to phase 16 (d)'s bounds) and `halo` (bf16, its gaps
    near the shard boundary and away from it reported) on 2 ranks, against
-   the direct forward in one process. The 2-rank children's norm launches
-   are the `spatial` path of the kernels line.
+   the direct forward in one process. (d) Every other family model-level
+   at the widths and patch of its own phase (`SPATIAL_ZOO`: the BRaTS
+   RevGAN with memory saving, the Cityscapes Pix2Pix, the BRaTS CUT, the
+   zoo's SA V-Net RevGAN and separable V-Net CycleGAN, the HX4 and
+   ClearGrasp balanced CycleGANs) on one synthetic batch: a bf16 warm-up
+   and a timed step (step ms, peak memory a rank, exchanges by network and
+   by declared replicated section, norm launches), then an fp32 step 1
+   held against one process (losses 1e-4; each gradient tensor 1e-2
+   relative L2, or 3 times its one-ulp control's gap; a cancelling one
+   within 1e-4 of its network's gradient norm) whose halo and collective
+   seconds are timed; RevGAN's peak at most `SPATIAL_MEMORY_MAX` of one
+   process's; the SA V-Net's attention energies a rank. The 2-rank
+   children's norm launches are the `spatial` path of the kernels line.
 
 The kernels phase also checks and times both kernels at the V-Net's, the
 RevGAN's, the Pix2Pix's, the CUT's and the HX4 and ClearGrasp networks'
@@ -4578,10 +4591,10 @@ ZOO_NETS = {
                           "scales": 2, "n_layers": 2, "in_channels": {"B": 1}}},
 }
 ZOO_K = 2
-ZOO_RUN = (2, 6, 8, 8, 8)
+ZOO_RUN = (2, 4, 6, 6, 6)
 ZOO_MODEL_STEPS = (2, 4)
 ZOO_PROFILED_STEPS = 2
-ZOO_CHUNK_STEPS = 4                     # fp32 steps of k = 2 against k = 1, bit for bit
+ZOO_CHUNK_STEPS = 2                     # fp32 steps of k = 2 against k = 1, bit for bit
 ZOO_PARAMS = {"revgan.yaml": {"G": 24_335_492, "D_B": 2_745_251, "D_A": 2_745_251},
               "cyclegan.yaml": {"G_AB": 2_046_355, "G_BA": 2_046_355, "D_B": 5_284_738,
                                 "D_A": 5_284_738}}
@@ -5957,14 +5970,49 @@ def dist_pix2pix_args(out_dir):
             "val.dataset.load_size=[256,512]", f"train.gan.norm_type={DIST_PIX2PIX_NORM}"]
 
 
-def dist_launch(task, out_dir, work, nproc=None):
+def dist_launch(task, out_dir, work, nproc=None, timeout=DIST_CHILD_TIMEOUT):
     """`chip_smoke.py --distributed-child task out_dir` in its own process
     group: under `torch.distributed.run --standalone --nproc_per_node
     nproc`, or alone when `nproc` is None. Waits at most
-    `DIST_CHILD_TIMEOUT`, then kills the group; kills whatever of it is
+    `timeout` seconds, then kills the group; kills whatever of it is
     left either way. Returns each rank's results and the wall seconds."""
+    return dist_launch_together([(task, out_dir, nproc)], work, timeout)[0]
+
+
+def dist_launch_together(launches, work, timeout=DIST_CHILD_TIMEOUT):
+    """`dist_launch` of each `(task, out_dir, nproc)` of `launches`, all
+    started at once and waited on together (at most `timeout` seconds from
+    the start); returns `(results, seconds)` of each, in order."""
     import signal
     import torch
+    t0 = time.perf_counter()
+    started = [_dist_start(task, out_dir, work, nproc) for task, out_dir, nproc in launches]
+    rcs, seconds = [], []
+    for proc in started:
+        try:
+            rcs.append(proc.wait(timeout=max(t0 + timeout - time.perf_counter(), 0.1)))
+        except subprocess.TimeoutExpired:
+            rcs.append("timeout")
+        seconds.append(time.perf_counter() - t0)
+    for proc in started:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    out = []
+    for (task, out_dir, nproc), rc, secs in zip(launches, rcs, seconds):
+        if rc != 0:
+            log_path = out_dir / f"{task}_{nproc or 0}.log"
+            emit({"phase": "distributed_child", "task": task, "nproc": nproc, "returncode": rc,
+                  "seconds": secs, "log_tail": log_path.read_text()[-6000:]})
+            raise AssertionError(f"the {task} child (nproc {nproc}) ended with {rc}")
+        out.append(([torch.load(out_dir / f"{task}_rank{r}.pt", weights_only=False)
+                     for r in range(nproc or 1)], secs))
+    return out
+
+
+def _dist_start(task, out_dir, work, nproc):
+    """Start `dist_launch`'s command in its own session, its output in
+    `out_dir/<task>_<nproc or 0>.log`."""
     out_dir.mkdir(parents=True, exist_ok=True)
     runner = [] if nproc is None else ["-m", "torch.distributed.run", "--standalone",
                                        f"--nproc_per_node={nproc}"]
@@ -5974,27 +6022,9 @@ def dist_launch(task, out_dir, work, nproc=None):
            "NCCL_SOCKET_IFNAME": "lo", "PYTHONPATH": os.pathsep.join(
                [str(HERE)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
                               if p])}
-    log_path = out_dir / f"{task}_{nproc or 0}.log"
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(argv, cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT,
+    with open(out_dir / f"{task}_{nproc or 0}.log", "w") as log:
+        return subprocess.Popen(argv, cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT,
                                 start_new_session=True)
-        try:
-            rc = proc.wait(timeout=DIST_CHILD_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            rc = "timeout"
-        finally:
-            with contextlib.suppress(ProcessLookupError):
-                os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    seconds = time.perf_counter() - t0
-    if rc != 0:
-        emit({"phase": "distributed_child", "task": task, "nproc": nproc, "returncode": rc,
-              "seconds": seconds, "log_tail": log_path.read_text()[-6000:]})
-        raise AssertionError(f"the {task} child (nproc {nproc}) ended with {rc}")
-    results = [torch.load(out_dir / f"{task}_rank{r}.pt", weights_only=False)
-               for r in range(nproc or 1)]
-    return results, seconds
 
 
 def dist_child(task, out_dir):
@@ -6240,10 +6270,13 @@ def dist_cli_check(root, data_root, work):
     tensor of the last checkpoint bit for bit, NCCL kernels in the
     profiled iteration. Returns the torchrun run's norm launches."""
     import torch
-    runs = {}
-    for label, nproc in (("plain", None), ("torchrun", 1)):
-        results, seconds = dist_launch("train-cli", root / f"cli_{label}", work, nproc)
-        runs[label] = {**results[0], "seconds": seconds}
+    # The two children run at once: deterministic algorithms, so sharing the
+    # card moves their times, not their numbers.
+    labels = (("plain", None), ("torchrun", 1))
+    launched = dist_launch_together([("train-cli", root / f"cli_{label}", nproc)
+                                     for label, nproc in labels], work)
+    runs = {label: {**results[0], "seconds": seconds}
+            for (label, _), (results, seconds) in zip(labels, launched)}
     n_iters = DIST_CLI_RUN[0]
     ckpts = {label: torch.load(root / f"cli_{label}" / "run" / "checkpoints" / f"{n_iters}.pth",
                                map_location="cpu", weights_only=True) for label in runs}
@@ -6278,11 +6311,14 @@ def dist_models_check(root, work):
     """(b)-(d): the 2-rank gloo child against the 1-rank child. Returns the
     2-rank run's norm launches."""
     import torch
-    (ref,), ref_seconds = dist_launch("models", root / "models_1", work)
-    ranks, seconds = dist_launch("models", root / "models_2", work, nproc=2)
+    # The 1-rank reference runs beside the 2 ranks: its numbers are its own,
+    # and all three processes' times share the card and the host.
+    ((ref,), ref_seconds), (ranks, seconds) = dist_launch_together(
+        [("models", root / "models_1", None), ("models", root / "models_2", 2)], work)
     got = ranks[0]
-    caveat = ("2 ranks share one card: a check of the arithmetic, not a scaling figure; the "
-              "gloo all-reduce goes through host memory")
+    caveat = ("2 ranks share one card with the 1-rank reference running beside them: a check "
+              "of the arithmetic, not a scaling figure; the gloo all-reduce goes through host "
+              "memory")
     check([r["backend"] for r in ranks] == ["gloo", "gloo"] and ref["backend"] == "", ranks[0]
           ["backend"])
     for name in ("cyclegan", "pix2pix"):
@@ -6639,10 +6675,127 @@ def spatial_train_cli(out_dir, sharded):
             "allocated_before_bytes": before}
 
 
+# (d): every family that the CycleGAN's sharding did not cover, model-level
+# at the widths of its own phase (the BRaTS RevGAN with memory saving, the
+# Cityscapes Pix2Pix, the BRaTS CUT, the zoo's two BRaTS configs, the HX4
+# and ClearGrasp balanced CycleGANs), on one synthetic batch of the phase's
+# patch or image size: (spatial extents, channels of A and B).
+SPATIAL_ZOO = {"revgan": (REVGAN_PATCH, (1, 1)), "pix2pix": (PIX2PIX_SIZE, (3, 3)),
+               "cut": (REVGAN_PATCH, (1, 1)), "sa_vnet_revgan": (REVGAN_PATCH, (1, 1)),
+               "separable_vnet_multiscale": (REVGAN_PATCH, (1, 1)),
+               "hx4": (HX4_PATCH, (2, 2)), "cleargrasp": (CLEARGRASP_SIZE, (6, 4))}
+# bf16 steps of each: a warm-up and the timed step (step ms, peak memory,
+# exchanges); the sharded fp32 step times its halo exchanges and
+# collectives (each between device synchronisations).
+SPATIAL_ZOO_BF16_STEPS = 2
+SPATIAL_CHILD_TIMEOUT = 780
+
+
+def spatial_zoo_conf(name, out_dir, mixed_precision):
+    """Family `name`'s config at the widths of its own phase."""
+    from ganslate_tpu_torch.utils.builders import build_conf
+    if name == "revgan":
+        conf = revgan_conf(out_dir, mixed_precision=mixed_precision)
+    elif name == "pix2pix":
+        conf = pix2pix_conf(out_dir, out_dir, mixed_precision=mixed_precision)
+    elif name == "cut":
+        conf = cut_conf(out_dir, mixed_precision=mixed_precision)
+    elif name in ("sa_vnet_revgan", "separable_vnet_multiscale"):
+        from ganslate_tpu_torch.utils import communication
+        yaml_name = "revgan.yaml" if name == "sa_vnet_revgan" else "cyclegan.yaml"
+        # Each process its own copy of the YAML: the children run at once.
+        yaml_dir = out_dir / f"yaml_rank{communication.get_rank()}"
+        yaml_dir.mkdir(parents=True, exist_ok=True)
+        conf = zoo_conf(zoo_yaml(yaml_dir, yaml_name), mixed_precision)
+    else:
+        project, run = ((HX4_PROJECT, HX4_BALANCED_RUN) if name == "hx4"
+                        else (CLEARGRASP_PROJECT, CLEARGRASP_BALANCED_RUN))
+        conf = build_conf(project_args(project, "cyclegan_balanced.yaml", run, out_dir,
+                                       mixed_precision))
+    conf.train.output_dir = str(out_dir)
+    return conf
+
+
+def spatial_zoo_family(name, out_dir, sharded):
+    """(d) for family `name` in a child: its bf16 steps (step ms, peak
+    memory, exchanges by network and by declared site, norm launches) and
+    its fp32 step 1 (losses, gradients; sharded, its halo and collective
+    seconds), from the seed's weights; in one process, also the fp32 step
+    under one-ulp noise on every norm output (the control)."""
+    import numpy as np
+    import torch
+    from ganslate_tpu_torch.ops import instance_norm as inorm
+    from ganslate_tpu_torch.parallel import spatial
+    from ganslate_tpu_torch.utils.builders import build_gan
+    shape, channels = SPATIAL_ZOO[name]
+    rng = np.random.default_rng(SEED + 120)
+    batch = {k: rng.uniform(-1, 1, (1, *shape, c)).astype(np.float32)
+             for k, c in zip(("A", "B"), channels)}
+
+    def model_of(mixed_precision):
+        conf = spatial_zoo_conf(name, out_dir / name, mixed_precision)
+        if sharded:
+            conf.train.spatial_mesh = SPATIAL_RANKS
+        model = build_gan(conf)
+        model.setup(batch)
+        return model
+
+    out = {"launches": []}
+    model = model_of(True)
+    if name == "sa_vnet_revgan":
+        out["attention_energy_bytes"] = attention_energy_bytes(
+            model.conf, shape, SPATIAL_RANKS if sharded else 1)
+    for i in range(SPATIAL_ZOO_BF16_STEPS):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        spatial.reset_counts()
+        inorm.reset_launches()
+        t0 = time.perf_counter()
+        model.set_input(batch)
+        model.optimize_parameters(sync=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        out["launches"].append(dict(inorm.LAUNCHES))
+        if i == 1:
+            out.update(step_ms=ms, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                       counts=dict(spatial.COUNTS), sites=dict(spatial.SITES),
+                       by_network={k or "losses": v for k, v in spatial.BY_NETWORK.items()},
+                       bf16_losses={k: float(v) for k, v in model.losses.items()},
+                       sharded=model._sharded)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def fp32_step(norms):
+        model = model_of(False)
+        spatial.reset_counts()
+        spatial.TIMED = sharded
+        try:
+            with norms():
+                model.set_input(batch)
+                model.optimize_parameters(sync=True)
+        finally:
+            spatial.TIMED = False
+        run = {"losses": {k: float(v) for k, v in model.losses.items()},
+               "seconds": dict(spatial.SECONDS),
+               "grads": {f"{net_name}.{k}": p.grad.detach().float().cpu().clone()
+                         for net_name, net in model.networks.items()
+                         for k, p in net.named_parameters() if p.grad is not None}}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run
+
+    out["fp32"] = fp32_step(contextlib.nullcontext)
+    if not sharded:
+        out["fp32_control"] = fp32_step(norm_ulp_noise)
+    return out
+
+
 def spatial_child(out_dir):
-    """(a)'s second half, (b) and (c) in a child: on 2 ranks, sharded; in
-    one process, the references. The `train` command comes last: it tears
-    down the process group."""
+    """(a)'s second half, (b), (c) and (d) in a child: on 2 ranks, sharded;
+    in one process, the references. The `train` command comes last: it
+    tears down the process group."""
     import torch
     from ganslate_tpu_torch.utils import communication
     _BRATS_ROOT[:] = [Path(os.environ["GANSLATE_SPATIAL_BRATS"])]
@@ -6658,9 +6811,119 @@ def spatial_child(out_dir):
     t0 = time.perf_counter()
     out["infer"] = spatial_infer(out_dir, sharded)
     out["infer_seconds"] = time.perf_counter() - t0
+    out["zoo"], out["zoo_seconds"] = {}, {}
+    for name in SPATIAL_ZOO:
+        t0 = time.perf_counter()
+        out["zoo"][name] = spatial_zoo_family(name, out_dir / "zoo", sharded)
+        out["zoo_seconds"][name] = time.perf_counter() - t0
     out["train"] = spatial_train_cli(out_dir, sharded)
     out["peak_memory_bytes_child"] = torch.cuda.max_memory_allocated()
     return out
+
+
+def attention_energy_bytes(conf, shape, ranks):
+    """The fp32 (S_local x S) energies of each self-attention block of the
+    SA V-Net and SA PatchGAN3D of `conf` at spatial `shape` on `ranks`
+    spatial ranks, in bytes a rank (batch 1): the one activation of the
+    path that sharding does not divide by the ranks (computed from the
+    levels' extents, not measured)."""
+    gen = conf.train.gan.generator
+    # The V-Net gathers its levels from the first whose slab is thinner than
+    # its cores' halo (`VnetGenerator._bottom`): their attention is whole.
+    rows, bottom = shape[0] // ranks, len(gen.down_blocks)
+    for i in range(len(gen.down_blocks)):
+        if rows % 2 or rows // 2 < 2:
+            bottom = i
+            break
+        rows //= 2
+    out = {}
+    for i, on in enumerate(gen.enable_attention_block):
+        if on:
+            s = math.prod(d // 2 ** (i + 1) for d in shape)
+            out[f"G.attns_{i}"] = 4 * (s // ranks if i < bottom else s) * s
+    extents = list(shape)
+    d_conf = conf.train.gan.discriminator
+    for k, stride in ((4, 3),) + ((4, 2),) * (d_conf.n_layers - 1):
+        extents = [(e + 2 - k) // stride + 1 for e in extents]
+    s = math.prod(extents)
+    # attn1 runs on slabs where the stem's stride divides the slab, else replicated.
+    local = s // ranks if (shape[0] // ranks) % 3 == 0 else s
+    out["D.attn1"] = 4 * local * s
+    extents = [e - 1 for e in extents]
+    s = math.prod(extents)
+    out["D.attn2"] = 4 * s * s
+    return out
+
+
+def spatial_zoo_check(ranks, ref, caveat):
+    """(d): each family's sharded fp32 step 1 against one process (losses
+    1e-4 relative; each gradient tensor within `TRAIN_FP32_GRAD_MAX`
+    relative L2, or 3 times the one-process control's gap where that is
+    larger; a gradient that cancels, below `CANCELLING_GRAD_MAX` of its
+    network's gradient norm, within that share of the norm), the peak
+    memory a rank against one process (RevGAN's at most
+    `SPATIAL_MEMORY_MAX`), the exchanges by network and by site."""
+    import torch
+    for name in SPATIAL_ZOO:
+        got, want = ranks[0]["zoo"][name], ref["zoo"][name]
+        fp32, ref32, control = got["fp32"], want["fp32"], want["fp32_control"]
+        check(fp32["grads"].keys() == ref32["grads"].keys() == control["grads"].keys(),
+              f"{name}: the sharded step's gradients are not the 1-process step's tensors")
+        net_norm = {}
+        for k, g in ref32["grads"].items():
+            net = k.split(".")[0]
+            net_norm[net] = net_norm.get(net, 0.0) + float(g.float().square().sum())
+        over, tols_raised, cancelling, worst = [], 0, 0, (0.0, None)
+        for k, g in ref32["grads"].items():
+            scale = math.sqrt(net_norm[k.split(".")[0]])
+            if float(g.norm()) < CANCELLING_GRAD_MAX * scale:
+                cancelling += 1
+                if float((fp32["grads"][k] - g).norm()) > CANCELLING_GRAD_MAX * scale:
+                    over.append(k)
+                continue
+            tol = max(TRAIN_FP32_GRAD_MAX,
+                      DIST_CONTROL_RATIO * rel_l2(control["grads"][k], g))
+            tols_raised += tol > TRAIN_FP32_GRAD_MAX
+            err = rel_l2(fp32["grads"][k], g)
+            worst = max(worst, (err / tol, k))
+            if err > tol:
+                over.append(k)
+        loss_err = {k: abs(fp32["losses"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in ref32["losses"].items()}
+        peak = [r["zoo"][name]["peak_memory_bytes"] for r in ranks]
+        replicas = all(torch.equal(r["zoo"][name]["fp32"]["grads"][k], v)
+                       for r in ranks[1:] for k, v in fp32["grads"].items())
+        rec = {"phase": "spatial_zoo", "family": name, "ranks": SPATIAL_RANKS,
+               "shape": list(SPATIAL_ZOO[name][0]), "sharded": got["sharded"],
+               "step_ms_2_ranks": got["step_ms"], "step_ms_1_process": want["step_ms"],
+               "peak_memory_bytes_per_rank": peak,
+               "peak_memory_bytes_1_process": want["peak_memory_bytes"],
+               "peak_memory_share_per_rank": [p / want["peak_memory_bytes"] for p in peak],
+               "fp32_step_halo_ms": fp32["seconds"]["halo"] * 1e3,
+               "fp32_step_collective_ms": fp32["seconds"]["collective"] * 1e3,
+               "exchanges_per_step": got["counts"], "exchanges_by_network": got["by_network"],
+               "declared_sites": got["sites"],
+               "launches_per_step_rank0": got["launches"][1],
+               "launches_per_step_1_process": want["launches"][1],
+               "fp32_loss_rel_err": loss_err, "fp32_grad_tensors": len(ref32["grads"]),
+               "fp32_grad_err_over_tol_max": worst[0], "fp32_grad_err_over_tol_worst": worst[1],
+               "fp32_grad_tols_above_bound": tols_raised, "fp32_grads_cancelling": cancelling,
+               "fp32_grads_over_tol": over, "replicas_bit_equal": replicas,
+               "bf16_losses_2_ranks": got["bf16_losses"],
+               "bf16_losses_1_process": want["bf16_losses"], "timing_caveat": caveat}
+        if name == "sa_vnet_revgan":
+            rec["attention_energy_bytes_per_rank"] = got["attention_energy_bytes"]
+            rec["attention_energy_bytes_1_process"] = want["attention_energy_bytes"]
+        emit(rec)
+        check(got["sharded"] and all(math.isfinite(v) for v in got["bf16_losses"].values()), rec)
+        check(all(e <= TRAIN_FP32_LOSS_RTOL for e in loss_err.values()) and not over
+              and replicas, rec)
+        # Sharded norms take the split pair; a replicated section's whole
+        # tensors either kernel.
+        check(all(c["split"] > 0 for c in got["launches"]), rec)
+        check(got["counts"]["halo"] > 0 and fp32["seconds"]["halo"] > 0, rec)
+        if name == "revgan":
+            check(all(p <= SPATIAL_MEMORY_MAX * want["peak_memory_bytes"] for p in peak), rec)
 
 
 def spatial_phase(root, bandwidth):
@@ -6672,14 +6935,18 @@ def spatial_phase(root, bandwidth):
     stats = spatial_stats_check(bandwidth)
     os.environ["GANSLATE_SPATIAL_BRATS"] = str(_BRATS_ROOT[0])
     with experiment_workdir(root) as work:
-        (ref,), ref_seconds = dist_launch("spatial", root / "spatial_1", work)
-        ranks, seconds = dist_launch("spatial", root / "spatial_2", work, nproc=SPATIAL_RANKS)
+        # The 1-process references run beside the 2 ranks: their numbers are
+        # their own, and all three processes' times share the card and host.
+        ((ref,), ref_seconds), (ranks, seconds) = dist_launch_together(
+            [("spatial", root / "spatial_1", None),
+             ("spatial", root / "spatial_2", SPATIAL_RANKS)], work, SPATIAL_CHILD_TIMEOUT)
     # One card: the ranks share it over gloo (NCCL refuses two ranks on one
     # device); with a card a rank, NCCL.
     backend = "nccl" if torch.cuda.device_count() >= SPATIAL_RANKS else "gloo"
-    caveat = ("2 ranks share one card and exchange through host memory (gloo): a check of the "
-              "arithmetic and of the memory per rank, not a scaling figure"
-              if backend == "gloo" else "a card a rank (NCCL)")
+    caveat = ("2 ranks share one card and exchange through host memory (gloo), and the 1-process "
+              "references run beside them: a check of the arithmetic and of the memory per "
+              "rank, not a scaling figure" if backend == "gloo" else
+              "a card a rank (NCCL), the 1-process references beside them")
     check([r["backend"] for r in ranks] == [backend] * SPATIAL_RANKS and ref["world"] == 1,
           [r["backend"] for r in ranks])
 
@@ -6818,13 +7085,18 @@ def spatial_phase(root, bandwidth):
             check(rec["max_abs_err_vs_1_process"] <= SW_BF16_MAX
                   and rec["mean_abs_err_vs_1_process"] <= SW_BF16_MEAN, rec)
 
+    spatial_zoo_check(ranks, ref, caveat)
+
     totals = {k: 0 for k in inorm.LAUNCHES}
     for r in ranks:
-        for counts in [r["train"]["launches"]] + [v["launches"] for v in r["infer"].values()]:
+        zoo_launches = [c for fam in r["zoo"].values() for c in fam["launches"]]
+        for counts in [r["train"]["launches"]] + [v["launches"] for v in r["infer"].values()] \
+                + zoo_launches:
             for k, v in counts.items():
                 totals[k] += v
     emit({"phase": "spatial_summary", "backend": backend, "seconds": time.perf_counter() - t0,
           "child_seconds": {"1_process": ref_seconds, "2_ranks": seconds},
+          "zoo_seconds": {"1_process": ref["zoo_seconds"], "2_ranks": ranks[0]["zoo_seconds"]},
           "stats_m2_ms": {r["dtype"]: r["ms"] for r in stats},
           "peak_memory_bytes_child": {"1_process": ref["peak_memory_bytes_child"],
                                       "2_ranks": [r["peak_memory_bytes_child"] for r in ranks]},

@@ -18,6 +18,16 @@ the original ganslate's order), and run as one GEMM over the channels-last
 rows `(N, S, C)` with their weights concatenated. A GEMM in fp32 takes no
 TF32 path unless the caller turns on `torch.backends.cuda.matmul.allow_tf32`
 (off by default), where cuDNN's 1x1 convs take TF32 by default.
+
+Spatially sharded (`parallel/spatial.py`), the queries stay local: each
+rank projects its own rows only, gathers the fp32 keys and values of the
+whole sample over the spatial group (a declared gather, `site
+'attention_kv'`), and attends its rows to all positions. The gather's
+backward sums the ranks' gradients of the keys and values and keeps this
+rank's rows, so each rank's projection gradients come from its own rows
+and their sum over the group (`nn/gans/base.py`) is the whole gradient.
+The (S_local x S) energies do not shrink with the group's size as the
+activations do.
 """
 
 from typing import Optional
@@ -33,6 +43,8 @@ from ganslate_tpu_torch.parallel import spatial as spatial_sharding
 class SelfAttentionBlock(nn.Module):
     """Takes and returns `(N, C, *spatial)`, `C = in_dim`."""
 
+    spatially_sharded = True
+
     def __init__(self, in_dim: int, spatial_dims: int = 3, kernel_init=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -45,7 +57,6 @@ class SelfAttentionBlock(nn.Module):
         self.gamma = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
-        spatial_sharding.refuse("The self-attention block")
         n, c, *spatial = x.shape
         # (N, C, *spatial) -> (N, S, C): a view for a channels-last input.
         rows = x.permute(0, *range(2, x.ndim), 1).reshape(n, -1, c)
@@ -53,9 +64,16 @@ class SelfAttentionBlock(nn.Module):
         weight = torch.cat([m.weight.flatten(1) for m in convs])
         bias = torch.cat([m.bias for m in convs])
         qkv = F.linear(rows, weight, bias).float()
-        q, k, v = qkv.split([self.qk_dim, self.qk_dim, c], dim=-1)
-        attention = torch.softmax(q @ k.transpose(1, 2), dim=-1)        # (N, S, S)
-        out = (attention @ v).to(x.dtype)                                # (N, S, C)
+        q, kv = qkv.split([self.qk_dim, self.qk_dim + c], dim=-1)
+        scope = spatial_sharding.active()
+        if scope is not None:
+            # The rows are this slab's, in the sample's order: the slabs'
+            # concatenation is the whole sample's flattened rows. Keys and
+            # values cross in one all-gather.
+            kv = spatial_sharding.gather(kv, 1, scope, site="attention_kv")
+        k, v = kv.split([self.qk_dim, c], dim=-1)
+        attention = torch.softmax(q @ k.transpose(1, 2), dim=-1)        # (N, S_local, S)
+        out = (attention @ v).to(x.dtype)                                # (N, S_local, C)
         # Back to (N, C, *spatial), channels-last in memory.
         out = out.reshape(n, *spatial, c).permute(0, x.ndim - 1, *range(1, x.ndim - 1))
         return self.gamma.to(x.dtype) * out + x

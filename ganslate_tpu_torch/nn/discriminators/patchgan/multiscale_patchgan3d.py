@@ -13,6 +13,14 @@ crops. `stochastic_rngs` tells the model that the module draws per call
 (`BaseGAN._stochastic`, `_batch_fusable`). An input whose output extent at
 some scale would be 0 raises a ValueError (`check_output_extents`) where
 the JAX package returns an empty output.
+
+Spatially sharded, the crops are the whole sample's: their starts are drawn
+from the whole extents, and the host generators of a spatial group's ranks,
+seeded alike, draw the same starts. A crop along the sharded dim crosses
+the slabs' bounds unevenly: `spatial.reslab` moves its rows to even slabs
+for the scale's PatchGAN where the crop's extent divides over the ranks,
+and otherwise every rank gathers the whole input and judges the crop
+replicated (both declared at site 'multiscale_crop').
 """
 
 from dataclasses import dataclass
@@ -24,6 +32,7 @@ from torch import nn
 from ganslate_tpu_torch import configs
 from ganslate_tpu_torch.nn.discriminators.patchgan.patchgan import (PatchGAN,
                                                                    check_output_extents)
+from ganslate_tpu_torch.parallel import spatial as spatial_sharding
 
 
 @dataclass
@@ -46,7 +55,15 @@ def crop_starts(spatial: Sequence[int], crop: Sequence[int],
             for s, c in zip(spatial, crop)]
 
 
+def _cut(x, starts, crop, skip=None):
+    """`x[..., a:a + c, ...]` along every spatial dim but `skip`."""
+    return x[(slice(None), slice(None),
+              *(slice(None) if i == skip else slice(a, a + c)
+                for i, (a, c) in enumerate(zip(starts, crop))))]
+
+
 class MultiScalePatchGAN3D(nn.Module):
+    spatially_sharded = True
     stochastic_rngs = ("crop",)
 
     def __init__(self, in_channels: int, ndf: int = 64, n_layers: int = 3,
@@ -64,17 +81,29 @@ class MultiScalePatchGAN3D(nn.Module):
                 weight_init_gain, generator))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        spatial = tuple(x.shape[2:])
+        scope = spatial_sharding.active()
+        spatial = spatial_sharding.global_extent(x.shape, scope)
         outputs = {}
         for scale in range(1, self.scales + 1):
             crop = tuple(s // scale for s in spatial)
             net = getattr(self, f"scale{scale}")
             check_output_extents(f"{type(self).__name__} (scale {scale})", crop, net.stages,
                                  self.n_layers)
-            patch = x
-            if crop != spatial:
-                starts = crop_starts(spatial, crop, generator)
-                patch = x[(slice(None), slice(None),
-                           *(slice(a, a + c) for a, c in zip(starts, crop)))]
-            outputs[str(scale)] = net(patch)
+            if crop == spatial:
+                outputs[str(scale)] = net(x)
+                continue
+            starts = crop_starts(spatial, crop, generator)
+            if scope is None:
+                outputs[str(scale)] = net(_cut(x, starts, crop))
+                continue
+            d = scope.spatial_dim
+            patch = _cut(x, starts, crop, skip=d)
+            if crop[d] % scope.size == 0:
+                patch = spatial_sharding.reslab(patch, 2 + d, starts[d], crop[d], scope,
+                                                site="multiscale_crop")
+                outputs[str(scale)] = net(patch)
+                continue
+            patch = spatial_sharding.gather(patch, 2 + d, scope, site="multiscale_crop")
+            with spatial_sharding.suspended():
+                outputs[str(scale)] = net(patch.narrow(2 + d, starts[d], crop[d]))
         return outputs

@@ -10,8 +10,9 @@ Spatially sharded (`parallel/spatial.py`), each conv exchanges halos with
 the neighbouring shards while its output splits evenly over them. The
 stride-1 tail (`penultimate`, `head`) takes an extent E to E - 1, which
 does not: the first conv that does not split gathers its input along the
-sharded dim (an all-gather, counted in `spatial.COUNTS`), and the tail runs
-on the whole tensor on every rank: each rank returns the whole output, and
+sharded dim (an all-gather, counted in `spatial.COUNTS` at site
+'patchgan_tail'), and the tail runs on the whole tensor on every rank
+(`run_steps`): each rank returns the whole output, and
 `spatial.global_mean` counts it once.
 
 Takes and returns `(N, C, *spatial)`. The conv submodules carry the JAX
@@ -48,6 +49,29 @@ def check_output_extents(name: str, spatial: Sequence[int], stages, n_layers: in
                 f"along spatial dim {dim} (the depth, for dim 0 of a volume) to an output "
                 f"extent of {extents[dim]}: use fewer layers or a larger input "
                 f"(input extents {tuple(spatial)})")
+
+
+def run_steps(steps, x):
+    """Run `steps`, each `(conv, what follows it)` (`conv` None: a step
+    that is not a conv, `what follows` None: nothing). In a sharded scope,
+    from the first conv whose output does not split evenly over the shards
+    on, the input is gathered along the sharded dim and the rest runs
+    replicated: every rank returns the whole output, which a loss takes as
+    a share (`spatial.global_mean`)."""
+    scope = spatial.active()
+    for i, (conv, after) in enumerate(steps):
+        if scope is not None and conv is not None:
+            d = scope.spatial_dim
+            if spatial.conv_halo(conv.weight.shape[2 + d], conv.strides[d],
+                                 conv.padding[d], x.shape[2 + d]) is None:
+                x = spatial.gather(x, 2 + d, scope, site="patchgan_tail")
+                with spatial.suspended():
+                    return run_steps(steps[i:], x)
+        if conv is not None:
+            x = conv(x)
+        if after is not None:
+            x = after(x)
+    return x
 
 
 class PatchGAN(nn.Module):
@@ -96,17 +120,4 @@ class PatchGAN(nn.Module):
         return steps + [(self.head, None)]
 
     def forward(self, x):
-        steps = self._steps()
-        scope = spatial.active()
-        for i, (conv, after) in enumerate(steps):
-            if scope is not None:
-                d = scope.spatial_dim
-                if spatial.conv_halo(conv.weight.shape[2 + d], conv.strides[d],
-                                     conv.padding[d], x.shape[2 + d]) is None:
-                    x = spatial.gather(x, 2 + d, scope)
-                    with spatial.suspended():
-                        for conv, after in steps[i:]:
-                            x = conv(x) if after is None else after(conv(x))
-                    return x
-            x = conv(x) if after is None else after(conv(x))
-        return x
+        return run_steps(self._steps(), x)

@@ -10,6 +10,11 @@ theirs (`attn1`, `attn2`), and a batch norm flax's automatic name
 LeakyReLU fused (the instance-norm kernels). An input whose output extent
 would be 0 raises a ValueError (`check_output_extents`) where the JAX
 package returns an empty output.
+
+Spatially sharded, it runs as the PatchGAN does (`patchgan.run_steps`):
+each conv on slabs while its output splits evenly (the stride-3 stem needs
+slabs of a multiple of 3 rows), `attn1` on slabs (its keys and values
+gathered), and from the stride-1 tail on replicated, `attn2` included.
 """
 
 from dataclasses import dataclass
@@ -20,10 +25,12 @@ from torch import nn
 
 from ganslate_tpu_torch import configs
 from ganslate_tpu_torch.nn.attention import SelfAttentionBlock
-from ganslate_tpu_torch.nn.discriminators.patchgan.patchgan import check_output_extents
+from ganslate_tpu_torch.nn.discriminators.patchgan.patchgan import (check_output_extents,
+                                                                   run_steps)
 from ganslate_tpu_torch.nn.layers import (Conv, batch_norm_or_none, inert_bias,
                                           is_bias_before_norm, leaky_relu, make_initializer,
                                           norm_act)
+from ganslate_tpu_torch.parallel import spatial
 
 
 @dataclass
@@ -34,6 +41,8 @@ class SelfAttentionPatchGAN3DConfig(configs.base.BaseDiscriminatorConfig):
 
 
 class SelfAttentionPatchGAN3D(nn.Module):
+
+    spatially_sharded = True
 
     def __init__(self, in_channels: int, ndf: int = 64, n_layers: int = 3,
                  kernel_size: Sequence[int] = (4, 4, 4), norm_type: str = "instance",
@@ -69,11 +78,12 @@ class SelfAttentionPatchGAN3D(nn.Module):
                         batch_norm=getattr(self, f"BatchNorm_{k}"))
 
     def forward(self, x):
-        check_output_extents(type(self).__name__, x.shape[2:], self.stages, self.n_layers)
-        h = leaky_relu(self.stem(x))
-        for n in range(1, self.n_layers):
-            h = self._norm(getattr(self, f"down{n}")(h), n - 1)
-        h = self.attn1(h)
-        h = self._norm(self.penultimate(h), self.n_layers - 1)
-        h = self.attn2(h)
-        return self.head(h)
+        check_output_extents(type(self).__name__, spatial.global_extent(x.shape),
+                             self.stages, self.n_layers)
+        steps = [(self.stem, leaky_relu)]
+        steps += [(getattr(self, f"down{n}"), lambda h, k=n - 1: self._norm(h, k))
+                  for n in range(1, self.n_layers)]
+        steps += [(None, self.attn1),
+                  (self.penultimate, lambda h: self._norm(h, self.n_layers - 1)),
+                  (None, self.attn2), (self.head, None)]
+        return run_steps(steps, x)

@@ -47,9 +47,10 @@ each train step runs inside `spatial.spatial_scope`, a loss is this rank's
 share of the global mean, the gradients are summed over the spatial group
 and averaged over the data group, and the reported losses and metrics are
 the spatial group's sums. The pools hold this rank's slabs; checkpoints
-hold whole images. Only a model and networks that declare
-`spatially_sharded` shard (`spatial.check_sharded`): the CycleGAN family on
-the Vnet3D, Resnet2D/3D and PatchGAN2D/3D.
+hold whole images. Every GAN family and network of the port declares
+`spatially_sharded`; `spatial.check_sharded` refuses one that does not.
+`apply` names the network in the scope, so that `spatial.BY_NETWORK`
+counts each network's exchanges.
 
 Mixed precision is the JAX package's bf16 compute policy, not autocast: the
 fp32 master parameters and the input are cast to bf16 at each network
@@ -331,8 +332,10 @@ class BaseGAN(ABC):
         x = x.to(self.compute_dtype)
         # (N, *spatial, C) -> (N, C, *spatial): a view, channels-last in memory.
         x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
-        y = net(x, **kwargs) if params is None \
-            else functional_call(net, params[name], (x,), kwargs)
+        scope = spatial.current()
+        with spatial.spatial_scope(scope and scope.named(name)):
+            y = net(x, **kwargs) if params is None \
+                else functional_call(net, params[name], (x,), kwargs)
         if isinstance(y, list):
             return [t.permute(0, *range(2, t.ndim), 1) for t in y]
         if isinstance(y, dict):

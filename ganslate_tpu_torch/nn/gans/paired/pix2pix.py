@@ -9,7 +9,10 @@ adversarial loss plus lambda * L1(fake_B, real_B); then the D update on
 `cat([real_A, real_B])` and the detached `cat([real_A, fake_B])`, run as one
 forward where D is per-sample; metrics from the D step's predictions. The
 G's dropout draws from the model's generator `rng` (`BaseGAN.apply`). Infer
-mode builds G only, which translates A to B only.
+mode builds G only, which translates A to B only. Spatially sharded
+(`train.spatial_mesh`), D's input is the channel concatenation of this
+rank's slabs of A and B, and the L1 term is this rank's share of the whole
+sample's mean.
 """
 
 from dataclasses import dataclass, field
@@ -35,6 +38,8 @@ class Pix2PixConditionalGANConfig(configs.base.BaseGANConfig):
 
 
 class Pix2PixConditionalGAN(BaseGAN):
+
+    spatially_sharded = True
 
     def __init__(self, conf):
         super().__init__(conf)

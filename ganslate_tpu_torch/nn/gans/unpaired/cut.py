@@ -27,7 +27,17 @@ fake_B is computed once: its detached value feeds the D update and its
 graph the G update (the JAX package recomputes it; the numbers are the
 same). G and D run under the compute-dtype policy (`BaseGAN.apply`); the
 patch matrices and `mlp` are fp32. Infer mode builds G only, which
-translates A to B only."""
+translates A to B only.
+
+Spatially sharded (`train.spatial_mesh`), the taps are slabs along the
+first spatial dim. The patch ids are drawn over the whole sample's
+positions, and the ranks of a spatial group, whose `rng` is seeded alike
+and draws the same sequence, draw the same ids. `select_patches` is then
+the group's indexed select (`parallel.spatial.select`, site
+'cut_patches'): every rank holds the whole `(B * P, C)` patch matrices,
+and the MLP head and PatchNCE run replicated on them; the loss is each
+rank's share (`spatial.global_mean`), so the group's sum of the MLP's
+gradients, and of G's through the select's backward, counts each once."""
 
 import logging
 import math
@@ -42,6 +52,7 @@ from ganslate_tpu_torch.nn.gans.base import BaseGAN
 from ganslate_tpu_torch.nn.layers import make_initializer
 from ganslate_tpu_torch.nn.losses.adversarial_loss import AdversarialLoss
 from ganslate_tpu_torch.nn.losses.cut_losses import PatchNCELoss
+from ganslate_tpu_torch.parallel import spatial
 
 logger = logging.getLogger(__name__)
 
@@ -77,7 +88,10 @@ class FeaturePatchMLP(nn.Module):
     """Per NCE level: Linear(C_l -> nc), ReLU, Linear(nc -> nc), then L2
     normalisation (+1e-7). The layers carry the JAX package's names
     (`mlp{i}_fc1`, `mlp{i}_fc2`); weights are drawn from the init menu in
-    the JAX `(in, out)` layout and stored as `(out, in)`, biases are zero."""
+    the JAX `(in, out)` layout and stored as `(out, in)`, biases are zero.
+    It acts on each patch's row alone, replicated under spatial sharding."""
+
+    spatially_sharded = True
 
     def __init__(self, channels_per_feature: Sequence[int], nc: int = 256,
                  weight_init_type: str = "normal", weight_init_gain: float = 0.02,
@@ -115,25 +129,42 @@ def draw_patch_ids(generator: torch.Generator, positions: int, num_patches: int)
     return perm[:min(num_patches, positions)]
 
 
+def positions(feat) -> int:
+    """The whole sample's positions of a tap `(B, *spatial, C)`: a sharded
+    tap's slab holds 1/size of them."""
+    scope = spatial.active()
+    return math.prod(feat.shape[1:-1]) * (scope.size if scope is not None else 1)
+
+
 def select_patches(feats, patch_ids):
     """Taps `(B, *spatial, C)` at the shared positions `patch_ids`, as fp32
     `(B * P, C)` patch matrices. For a channels-last tap the flattening is a
-    view."""
+    view. Spatially sharded, the ids are the whole sample's positions and
+    every rank gets the whole matrices (`spatial.select`)."""
+    scope = spatial.active()
     out = []
     for f, ids in zip(feats, patch_ids):
         flat = f.reshape(f.shape[0], -1, f.shape[-1])
-        out.append(flat.index_select(1, ids).reshape(-1, f.shape[-1]).float())
+        if scope is None:
+            out.append(flat.index_select(1, ids).reshape(-1, f.shape[-1]).float())
+        else:
+            out.append(spatial.select(flat, ids, scope, site="cut_patches")
+                       .reshape(-1, f.shape[-1]))
     return out
 
 
 def mirror_w(ids: torch.Tensor, width: int) -> torch.Tensor:
     """Flat positions of a `(*spatial)` grid mirrored along its last axis
-    (W, of extent `width`)."""
+    (W, of extent `width`). W is never the sharded dim (spatial dim 0, H of
+    an image, D of a volume), so a mirrored position stays in its slab and
+    the whole sample's flat positions mirror as the slab's do."""
     w = ids % width
     return ids + (width - 1) - 2 * w
 
 
 class CUT(BaseGAN):
+
+    spatially_sharded = True
 
     def __init__(self, conf):
         super().__init__(conf)
@@ -213,7 +244,7 @@ class CUT(BaseGAN):
         mlp = self.networks["mlp"]
         with torch.no_grad():
             feats_k = self.apply("G", source, params, extract_features=layers)
-            patch_ids = [draw_patch_ids(self.rng, math.prod(f.shape[1:-1]), self.num_patches)
+            patch_ids = [draw_patch_ids(self.rng, positions(f), self.num_patches)
                          for f in feats_k]
             pool_k = mlp(select_patches(feats_k, patch_ids))
         del feats_k
@@ -224,7 +255,7 @@ class CUT(BaseGAN):
         pool_q = mlp(select_patches(feats_q, patch_ids))
         total = 0.0
         for q, k in zip(pool_q, pool_k):
-            total = total + self.criterion_nce(q, k).mean() * self.lambda_nce
+            total = total + spatial.global_mean(self.criterion_nce(q, k)) * self.lambda_nce
         return total / len(layers)
 
     def train_step(self):
@@ -232,7 +263,8 @@ class CUT(BaseGAN):
         adv = self.criterion_adv
         use_idt = self.lambda_nce_idt > 0
 
-        # ---- FastCUT's flip along W, of the whole batch.
+        # ---- FastCUT's flip along W, of the whole batch (W is never the
+        # sharded dim: each slab flips in place).
         flip = None
         if self.use_equivariance_flip:
             flip = draw_flip(self.rng)

@@ -20,6 +20,10 @@ registered in the original ganslate's order (the JAX package's
 `use_s2d_exec` selects the JAX package's space-to-depth execution form,
 which computes the same function with the same parameters; the port runs
 the plain computation and keeps its check of the input's extents.
+
+Spatially sharded (`parallel/spatial.py`), its convs exchange halos and its
+norms take the whole sample's statistics; the memory-saving core's
+backward reruns them (`nn/invertible.py`).
 """
 
 from dataclasses import dataclass
@@ -34,6 +38,7 @@ from ganslate_tpu_torch.nn.invertible import InvertibleSequence, InvResidualBloc
 from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, batch_norm_or_none, check_s2d_norm,
                                           inert_bias, is_bias_before_norm, make_initializer,
                                           norm_act)
+from ganslate_tpu_torch.parallel import spatial
 
 
 @dataclass
@@ -51,6 +56,8 @@ class Piresnet3DConfig(configs.base.BaseGeneratorConfig):
 
 
 class _DownConv(nn.Module):
+
+    spatially_sharded = True
 
     def __init__(self, in_channels, features, norm_type, spatial_dims, kernel_init,
                  generator=None):
@@ -73,6 +80,8 @@ class _DownConv(nn.Module):
 
 class _UpConv(nn.Module):
 
+    spatially_sharded = True
+
     def __init__(self, features, out_channels, norm_type, spatial_dims, kernel_init,
                  generator=None):
         super().__init__()
@@ -93,6 +102,7 @@ class _UpConv(nn.Module):
 
 class Piresnet3D(nn.Module):
 
+    spatially_sharded = True
     spatial_dims = 3
 
     def __init__(self, in_channels: int, out_channels: int, depth: int,
@@ -123,9 +133,10 @@ class Piresnet3D(nn.Module):
         if inverse and not self.use_inverse:
             raise ValueError(
                 "Trying to perform inverse forward while `use_inverse` flag is turned off.")
-        if self.use_s2d_exec and any(d % 4 for d in x.shape[2:]):
+        extents = spatial.global_extent(x.shape)
+        if self.use_s2d_exec and any(d % 4 for d in extents):
             raise ValueError(f"use_s2d_exec needs spatial extents divisible by 4, "
-                             f"got {tuple(x.shape[2:])}.")
+                             f"got {extents}.")
         suffix = "ba" if inverse else "ab"
         h = getattr(self, f"down_{suffix}")(x)
         feats = [h]

@@ -23,6 +23,16 @@ norm, the inner block, then the up conv and norm).
 the 3D U-Net, which computes the same function with the same parameters;
 the port runs the plain computation and keeps its checks, so that the same
 configs are refused.
+
+Spatially sharded (`parallel/spatial.py`), each level runs on slabs while
+the slab's rows halve evenly. The deepest levels may leave fewer rows than
+that (a 7-level U-Net on 128 rows over 2 ranks: 1 row a rank at level 6):
+from the first level whose input the k4 s2 down conv cannot split, the
+input is gathered along the sharded dim (site 'unet_bottom') and the
+bottom levels, down and back up to that level, run replicated; `slab` then
+returns to this rank's rows before the skip concatenation, and its
+backward keeps only those rows, so the ranks' gradients sum to the whole.
+The checks of the extents read the whole sample's.
 """
 
 from typing import Optional
@@ -34,6 +44,7 @@ from torch import nn
 from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, Dropout, apply_norm_s2d,
                                           get_norm_layer, inert_bias, is_bias_before_norm,
                                           leaky_relu, make_initializer)
+from ganslate_tpu_torch.parallel import spatial as spatial_sharding
 
 
 def s2d_depth(spatial_shape, num_downs: int) -> int:
@@ -50,6 +61,7 @@ def s2d_depth(spatial_shape, num_downs: int) -> int:
 class UnetGenerator(nn.Module):
     """`spatial_dims` is set by `Unet2D` and `Unet3D`."""
 
+    spatially_sharded = True
     spatial_dims = 2
 
     def __init__(self, in_channels: int, out_channels: int, num_downs: int = 7,
@@ -101,7 +113,7 @@ class UnetGenerator(nn.Module):
         self.dropout = Dropout(0.5)
 
     def _check_input(self, x):
-        spatial = tuple(x.shape[2:])
+        spatial = spatial_sharding.global_extent(x.shape)
         multiple = 2 ** self.num_downs
         if any(d % multiple for d in spatial):
             raise ValueError(f"a U-Net of {self.num_downs} levels needs spatial extents that "
@@ -118,23 +130,45 @@ class UnetGenerator(nn.Module):
         return apply_norm_s2d(self.norm_type, h, channels, 2 if level < folded else 0,
                               norm=getattr(self, table[level]))
 
+    def _bottom(self, x, scope) -> int:
+        """The first level whose input slab the down conv cannot split (its
+        rows odd), where a sharded forward gathers; `num_downs` for none."""
+        if scope is None:
+            return self.num_downs
+        rows = x.shape[2 + scope.spatial_dim]
+        for i in range(self.num_downs):
+            if spatial_sharding.conv_halo(4, 2, 1, rows) is None:
+                return i
+            rows //= 2
+        return self.num_downs
+
     def forward(self, x, generator: Optional[torch.Generator] = None):
         folded = self._check_input(x)
+        scope = spatial_sharding.active()
+        bottom = self._bottom(x, scope)
         skips = []
         h = x
         for i in range(self.num_downs):
             if i > 0:
                 h = leaky_relu(h)
-            h = getattr(self, f"down{i}")(h)
-            if i in self.down_norms:
-                h = self._norm(self.down_norms, i, h, h.shape[1], folded)
+            if i == bottom:
+                h = spatial_sharding.gather(h, 2 + scope.spatial_dim, scope,
+                                            site="unet_bottom")
+            with spatial_sharding.replicated(i >= bottom):
+                h = getattr(self, f"down{i}")(h)
+                if i in self.down_norms:
+                    h = self._norm(self.down_norms, i, h, h.shape[1], folded)
             skips.append(h)
         for i in reversed(range(self.num_downs)):
-            h = getattr(self, f"up{i}")(F.relu(h))
+            with spatial_sharding.replicated(i >= bottom):
+                h = getattr(self, f"up{i}")(F.relu(h))
+                if i > 0:
+                    h = self._norm(self.up_norms, i, h, h.shape[1], folded)
+                    if i in self.dropout_levels:
+                        h = self.dropout(h, generator)
+            if i == bottom:
+                h = spatial_sharding.slab(h, 2 + scope.spatial_dim, scope)
             if i == 0:
                 break
-            h = self._norm(self.up_norms, i, h, h.shape[1], folded)
-            if i in self.dropout_levels:
-                h = self.dropout(h, generator)
             h = torch.cat([skips[i - 1], h], dim=1)
         return torch.tanh(h)

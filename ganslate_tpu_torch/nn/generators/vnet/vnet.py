@@ -26,6 +26,17 @@ PReLU; inside a conv block its conv, its batch norm, its PReLU.
 the image: 0 is the input block's output, 1 + i down block i's; the call
 stops after the last requested tap, and the decoder does not run.
 
+Spatially sharded (`parallel/spatial.py`), each level runs on slabs while
+the down conv halves the slab's rows evenly and the next level's k5 convs
+find their 2 halo rows on the neighbour. A deep V-Net on a thin slab does
+not (the zoo's 4-level self-attention V-Net on 32 rows over 2 ranks leaves
+1 row a rank at level 4): from the first down block whose output slab
+would be thinner, its input is gathered along the sharded dim (site
+'vnet_bottom') and the bottom levels, down and back up, run replicated;
+`slab` then returns to this rank's rows (and a deeper CUT tap to its
+slab), and its backward keeps only those rows, so the ranks' gradients sum
+to the whole.
+
 `use_s2d_exec` selects the JAX package's space-to-depth execution form,
 which computes the same function with the same parameters; the port runs
 the plain computation and keeps its check of the input's extents, so that
@@ -43,6 +54,11 @@ from ganslate_tpu_torch.nn.layers import (Conv, ConvTranspose, PReLU, apply_norm
                                           batch_norm_or_none, check_s2d_norm, inert_bias,
                                           is_bias_before_norm, make_initializer)
 from ganslate_tpu_torch.nn.separable import SeparableConv3d, SeparableConvTranspose3d
+from ganslate_tpu_torch.parallel import spatial
+
+
+# The rows a core's k5 conv reaches on each side.
+_CORE_HALO = 2
 
 
 def _conv_layer(is_separable, spatial_dims, transposed=False):
@@ -220,6 +236,7 @@ class VnetGenerator(nn.Module):
     """Takes and returns `(N, C, *spatial)`; `spatial_dims` is set by
     `Vnet3D`, `Vnet2D` and `SelfAttentionVnet3D`."""
 
+    spatially_sharded = True
     spatial_dims = 3
 
     def __init__(self, in_channels: int, out_channels: int, norm_type: str = "instance",
@@ -283,6 +300,19 @@ class VnetGenerator(nn.Module):
         """Encoder taps: the input block and each down block."""
         return 1 + self.n_levels
 
+    def _bottom(self, x, scope, depth: int) -> int:
+        """The first down block whose output slab the sharded convs cannot
+        run on (its input's rows odd, or its output thinner than a core's
+        halo), where a sharded forward gathers; `depth` for none."""
+        if scope is None:
+            return depth
+        rows = x.shape[2 + scope.spatial_dim]
+        for i in range(depth):
+            if rows % 2 or rows // 2 < _CORE_HALO:
+                return i
+            rows //= 2
+        return depth
+
     def _down(self, i, h, inverse):
         """Down block `i`, then its attention where the level has one (in
         both directions: the inverse pass does not invert it)."""
@@ -296,9 +326,10 @@ class VnetGenerator(nn.Module):
                 "Trying to perform inverse forward while `use_inverse` flag is turned off.")
         if self.use_s2d_exec:
             multiple = 2 ** (self.n_levels + 1)
-            if any(d % multiple for d in x.shape[2:]):
+            extents = spatial.global_extent(x.shape)
+            if any(d % multiple for d in extents):
                 raise ValueError(f"use_s2d_exec needs spatial extents divisible by "
-                                 f"2^(levels+1)={multiple}, got {tuple(x.shape[2:])}.")
+                                 f"2^(levels+1)={multiple}, got {extents}.")
         suffix = "ba" if inverse else "ab"
         depth = self.n_levels
         if extract_features is not None:
@@ -309,14 +340,26 @@ class VnetGenerator(nn.Module):
             if not indices:
                 return []
             depth = max(indices)
+        scope = spatial.active()
+        bottom = self._bottom(x, scope, depth)
         # The input block's output is also the last up block's skip; a level's
-        # output (after its attention) is its tap and its skip.
+        # output (after its attention) is its tap and its skip. From level
+        # `bottom` on they are whole (replicated).
         skips = [getattr(self, f"in_{suffix}")(x)]
         for i in range(depth):
-            skips.append(self._down(i, skips[-1], inverse))
+            if i == bottom:
+                skips[i] = spatial.gather(skips[i], 2 + scope.spatial_dim, scope,
+                                          site="vnet_bottom")
+            with spatial.replicated(i >= bottom):
+                skips.append(self._down(i, skips[-1], inverse))
         if extract_features is not None:
-            return [skips[i] for i in indices]
+            return [skips[i] if i < bottom or bottom == depth
+                    else spatial.slab(skips[i], 2 + scope.spatial_dim, scope) for i in indices]
         out = skips.pop()
         for i in range(self.n_levels):
-            out = getattr(self, f"ups_{i}")(out, skips.pop(), inverse)
+            level = self.n_levels - 1 - i
+            with spatial.replicated(level >= bottom):
+                out = getattr(self, f"ups_{i}")(out, skips.pop(), inverse)
+            if level == bottom:
+                out = spatial.slab(out, 2 + scope.spatial_dim, scope)
         return getattr(self, f"out_{suffix}")(out)

@@ -17,6 +17,12 @@ no activation of the chain but its output, and the backward rebuilds each
 block's input by running the opposite coupling, then differentiates the
 block there. A forward without a gradient to record runs the plain chain,
 which computes the same numbers.
+
+Spatially sharded (`parallel/spatial.py`), the backward's recompute and
+rerun exchange halos and all-reduce norm statistics again, inside
+autograd. It runs them in the spatial scope of the forward (kept on the
+context), and every rank walks the same blocks in the same order, so the
+ranks issue the same collectives in the same order.
 """
 
 from typing import Callable, Dict, List, Tuple
@@ -27,6 +33,7 @@ from torch.func import functional_call
 
 from ganslate_tpu_torch.nn.layers import (Conv, batch_norm_or_none, inert_bias,
                                           is_bias_before_norm, make_initializer, norm_act)
+from ganslate_tpu_torch.parallel import spatial
 
 
 def coupling_forward(f, g, h):
@@ -67,12 +74,18 @@ class MemorySavingSequence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, seq, inverse, names, x, *tensors):
         ctx.seq, ctx.inverse, ctx.names = seq, inverse, names
+        ctx.scope = spatial.current()
         y = seq.chain(x, inverse)
         ctx.save_for_backward(y, *tensors)
         return y
 
     @staticmethod
     def backward(ctx, grad_y):
+        with spatial.spatial_scope(ctx.scope):
+            return MemorySavingSequence._backward(ctx, grad_y)
+
+    @staticmethod
+    def _backward(ctx, grad_y):
         y, *tensors = ctx.saved_tensors
         seq, names = ctx.seq, ctx.names
         needs = ctx.needs_input_grad[4:]
@@ -112,10 +125,7 @@ class InvertibleSequence(nn.Module):
         self.blocks = nn.ModuleList(
             nn.ModuleDict({"F": make_block(), "G": make_block()}) for _ in range(n_blocks))
 
-    @property
-    def spatially_sharded(self) -> bool:
-        # The recompute-by-inverse backward is not sharded yet.
-        return not self.use_memory_saving
+    spatially_sharded = True
 
     def block_tensors(self) -> Tuple[List[Tuple[int, str, str]], List[torch.Tensor]]:
         """`(names, tensors)`: every tensor the blocks compute with in this
@@ -183,6 +193,8 @@ class InvResidualBlock(nn.Module):
     -> ReLU, the ReLU fused into the second norm (exact). The conv is named
     `conv` and the batch norms `BatchNorm_0`, `BatchNorm_1`, as in the JAX
     package."""
+
+    spatially_sharded = True
 
     def __init__(self, features: int, norm_type: str = "instance", spatial_dims: int = 3,
                  kernel_init=None, generator=None):

@@ -205,6 +205,8 @@ class Conv(nn.Module):
                                      x.shape[2 + d])
             if halo is None:
                 spatial.uneven(type(self).__name__, x.shape[2 + d], scope)
+            if max(halo) > x.shape[2 + d]:
+                spatial.uneven(type(self).__name__, x.shape[2 + d], scope, halo)
             x = spatial.pad_halo(x, *halo, 2 + d, pad_mode, scope)
             padding = padding[:d] + (0,) + padding[d + 1:]
         if pad_mode != "zeros":
@@ -251,9 +253,11 @@ class ConvTranspose(nn.Module):
         d = scope.spatial_dim
         k, s, p = self.weight.shape[2 + d], self.strides[d], self.padding[d]
         halo = spatial.conv_transpose_halo(k, s, p, self.output_padding[d])
-        if halo is None:
-            spatial.uneven(type(self).__name__, x.shape[2 + d], scope)
         size = x.shape[2 + d]
+        if halo is None:
+            spatial.uneven(type(self).__name__, size, scope)
+        if max(halo) > size:
+            spatial.uneven(type(self).__name__, size, scope, halo)
         x = spatial.halo_exchange(x, *halo, 2 + d, scope)
         padding = self.padding[:d] + (0,) + self.padding[d + 1:]
         output_padding = self.output_padding[:d] + (0,) + self.output_padding[d + 1:]

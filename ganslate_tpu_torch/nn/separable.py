@@ -10,6 +10,11 @@ the JAX tree, and are registered in that order, the original ganslate's.
 Only the last factor's bias may be inert (`bias_inert`): the first factor's
 bias reaches the following norm through the second conv's zero padding, so it
 does not cancel there.
+
+Spatially sharded, each factor is a `Conv` or `ConvTranspose`, which
+exchanges its own halo along the sharded dim (dim 0 of the spatial axes):
+the in-plane factor's (1, kh, kw) window needs none, the through-plane
+factor's (kd, 1, 1) window the rows it reaches.
 """
 
 from typing import Optional, Sequence, Tuple, Union
@@ -25,6 +30,7 @@ def _triple(v) -> Tuple[int, int, int]:
 
 
 class _Separable(nn.Module):
+    spatially_sharded = True
     layer = Conv
 
     def __init__(self, in_features: int, features: int,

@@ -21,10 +21,21 @@ there, inside `spatial_scope`:
   over global count), so the spatial ranks' gradients sum to the unsharded
   gradient, and `total` sums the shares for reporting.
 
-A layer whose output does not split evenly over the shards raises, except
-the PatchGAN's stride-1 tail, which gathers its input along the sharded dim
-(`gather`, counted in `COUNTS`) and runs the rest replicated (`suspended`):
-every rank holds its whole output, and `global_mean` counts it once.
+A layer whose output does not split evenly over the shards raises
+(`uneven`), except where a network declares a replicated section: it
+gathers its input along the sharded dim (`gather`) and runs on the whole
+tensor on every rank (`suspended`). A replicated section ends in one of two
+ways, so that the spatial group's sum of the gradients counts each
+parameter once (`nn/gans/base.py` sums them over the group):
+- in a loss that `global_mean` takes as this rank's share (the whole
+  mean over the group's size): the PatchGAN's stride-1 tail, CUT's MLP
+  head and PatchNCE after the indexed select (`select`);
+- in `slab`, a narrow back to this rank's rows, whose backward keeps only
+  those rows: the U-Net's and the V-Net's bottom levels.
+The declared sections are the PatchGAN tail, the U-Net's and the V-Net's
+bottoms, the attention's keys and values, the multi-scale discriminator's crop (which
+`reslab` moves to even slabs of its rows where it can) and CUT's selected
+patches; `COUNTS`, `BY_NETWORK` and `SITES` count their exchanges.
 
 Transport: point-to-point through `dist.batch_isend_irecv`, and all-gather
 and all-reduce over the spatial group. On gloo, whose point-to-point and
@@ -34,6 +45,7 @@ per rank) they go as they are.
 """
 
 import contextlib
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -45,34 +57,47 @@ from torch import nn
 from ganslate_tpu_torch.parallel import mesh
 from ganslate_tpu_torch.utils import communication
 
-# Modules that only hold others: what they hold is checked.
+# Modules that only hold others (what they hold is checked), and
+# position-wise modules, which act on the channels of each row alone.
 _CONTAINERS = (nn.ModuleList, nn.ModuleDict, nn.Sequential)
-_NEXT_SLICE = ("its spatial sharding comes with the next distribution slice "
-               "(train.spatial_mesh, spatial_sharding method 'gspmd')")
+_POSITIONWISE = (nn.Linear,)
+_DECLARE = ("a class declares `spatially_sharded = True` where everything it computes is "
+            "correct on a slab inside `spatial_scope` (train.spatial_mesh, spatial_sharding "
+            "method 'gspmd')")
 
 
 def check_sharded(model, networks):
     """Raise NotImplementedError naming the first of `model` (a GAN), its
     `networks` and the modules inside them that does not declare
-    `spatially_sharded = True`: a class declares it where everything it
-    computes is correct on a slab inside `spatial_scope`."""
+    `spatially_sharded = True`. Every GAN family and network of the port
+    declares it; a network that does not (a user's own) is refused here,
+    before it could compute a slab's numbers as if they were a sample's."""
     if not getattr(model, "spatially_sharded", False):
-        raise NotImplementedError(f"{type(model).__name__} is not spatially sharded in the "
-                                  f"port: {_NEXT_SLICE}")
+        raise NotImplementedError(f"{type(model).__name__} is not spatially sharded: "
+                                  f"{_DECLARE}")
     for name, net in networks.items():
         for m in net.modules():
-            if isinstance(m, _CONTAINERS) or getattr(m, "spatially_sharded", False):
+            if isinstance(m, _CONTAINERS + _POSITIONWISE) \
+                    or getattr(m, "spatially_sharded", False):
                 continue
             what = f"{type(net).__name__} ({name})"
             if m is not net:
                 what = f"{type(m).__name__} in {what}"
-            raise NotImplementedError(f"{what} is not spatially sharded in the port: "
-                                      f"{_NEXT_SLICE}")
+            raise NotImplementedError(f"{what} is not spatially sharded: {_DECLARE}")
 
 
 #: Exchanges since `reset_counts()`: halo exchanges (each direction pair one),
-#: gathers along the sharded dim, and all-reduces over the spatial group.
-COUNTS = {"halo": 0, "gather": 0, "all_reduce": 0}
+#: gathers along the sharded dim, re-slabs (`reslab`), indexed selects
+#: (`select`), and all-reduces over the spatial group.
+COUNTS = {"halo": 0, "gather": 0, "reslab": 0, "select": 0, "all_reduce": 0}
+#: The same counts by network: the name `BaseGAN.apply` gives the scope
+#: (`SpatialScope.network`; "" for the losses and all outside a network).
+#: An exchange of a backward counts under the network of its forward.
+BY_NETWORK = {}
+#: The declared replicated sections' exchanges since `reset_counts()`, by
+#: site: 'patchgan_tail', 'unet_bottom', 'vnet_bottom', 'attention_kv',
+#: 'multiscale_crop', 'cut_patches'.
+SITES = {}
 #: Their host seconds since `reset_counts()` (halo exchanges; gathers and
 #: all-reduces as "collective"), read only where `TIMED` is set: then each
 #: is timed between device synchronisations (a measurement's setting).
@@ -85,6 +110,16 @@ def reset_counts():
         COUNTS[name] = 0
     for name in SECONDS:
         SECONDS[name] = 0.0
+    BY_NETWORK.clear()
+    SITES.clear()
+
+
+def _count(kind: str, scope: "SpatialScope", site: Optional[str] = None):
+    COUNTS[kind] += 1
+    by = BY_NETWORK.setdefault(scope.network, dict.fromkeys(COUNTS, 0))
+    by[kind] += 1
+    if site is not None:
+        SITES[site] = SITES.get(site, 0) + 1
 
 
 @contextlib.contextmanager
@@ -110,13 +145,16 @@ class SpatialScope:
     is `2 + spatial_dim` of an `(N, C, *spatial)` tensor and `1 +
     spatial_dim` of a channels-last `(N, *spatial, C)` one. `sharded`:
     the tensors are slabs (False: every rank holds the whole sample, a leaf
-    the shard rule replicates, and only the losses are shares)."""
+    the shard rule replicates, and only the losses are shares). `network`:
+    the network that runs in this scope, under which its exchanges are
+    counted (`BY_NETWORK`)."""
 
     group: object
     ranks: Tuple[int, ...]
     index: int
     spatial_dim: int = 0
     sharded: bool = True
+    network: str = ""
 
     @property
     def size(self) -> int:
@@ -133,10 +171,14 @@ class SpatialScope:
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum `t` in place over the spatial group (gloo's own CUDA path for
         a CUDA tensor)."""
-        COUNTS["all_reduce"] += 1
+        _count("all_reduce", self)
         with _timed("collective", t):
             dist.all_reduce(t, group=self.group)
         return t
+
+    def named(self, network: str) -> "SpatialScope":
+        """This scope, counting its exchanges under `network`."""
+        return dataclasses.replace(self, network=network)
 
 
 _SCOPE: Optional[SpatialScope] = None
@@ -183,14 +225,20 @@ def active() -> Optional[SpatialScope]:
     return _SCOPE if _SCOPE is not None and _SCOPE.sharded else None
 
 
-def refuse(what: str):
-    """Raise for a layer or model that cannot run on slabs, inside a
-    sharded scope."""
-    if active() is not None:
-        raise NotImplementedError(
-            f"{what} has no spatially sharded form in the port: its spatial sharding comes "
-            f"with the next distribution slice (train.spatial_mesh, spatial_sharding "
-            f"method 'gspmd')")
+def replicated(on: bool = True):
+    """`suspended()` where `on`, else nothing: the scope of a section that
+    a network runs replicated from some layer on."""
+    return suspended() if on else contextlib.nullcontext()
+
+
+def global_extent(shape, scope: Optional[SpatialScope] = None):
+    """The whole sample's spatial extents of an `(N, C, *spatial)` slab: its
+    own, with the sharded dim times the group's size in a sharded scope."""
+    scope = scope or active()
+    spatial = list(shape[2:])
+    if scope is not None:
+        spatial[scope.spatial_dim] *= scope.size
+    return tuple(spatial)
 
 
 # ---------------------------------------------------------------- transport
@@ -282,13 +330,13 @@ class _Halo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, lo, hi, dim, scope):
         ctx.lo, ctx.hi, ctx.dim, ctx.scope = lo, hi, dim, scope
-        COUNTS["halo"] += 1
+        _count("halo", scope)
         with _timed("halo", x):
             return _halo_forward(x, lo, hi, dim, scope)
 
     @staticmethod
     def backward(ctx, g):
-        COUNTS["halo"] += 1
+        _count("halo", ctx.scope)
         with _timed("halo", g):
             return _halo_backward(g, ctx.lo, ctx.hi, ctx.dim, ctx.scope), None, None, None, None
 
@@ -349,9 +397,9 @@ def pad_halo(x: torch.Tensor, lo: int, hi: int, dim: int, mode: str = "zeros",
 class _Gather(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, dim, scope):
+    def forward(ctx, x, dim, scope, site):
         ctx.dim, ctx.scope, ctx.size = dim, scope, x.shape[dim]
-        COUNTS["gather"] += 1
+        _count("gather", scope, site)
         with _timed("collective", x):
             parts = mesh.all_gather(x, scope.group, scope.size)
             return torch.cat([_like(p, x) for p in parts], dim)
@@ -361,15 +409,161 @@ class _Gather(torch.autograd.Function):
         # Every rank's loss took a part of the replicated tensor: the sum of
         # their gradients, this rank's slab of it.
         g = ctx.scope.all_reduce(g.clone(memory_format=torch.contiguous_format))
-        return g.narrow(ctx.dim, ctx.scope.index * ctx.size, ctx.size), None, None
+        return g.narrow(ctx.dim, ctx.scope.index * ctx.size, ctx.size), None, None, None
 
 
-def gather(x: torch.Tensor, dim: int, scope: Optional[SpatialScope] = None) -> torch.Tensor:
+def gather(x: torch.Tensor, dim: int, scope: Optional[SpatialScope] = None,
+           site: Optional[str] = None) -> torch.Tensor:
     """The whole tensor from the equal slabs of the spatial group along
-    `dim`, on every rank. Differentiable: the backward sums the ranks'
-    gradients and keeps this rank's slab."""
+    `dim`, on every rank; `site` names a declared replicated section
+    (`SITES`). Differentiable: the backward sums the ranks' gradients and
+    keeps this rank's slab, so a replicated section after it must end in a
+    share of a loss (`global_mean`) or in `slab`."""
     scope = scope or active()
-    return _Gather.apply(x, dim, scope)
+    return _Gather.apply(x, dim, scope, site)
+
+
+def slab(x: torch.Tensor, dim: int, scope: Optional[SpatialScope] = None) -> torch.Tensor:
+    """This rank's equal slab along `dim` of a tensor that every rank of the
+    group holds whole (a replicated section's result): the end of a
+    replicated section that returns to slabs. Its backward keeps this
+    rank's rows and zeros elsewhere, so that the ranks' gradients of the
+    whole tensor, and of the parameters before it, sum to the whole
+    gradient."""
+    scope = scope or active()
+    if x.shape[dim] % scope.size:
+        uneven("slab", x.shape[dim], scope)
+    return mesh.spatial_slab(x, dim, scope.index, scope.size)
+
+
+# ------------------------------------------------------------------ re-slab
+
+
+def _overlap(owner: int, owned: int, wanter: int, start: int, wanted: int):
+    """Global rows `[lo, hi)` that rank `owner` holds (its slab of `owned`
+    rows) and rank `wanter` wants (`wanted` rows from `start + wanter *
+    wanted`), or None."""
+    lo = max(owner * owned, start + wanter * wanted)
+    hi = min((owner + 1) * owned, start + (wanter + 1) * wanted)
+    return (lo, hi) if lo < hi else None
+
+
+def _shape(x, dim, rows):
+    return x.shape[:dim] + (rows,) + x.shape[dim + 1:]
+
+
+class _Reslab(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dim, start, length, scope, site):
+        ctx.dim, ctx.start, ctx.scope, ctx.owned = dim, start, scope, x.shape[dim]
+        ctx.wanted, ctx.site = length // scope.size, site
+        _count("reslab", scope, site)
+        with _timed("collective", x):
+            return _reslab(x, dim, start, x.shape[dim], ctx.wanted, scope, forward=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("reslab", ctx.scope, ctx.site)
+        with _timed("collective", g):
+            dx = _reslab(g, ctx.dim, ctx.start, ctx.owned, ctx.wanted, ctx.scope,
+                         forward=False)
+        return dx, None, None, None, None, None
+
+
+def _reslab(t, dim, start, owned, wanted, scope, forward):
+    """The forward moves each overlap of an owner's slab and a wanter's rows
+    from owner to wanter; the backward moves the gradients of the same
+    overlaps back, into a zero gradient of the owner's slab."""
+    me, n = scope.index, scope.size
+    sends, recvs, places = [], [], []
+    for peer in range(n):
+        if peer == me:
+            continue
+        out = _overlap(me, owned, peer, start, wanted) if forward \
+            else _overlap(peer, owned, me, start, wanted)
+        if out is not None:
+            base = me * owned if forward else start + me * wanted
+            sends.append((peer, t.narrow(dim, out[0] - base, out[1] - out[0])))
+        into = _overlap(peer, owned, me, start, wanted) if forward \
+            else _overlap(me, owned, peer, start, wanted)
+        if into is not None:
+            recvs.append((peer, _shape(t, dim, into[1] - into[0])))
+            places.append(into)
+    got = _exchange(scope, sends, recvs, t.device, t.dtype)
+    local = _overlap(me, owned, me, start, wanted)
+    if forward:
+        parts = list(zip(places, got))
+        if local is not None:
+            parts.append((local, t.narrow(dim, local[0] - me * owned, local[1] - local[0])))
+        parts.sort(key=lambda p: p[0][0])
+        return torch.cat([_like(p, t) for _, p in parts], dim) if len(parts) > 1 \
+            else parts[0][1].clone()
+    dx = t.new_zeros(_shape(t, dim, owned))
+    if local is not None:
+        dx.narrow(dim, local[0] - me * owned, local[1] - local[0]).add_(
+            t.narrow(dim, local[0] - (start + me * wanted), local[1] - local[0]))
+    for (lo, hi), part in zip(places, got):
+        dx.narrow(dim, lo - me * owned, hi - lo).add_(part)
+    return _like(dx, t)
+
+
+def reslab(x: torch.Tensor, dim: int, start: int, length: int,
+           scope: Optional[SpatialScope] = None, site: Optional[str] = None) -> torch.Tensor:
+    """Even slabs of the global rows `[start, start + length)` of a tensor
+    sharded in equal slabs along `dim`: this rank's is rows `start + index *
+    m` to `start + (index + 1) * m`, `m = length / size`, taken point to
+    point from the ranks that hold them. Differentiable: the backward sends
+    each row's gradient back to the rank that owns it. `length` must divide
+    over the group."""
+    scope = scope or active()
+    if length % scope.size:
+        uneven("reslab", length, scope)
+    return _Reslab.apply(x, dim, start, length, scope, site)
+
+
+# ------------------------------------------------------------ indexed select
+
+
+class _Select(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, rows, ids, scope, site):
+        local, mine = _owned(rows.shape[1], ids, scope)
+        ctx.scope, ctx.rows, ctx.dtype = scope, rows.shape[1], rows.dtype
+        ctx.save_for_backward(local, mine)
+        _count("select", scope, site)
+        out = torch.where(mine[None, :, None], rows.index_select(1, local).float(), 0.0)
+        return scope.all_reduce(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        local, mine = ctx.saved_tensors
+        # Every rank's share of the replicated patches' loss: their sum is
+        # the whole gradient, whose owned rows go into this rank's slab.
+        g = ctx.scope.all_reduce(g.contiguous().clone())
+        g = torch.where(mine[None, :, None], g, 0.0).to(ctx.dtype)
+        dx = g.new_zeros((g.shape[0], ctx.rows, g.shape[2]))
+        return dx.index_add_(1, local, g), None, None, None
+
+
+def _owned(rows: int, ids: torch.Tensor, scope: SpatialScope):
+    lo = scope.index * rows
+    mine = (ids >= lo) & (ids < lo + rows)
+    return (ids - lo).clamp(0, rows - 1), mine
+
+
+def select(rows: torch.Tensor, ids: torch.Tensor, scope: Optional[SpatialScope] = None,
+           site: Optional[str] = None) -> torch.Tensor:
+    """Rows `ids` (global positions of the flattened sample, the same on
+    every rank) of `rows` `(B, S, C)`, this rank's `S` flattened rows of a
+    slab along the first spatial dim (global positions `index * S` on), as
+    fp32 `(B, len(ids), C)` on every rank: each rank fills the rows it owns
+    and the group sums them. Differentiable: the backward sums the ranks'
+    gradients (shares of a replicated loss) and scatters each row's into
+    the slab that owns it."""
+    scope = scope or active()
+    return _Select.apply(rows, ids, scope, site)
 
 
 # ------------------------------------------------------------- conv helpers
@@ -395,11 +589,17 @@ def conv_transpose_halo(kernel: int, stride: int, padding: int,
     return (kernel - 1 - padding) // stride, (padding - 1) // stride + 1
 
 
-def uneven(what: str, size: int, scope: SpatialScope):
+def uneven(what: str, size: int, scope: SpatialScope, halo: Optional[Tuple[int, int]] = None):
+    """Raise for layer `what`, whose input slab of `size` rows it cannot run
+    on: its output would not split evenly, or (`halo`) its window reaches
+    past the neighbours' slabs."""
+    why = ("its output slabs would not line up with its input's" if halo is None else
+           f"its window needs ({halo[0]}, {halo[1]}) rows of the neighbours', and the halo "
+           f"exchange reaches only theirs")
     raise ValueError(
         f"{what} does not split evenly over {scope.size} spatial shards of {size} rows along "
-        f"spatial dim {scope.spatial_dim}: its output slabs would not line up with its "
-        f"input's. Choose an extent that the convs keep divisible, or fewer spatial ranks")
+        f"spatial dim {scope.spatial_dim}: {why}. Choose an extent that the convs keep "
+        f"divisible, or fewer spatial ranks")
 
 
 def sharded_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,

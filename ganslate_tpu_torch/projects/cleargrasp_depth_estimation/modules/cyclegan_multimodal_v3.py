@@ -9,7 +9,8 @@ discriminators and the cycle losses see the geometry channels only (D_B
 the 1-channel depth map, D_A the 3-channel normal map); the visuals' fakes
 and reconstructions get 3 zero RGB channels before them, to the data's
 channel layout, and so does `infer`'s output. The pools hold the 1- and
-3-channel geometry fakes."""
+3-channel geometry fakes. Spatially sharded as the CycleGAN is: the
+channel slices and zero channels act on slabs as on whole images."""
 
 from dataclasses import dataclass
 from typing import Optional
@@ -31,8 +32,6 @@ class CycleGANMultiModalV3Config(cyclegan.CycleGANConfig):
 
 
 class CycleGANMultiModalV3(cyclegan.CycleGAN):
-    # Its own losses and pools are not sharded yet.
-    spatially_sharded = False
 
     def init_criterions(self):
         self.criterion_adv = AdversarialLoss(

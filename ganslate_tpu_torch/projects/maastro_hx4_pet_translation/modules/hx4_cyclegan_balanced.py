@@ -8,7 +8,9 @@ domain's real CT through as conditioning: rec_A = G_BA([fake_B, pCT]),
 rec_B = G_AB([fake_A, ldCT]). The discriminators and the cycle losses see
 the PET channel only; the visuals' fakes and reconstructions are padded
 with a zero CT channel to the data's channel layout, and so is `infer`'s
-output. The pools hold the 1-channel PET fakes."""
+output. The pools hold the 1-channel PET fakes. Spatially sharded as the
+CycleGAN is: the channel slices and zero channels act on slabs as on
+whole volumes."""
 
 from dataclasses import dataclass
 from typing import Optional
@@ -28,8 +30,6 @@ class HX4CycleGANBalancedConfig(cyclegan.CycleGANConfig):
 
 
 class HX4CycleGANBalanced(cyclegan.CycleGAN):
-    # Its own losses and pools are not sharded yet.
-    spatially_sharded = False
 
     def init_criterions(self):
         self.criterion_adv = AdversarialLoss(

@@ -32,6 +32,7 @@ from ganslate_tpu_torch.nn.discriminators import PatchGAN2D, PatchGAN3D
 from ganslate_tpu_torch.nn.generators import Resnet2D, Resnet3D, Vnet2D, Vnet3D
 from ganslate_tpu_torch.nn.generators.resnet.piresnet3d import Piresnet3D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 GRAD_RTOL = 1e-4

@@ -1,7 +1,9 @@
 """One CycleGAN step with batch-norm networks (Resnet2D G's, PatchGAN2D
 D's, `train.gan.norm_type: batch`) in lockstep with the JAX package's, as
-`test_torch_port_train_step.py` holds the instance-norm step: the JAX
-initial parameters carried into the port, the same numpy batch through both
+`test_torch_port_train_step.py` holds the instance-norm step: the port's
+seeded parameters carried into JAX (`tests/torch_port_support.py:
+jax_params_from`: nothing of the JAX init compiles) and back, the same
+numpy batch through both
 models' entry points, fp32 on the CPU. Losses within rtol 1e-4; every
 gradient within 1e-4 relative L2 (JAX's read from Adam's first moment after
 the step, (1 - beta1) g: an exact halving), with the per-channel constants
@@ -18,6 +20,7 @@ from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.testing import make_cyclegan_conf
 
 from tests.test_torch_port_batchnorm import _check_gradient
+from tests.torch_port_support import jax_params_from, one_torch_thread  # noqa: F401
 
 NETWORKS = ("G_AB", "G_BA", "D_B", "D_A")
 SMALL = dict(n_residual_blocks=1, ngf=4, ndf=4, n_layers_D=2, pool_size=0, seed=3)
@@ -36,13 +39,14 @@ def test_cyclegan_step_with_batch_norm_matches_jax(tmp_path):
     rng = np.random.default_rng(5)
     batch = {k: rng.uniform(-1, 1, (BATCH, SIZE, SIZE, 3)).astype(np.float32)
              for k in ("A", "B")}
-    jax_model = jax_build_gan(_batch_norm_conf(jax_conf(
-        str(tmp_path), batch_size=BATCH, image_size=SIZE, mixed_precision=False, **SMALL)))
-    jax_model.setup(example_batch=batch)
-    params = jax.device_get(jax_model.state.params)
     port_model = build_gan(_batch_norm_conf(make_cyclegan_conf(
         str(tmp_path), batch_size=BATCH, mixed_precision=False, cuda=False, **SMALL)))
     port_model.setup(batch)
+    jax_model = jax_build_gan(_batch_norm_conf(jax_conf(
+        str(tmp_path), batch_size=BATCH, image_size=SIZE, mixed_precision=False, **SMALL)))
+    with jax_params_from({name: port_model.networks[name].state_dict() for name in NETWORKS}):
+        jax_model.setup(example_batch=batch)
+    params = jax.device_get(jax_model.state.params)
     for name in NETWORKS:
         assert any("BatchNorm" in k for k, _ in port_model.networks[name].named_parameters())
         load_flax_params(port_model.networks[name], params[name])

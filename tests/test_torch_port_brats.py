@@ -24,6 +24,7 @@ from ganslate_tpu_torch.configs.omega import Conf
 from ganslate_tpu_torch.configs.utils import init_config
 from ganslate_tpu_torch.engines.utils import init_engine
 from ganslate_tpu_torch.projects.brats_mri_sequence_translation import datasets
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 BRATS = REPO / "projects" / "brats_mri_sequence_translation"

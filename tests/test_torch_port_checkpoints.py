@@ -41,6 +41,7 @@ from ganslate_tpu_torch.nn.generators.resnet.piresnet3d import Piresnet3D
 from ganslate_tpu_torch.utils import torch_import
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.synthetic_data import original_state_dict
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 # As `test_torch_port_infer.py`: fp32 end to end, only the summation order

@@ -51,6 +51,7 @@ from ganslate_tpu_torch.projects.cleargrasp_depth_estimation import datasets
 from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.synthetic_data import write_cleargrasp_root
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CLEARGRASP = REPO / "projects" / "cleargrasp_depth_estimation"

@@ -22,6 +22,7 @@ from PIL import Image
 import torch
 
 from ganslate_tpu_torch.utils.cli.interface import interface
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 32
 

@@ -7,7 +7,9 @@ Small sizes, as the JAX package's `tests/test_cut.py`: Resnet2D with 1
 residual block and ngf 8, PatchGAN2D with ndf 8 and 1 layer, 32x32 inputs of
 1 channel, batch 2, `nce_layers` [0, 4, 8, 10], `mlp_nc` 16, `num_patches`
 16, identity NCE on, fp32 on the CPU. One JAX CUT (and one JAX FastCUT) is
-built for the file; its initial parameters are carried into the port by
+built for the file, its parameters the port's seeded ones carried by the
+JAX package's `torch_import` (`tests/torch_port_support.py:jax_params_from`:
+nothing of the JAX init compiles) and loaded back into the port by
 `utils/flax_weights.load_flax_params`. The JAX step draws its patch ids and
 flip from threefry keys, the port from its generator: the test computes
 JAX's draws from the JAX state's key and hands them to the port through
@@ -47,6 +49,8 @@ from ganslate_tpu_torch.nn.losses.cut_losses import PatchNCELoss
 from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.testing import make_cut_conf
+from tests.torch_port_support import (jax_params_from, one_torch_thread,  # noqa: F401
+                                      seeded_states)
 
 BATCH = 2
 SIZE = 32
@@ -79,7 +83,8 @@ def _jax_model(conf, batch):
     for key in ("dataset", "logging", "checkpointing"):
         raw["train"].pop(key, None)
     model = jax_build_gan(jax_init_config(JaxConf.create(raw), JaxConfig))
-    model.setup(example_batch=batch)
+    with jax_params_from(seeded_states(conf.to_container(resolve=False))):
+        model.setup(example_batch=batch)
     return model
 
 

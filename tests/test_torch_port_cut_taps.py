@@ -17,6 +17,7 @@ import torch
 
 from ganslate_tpu_torch.nn.generators import Resnet2D, Resnet3D, Vnet3D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

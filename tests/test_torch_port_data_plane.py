@@ -22,6 +22,7 @@ from ganslate_tpu_torch.data.utils.transforms import (get_paired_image_transform
 from ganslate_tpu_torch.utils import communication
 from ganslate_tpu_torch.utils.io import (decollate, has_extension, make_dataset_of_files,
                                          make_recursive_dataset_of_files)
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 
 class ToyDataset:

@@ -40,6 +40,7 @@ from PIL import Image
 from ganslate_tpu_torch.utils.metrics.fid import FID
 
 from tests import torch_distributed_child as child
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 32
 

@@ -30,6 +30,7 @@ from ganslate_tpu.nn import inception as jax_inception
 from ganslate_tpu.utils.metrics import fid as jax_fid
 from ganslate_tpu_torch.nn import inception
 from ganslate_tpu_torch.utils.metrics import fid
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 75
 REL = 1e-4

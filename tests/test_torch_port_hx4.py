@@ -19,8 +19,10 @@ outputs lie in [-1, 1] and the two forms differ by a rounding of each
 
 The balanced CycleGAN: Unet3D with 3 levels and ngf 8 (2 -> 1 channels,
 both directions) and PatchGAN3D with 1 layer and ndf 8 (1 channel), at
-(8, 16, 16), batch 2, fp32, pool 0, dropout off; the JAX initial
-parameters carried into the port (`utils/flax_weights.load_flax_params`).
+(8, 16, 16), batch 2, fp32, pool 0, dropout off; the JAX model starts from
+the port's seeded parameters (`tests/torch_port_support.py:
+jax_params_from`), loaded back into the port
+(`utils/flax_weights.load_flax_params`).
 Tolerances as the Pix2Pix and CycleGAN lockstep tests: losses and metrics
 per step rtol 1e-4 (the D metrics also atol 1e-6); every gradient after
 step 1 within 1e-4 relative L2 (JAX's read from Adam's first moment); every
@@ -62,6 +64,8 @@ from ganslate_tpu_torch.utils import medio
 from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.synthetic_data import HX4_FILES, hx4_patient, write_hx4_root
+from tests.torch_port_support import (jax_params_from, one_torch_thread,  # noqa: F401
+                                      seeded_states)
 
 REPO = Path(__file__).resolve().parents[1]
 HX4 = REPO / "projects" / "maastro_hx4_pet_translation"
@@ -324,7 +328,10 @@ def _jax_model(out_dir, batch, nets=SMALL, ndf=8):
     _jax_project()
     raw = _raw(out_dir, f"jax_hx4_project.{MODULE}", nets, len(batch["A"]), ndf)
     model = jax_build_gan(jax_init_config(JaxConf.create(raw), JaxConfig))
-    model.setup(example_batch=batch)
+    port_raw = _raw(out_dir, f"ganslate_tpu_torch.projects.maastro_hx4_pet_translation.{MODULE}",
+                    nets, len(batch["A"]), ndf)
+    with jax_params_from(seeded_states(port_raw)):
+        model.setup(example_batch=batch)
     return model
 
 

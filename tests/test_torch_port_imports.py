@@ -17,6 +17,7 @@ from ganslate_tpu_torch.configs.config import Config
 from ganslate_tpu_torch.configs.omega import Conf
 from ganslate_tpu_torch.configs.utils import init_config
 from ganslate_tpu_torch.utils.io import import_attr
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ganslate_tpu_torch"

@@ -1,6 +1,6 @@
 """The whole slice on the CPU: a deployment YAML shaped like the horse2zebra
 `train.gan` + `infer` sections (small nets, `train.cuda=false`), a `.pth`
-checkpoint holding JAX-initialised `G_AB` parameters, served through
+checkpoint holding seeded JAX `G_AB` parameters (`seeded_params`), served through
 `init_engine("infer", [..., "infer.is_deployment=true"])`, against JAX's
 `G_AB` under `BaseGAN.infer`'s compute-dtype cast and the engine's wire cast.
 
@@ -22,6 +22,7 @@ from ganslate_tpu_torch.configs.omega import MissingMandatoryValue
 from ganslate_tpu_torch.engines.utils import init_engine
 from ganslate_tpu_torch.nn.generators import Resnet2D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 N_BLOCKS, NGF, SIZE = 2, 16, 32
 LOAD_ITER = 7
@@ -49,7 +50,7 @@ def _module():
 @pytest.fixture(scope="module")
 def jax_params():
     x = jnp.zeros((1, SIZE, SIZE, 3), jnp.float32)
-    params = jax.jit(_module().init)(jax.random.key(0), x)["params"]
+    params = seeded_params(_module(), x)
     rng = np.random.default_rng(0)
     return jax.tree_util.tree_map(
         lambda a: np.array(a) if a.ndim > 1

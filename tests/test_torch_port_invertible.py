@@ -30,6 +30,7 @@ from ganslate_tpu_torch.nn.generators.vnet.vnet import VnetInvBlock
 from ganslate_tpu_torch.nn.invertible import InvertibleSequence
 from ganslate_tpu_torch.nn.layers import make_initializer
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 CHANNELS, N_BLOCKS = 16, 3
 ATOL = 1e-5
@@ -53,7 +54,7 @@ def _port_sequence(use_memory_saving=False, generator=None):
 @pytest.fixture(scope="module")
 def case():
     x = np.random.default_rng(1).normal(size=(2, 8, 8, 8, CHANNELS)).astype(np.float32)
-    params = jax.jit(_jax_sequence(False).init)(jax.random.key(0), jnp.asarray(x))["params"]
+    params = seeded_params(_jax_sequence(False), jnp.asarray(x))
     rng = np.random.default_rng(0)
     # Non-zero biases and slopes away from 0.25, per block.
     params = jax.tree_util.tree_map_with_path(

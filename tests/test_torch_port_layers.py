@@ -14,6 +14,7 @@ import torch
 
 from ganslate_tpu.nn import layers as jl
 from ganslate_tpu_torch.nn import layers as tl
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 
 def _nhwc_to_nchw(x):
@@ -25,7 +26,7 @@ def _nchw_to_nhwc(y):
 
 
 def _jax_layer(module, x, seed=0):
-    params = jax.jit(module.init)(jax.random.key(seed), jnp.asarray(x))["params"]
+    params = seeded_params(module, jnp.asarray(x), seed=seed)
     # Non-zero biases, so the test sees where they are added.
     params = jax.tree_util.tree_map(np.array, params)
     params["bias"] = np.random.default_rng(seed).normal(size=params["bias"].shape) \

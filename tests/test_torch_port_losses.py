@@ -23,6 +23,7 @@ from ganslate_tpu_torch.nn.losses import adversarial_loss, cyclegan_losses
 from ganslate_tpu_torch.nn.losses.utils import ssim
 from ganslate_tpu_torch.utils.metrics import train_metrics
 from ganslate_tpu_torch.utils.testing import make_cyclegan_conf
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5
 

@@ -17,6 +17,7 @@ import scipy.ndimage
 
 from ganslate_tpu_torch.data.utils import fov_truncate, ops, registration_methods
 from ganslate_tpu_torch.utils import medio, sitk_utils
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRY = dict(origin=(-12.5, 30.25, 7.0), spacing=(0.9, 1.1, 2.5),
                 direction=(0., 1., 0., -1., 0., 0., 0., 0., 1.))

@@ -38,6 +38,7 @@ from ganslate_tpu_torch.nn.discriminators.patchgan.multiscale_patchgan3d import 
 from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.testing import make_cyclegan_conf
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 
 def jax_model_from_shapes(conf, batch, gamma=0.0, seed=0):

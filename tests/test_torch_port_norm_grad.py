@@ -28,6 +28,7 @@ import torch
 
 import ganslate_tpu.ops.instance_norm as in_mod
 from ganslate_tpu_torch.ops import instance_norm as port
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 ACTIVATIONS = ("none", "relu", "leaky_relu")
 SHAPES = {"2d": (2, 8, 8, 16), "3d": (1, 4, 6, 6, 8)}

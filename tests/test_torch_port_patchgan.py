@@ -21,12 +21,13 @@ from ganslate_tpu_torch.utils.builders import build_D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.io import import_attr
 from ganslate_tpu_torch.utils.testing import make_cyclegan_conf
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 NDF, SIZE = 8, 32
 
 
 def _jax_params(module, x, seed=0):
-    params = jax.jit(module.init)(jax.random.key(seed), jnp.asarray(x))["params"]
+    params = seeded_params(module, jnp.asarray(x), seed=seed)
     rng = np.random.default_rng(seed)
     # Non-zero biases (the JAX init gives zeros) so the test sees them.
     return jax.tree_util.tree_map(

@@ -6,8 +6,11 @@ its checkpoint), and the engines on a paired one-generator model.
 Small sizes, as the JAX package's `tests/test_unet_pix2pix.py`: Unet2D with
 5 levels and ngf 8, PatchGAN2D with ndf 8 and 1 layer, 3-channel (32, 32)
 images, batch 2, fp32 on the CPU. One JAX Pix2Pix is built for the
-lockstep (one train-step compile); its initial parameters are carried into
-the port by `utils/flax_weights.load_flax_params`.
+lockstep (one train-step compile), its parameters the port's seeded ones
+carried by the JAX package's `torch_import`
+(`tests/torch_port_support.py:jax_params_from`: nothing of the JAX init
+compiles) and loaded back into the port by
+`utils/flax_weights.load_flax_params`.
 
 Dropout: flax draws threefry masks, which no torch generator reproduces,
 so the lockstep runs with dropout off (5 levels have no dropout level
@@ -53,6 +56,8 @@ from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.io import import_attr
 from ganslate_tpu_torch.utils.testing import make_pix2pix_conf
+from tests.torch_port_support import (jax_params_from, one_torch_thread,  # noqa: F401
+                                      seeded_states)
 
 SMALL = dict(num_downs=5, ngf=8, ndf=8, n_layers_D=1, use_dropout=False)
 DROPOUT = dict(num_downs=6, ngf=8, ndf=8, n_layers_D=1, use_dropout=True)
@@ -84,7 +89,8 @@ def _jax_model(out_dir, batch, nets=SMALL):
     for key in ("dataset", "logging", "checkpointing"):
         raw["train"].pop(key, None)
     model = jax_build_gan(jax_init_config(JaxConf.create(raw), JaxConfig))
-    model.setup(example_batch=batch)
+    with jax_params_from(seeded_states(_port_conf(out_dir, nets).to_container(resolve=False))):
+        model.setup(example_batch=batch)
     return model
 
 

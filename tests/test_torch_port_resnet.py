@@ -16,12 +16,13 @@ import torch
 from ganslate_tpu.nn.generators.resnet.resnet2d import Resnet2D as JaxResnet2D
 from ganslate_tpu_torch.nn.generators import Resnet2D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 N_BLOCKS, NGF, SIZE = 2, 8, 32
 
 
 def _jax_params(module, x, seed=0):
-    params = jax.jit(module.init)(jax.random.key(seed), jnp.asarray(x))["params"]
+    params = seeded_params(module, jnp.asarray(x), seed=seed)
     rng = np.random.default_rng(seed)
     # Non-zero biases (the JAX init gives zeros) so the test sees them.
     return jax.tree_util.tree_map(

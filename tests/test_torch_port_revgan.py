@@ -7,7 +7,9 @@ Small sizes, as the JAX package's `tests/test_revgan.py`: Piresnet3D of
 depth 2 with 4 first-layer channels, PatchGAN3D with ndf 8 and 1 layer, (8,
 16, 16) patches of 1 channel, batch 2, fp32 on the CPU, pool 0 (the pools'
 draws cannot match). One JAX RevGAN is built for the whole file (one
-train-step compile); its initial parameters are carried into the port by
+train-step compile), its parameters the port's seeded ones carried by the
+JAX package's `torch_import` (`tests/torch_port_support.py:jax_params_from`:
+nothing of the JAX init compiles) and loaded back into the port by
 `utils/flax_weights.load_flax_params`.
 
 Tolerances, as the CycleGAN lockstep (`test_torch_port_train_step.py`):
@@ -35,6 +37,8 @@ from ganslate_tpu_torch.nn.generators import Piresnet3D
 from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.testing import make_revgan_conf
+from tests.torch_port_support import (jax_params_from, one_torch_thread,  # noqa: F401
+                                      seeded_states)
 
 SMALL = dict(depth=2, first_layer_channels=4, ndf=8, n_layers_D=1, patch=(8, 16, 16))
 BATCH = 2
@@ -74,7 +78,8 @@ def _jax_model(out_dir, batch):
         raw["train"].pop(key, None)
     conf = _metrics_on(jax_init_config(JaxConf.create(raw), JaxConfig))
     model = jax_build_gan(conf)
-    model.setup(example_batch=batch)
+    with jax_params_from(seeded_states(_port_conf(out_dir).to_container(resolve=False))):
+        model.setup(example_batch=batch)
     return model
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ganslate_tpu.utils import sliding_window_inferer as jax_sw
 from ganslate_tpu_torch.utils import sliding_window_inferer as port_sw
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 # ------------------------------------------------------------------ helpers
 
@@ -200,7 +201,7 @@ def vnet(tmp_path_factory):
     arch = dict(first_layer_channels=8, down_blocks=(1, 2), up_blocks=(2, 1),
                 use_memory_saving=False, use_inverse=False)
     module = JaxVnet3D(in_channels=1, out_channels=1, **arch)
-    params = jax.jit(module.init)(jax.random.key(0), jnp.zeros((1, 8, 16, 16, 1)))["params"]
+    params = seeded_params(module, jnp.zeros((1, 8, 16, 16, 1)))
     rng = np.random.default_rng(0)
     params = jax.tree_util.tree_map_with_path(
         lambda path, a: np.array(a) if path[-1].key == "kernel"

@@ -39,6 +39,7 @@ from ganslate_tpu_torch.utils import medio
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 
 from tests import torch_distributed_child as child
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE, GLOBAL = 32, 2
 CONF = dict(batch_size=GLOBAL, channels=1, n_residual_blocks=1, ngf=8, ndf=8, n_layers_D=1,

@@ -26,6 +26,7 @@ from ganslate_tpu_torch.configs.utils import init_config
 from ganslate_tpu_torch.utils.csv_saver import Saver
 from ganslate_tpu_torch.utils.trackers.training import TrainingTracker
 from ganslate_tpu_torch.utils.trackers.utils import save_image
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -5,8 +5,11 @@ loop from training to serving.
 Both packages build the same config (`utils/testing.py:make_cyclegan_conf`
 in each: Resnet2D with 1 residual block, ngf 8; PatchGAN2D, ndf 8, 2
 layers; 32x32 images, batch 2; lsgan; pool_size 0, because the pools' draws
-cannot match; metrics on). The JAX initial parameters are carried into the
-port (`utils/flax_weights.load_flax_params`), and both run the same numpy
+cannot match; metrics on). The JAX model starts from the port's seeded
+parameters (the JAX package's `torch_import`,
+`tests/torch_port_support.py:jax_params_from`: nothing of the JAX init
+compiles), which load back into the port
+(`utils/flax_weights.load_flax_params`), and both run the same numpy
 batches through the models' own entry points.
 
 Tolerances, fp32 on the CPU:
@@ -44,6 +47,8 @@ from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.testing import make_cyclegan_conf
 from ganslate_tpu_torch.utils.trackers.utils import to_numpy
+from tests.torch_port_support import (jax_params_from, one_torch_thread,  # noqa: F401
+                                      seeded_states)
 
 BATCH, SIZE = 2, 32
 SMALL = dict(n_residual_blocks=1, ngf=8, ndf=8, n_layers_D=2, pool_size=0, seed=3)
@@ -71,7 +76,9 @@ def _jax_model(out_dir, batch, mixed_precision, lambda_identity=0, proportion_ss
                                  mixed_precision=mixed_precision, **SMALL),
                         lambda_identity, proportion_ssim)
     model = jax_build_gan(conf)
-    model.setup(example_batch=batch)
+    port_conf = _port_conf(out_dir, mixed_precision, lambda_identity, proportion_ssim)
+    with jax_params_from(seeded_states(port_conf.to_container(resolve=False))):
+        model.setup(example_batch=batch)
     return model
 
 

@@ -17,6 +17,7 @@ from ganslate_tpu.nn.utils import make_lr_schedule as jax_schedule
 from ganslate_tpu_torch.data.utils.image_pool import ImagePool
 from ganslate_tpu_torch.nn.gans.base import BaseGAN
 from ganslate_tpu_torch.nn.utils import make_lr_lambda, make_lr_schedule
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPE = (4, 4, 3)
 

@@ -33,6 +33,7 @@ from ganslate_tpu_torch.engines.trainer import Trainer
 from ganslate_tpu_torch.engines.utils import init_engine
 from ganslate_tpu_torch.utils.builders import build_conf, build_loader
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 32
 NETWORKS = ("G_AB", "G_BA", "D_B", "D_A")

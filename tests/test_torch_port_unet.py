@@ -4,9 +4,11 @@
 
 Small sizes: Unet2D with 5 levels and ngf 8 on (2, 32, 64, 3) inputs,
 Unet3D with 4 levels and ngf 4 on (2, 16, 16, 32, 2) inputs, fp32 on the
-CPU. JAX parameters are made by `jax.jit(module.init)`, every leaf moved by
-seeded noise (so that biases, batch-norm scales and shifts matter), and
-carried into the port by `utils/flax_weights.load_flax_params`.
+CPU. JAX parameters are the init's shapes with the JAX package's default
+kernels and the layers' initial constants (`tests/torch_port_support.py:
+seeded_params`, nothing to compile), every leaf moved by seeded noise (so
+that biases, batch-norm scales and shifts matter), and carried into the
+port by `utils/flax_weights.load_flax_params`.
 
 Tolerances: forwards to 1e-5 absolute on tanh outputs through 9 to 11
 convs and norms that sum in another order than XLA (the measured gap is
@@ -24,6 +26,7 @@ from ganslate_tpu_torch.nn import layers
 from ganslate_tpu_torch.nn.discriminators import PatchGAN2D, PatchGAN3D
 from ganslate_tpu_torch.nn.generators import Unet2D, Unet3D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 ATOL = 1e-5
 CASES = {
@@ -60,7 +63,7 @@ def test_unet_matches_jax(rank, norm_type):
     module = _jax_unet(rank, in_channels=shape[-1], out_channels=out_c, norm_type=norm_type,
                        **kw)
     x = np.random.default_rng(3).normal(size=shape).astype(np.float32)
-    params = jax.jit(module.init)(jax.random.key(0), jnp.asarray(x))["params"]
+    params = seeded_params(module, jnp.asarray(x))
     params = _noisy(params, 4)
     want = np.asarray(jax.jit(lambda p, x: module.apply({"params": p}, x))(
         params, jnp.asarray(x)))

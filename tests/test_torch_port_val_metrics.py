@@ -11,6 +11,7 @@ from ganslate_tpu.configs.omega import Conf as JaxConf
 from ganslate_tpu.utils.metrics import val_test_metrics as jax_metrics
 from ganslate_tpu_torch.configs.omega import Conf
 from ganslate_tpu_torch.utils.metrics import val_test_metrics
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 METRICS = {name: True for name in val_test_metrics.METRIC_DICT}
 SHAPES = {"2d": (3, 20, 24, 3), "3d": (2, 5, 16, 18, 1)}

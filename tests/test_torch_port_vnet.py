@@ -28,6 +28,7 @@ from ganslate_tpu.nn.generators import Vnet3D as JaxVnet3D
 from ganslate_tpu.utils.torch_import import convert_state_dict, flax_param_spec
 from ganslate_tpu_torch.nn.generators import Vnet2D, Vnet3D
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
+from tests.torch_port_support import one_torch_thread, seeded_params  # noqa: F401
 
 SMALL = dict(first_layer_channels=16, down_blocks=(1, 2), up_blocks=(2, 1))
 ATOL = 2e-5
@@ -38,7 +39,7 @@ def _jax_params(module, x, seed=0):
     """Initial parameters with the 1-D leaves (and their stacked forms)
     other than the kernels drawn at random: biases around 0, slopes around
     0.25."""
-    params = jax.jit(module.init)(jax.random.key(seed), jnp.asarray(x))["params"]
+    params = seeded_params(module, jnp.asarray(x), seed=seed)
     rng = np.random.default_rng(seed)
 
     def draw(path, a):

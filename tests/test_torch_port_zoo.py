@@ -42,6 +42,7 @@ from ganslate_tpu_torch.nn.generators import SelfAttentionVnet3D, Vnet3D
 from ganslate_tpu_torch.nn.separable import SeparableConv3d, SeparableConvTranspose3d
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from tests.test_torch_port_multistep import jax_model_from_shapes
+from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 NET_ATOL = 2e-5

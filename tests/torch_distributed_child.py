@@ -12,6 +12,8 @@ The tests start the ranks with `Ranks`, and build their one-process
 references with the same functions.
 """
 
+import contextlib
+import copy
 import datetime
 import os
 import shutil
@@ -619,6 +621,189 @@ def check_spatial_trainer(job, out_dir):
     return out
 
 
+# ------------------------------------------- spatial sharding of the zoo
+
+
+def verb_reslab(case, scope):
+    """`spatial.reslab` of this rank's slab (dim 2) to even slabs of the
+    case's rows, and its backward of this rank's slab of the cotangent."""
+    from ganslate_tpu_torch.parallel import spatial
+    x = _slab(case["x"], 2, scope).requires_grad_()
+    y = spatial.reslab(x, 2, case["start"], case["length"], scope)
+    (y * _slab(case["cotangent"], 2, scope)).sum().backward()
+    return {"y": y.detach(), "dx": x.grad}
+
+
+def verb_select(case, scope):
+    """`spatial.select` of the case's ids from this rank's rows (dim 1),
+    and its backward of this rank's share of sum(out * cotangent)."""
+    from ganslate_tpu_torch.parallel import spatial
+    x = _slab(case["x"], 1, scope).requires_grad_()
+    y = spatial.select(x, torch.from_numpy(case["ids"]), scope)
+    ((y * torch.from_numpy(case["cotangent"])).sum() / scope.size).backward()
+    return {"y": y.detach(), "dx": x.grad}
+
+
+def verb_replicated(case, scope):
+    """A gather along dim 2, a conv replicated on the whole tensor, and the
+    section's end: `slab` back to this rank's rows (then this rank's share
+    of the cotangent's product), or a loss share (`global_mean`)."""
+    from ganslate_tpu_torch.nn.layers import Conv
+    from ganslate_tpu_torch.parallel import spatial
+    conv = Conv(case["x"].shape[1], 3, (3, 3), padding=1)
+    conv.load_state_dict(case["state"])
+    x = _slab(case["x"], 2, scope).requires_grad_()
+    whole = spatial.gather(x, 2, scope)
+    with spatial.suspended():
+        y = conv(whole)
+    if case["end"] == "slab":
+        y = spatial.slab(y, 2, scope)
+        loss = (y * _slab(case["cotangent"], 2, scope)).sum()
+    else:
+        loss = (y * torch.from_numpy(case["cotangent"])).sum() / scope.size
+    loss.backward()
+    return {"y": y.detach(), "dx": x.grad,
+            "grads": {k: p.grad.clone() for k, p in conv.named_parameters()}}
+
+
+def net_case(case, scope, x, generator=None):
+    """The case's network on `x` (`(N, C, *spatial)`) with the case's
+    parameters and forward arguments, in float64: this rank's share of
+    mean((out - 0.5)^2) (a dict or list of outputs: the sum of their
+    losses) and its gradients."""
+    from ganslate_tpu_torch.parallel import spatial
+    from ganslate_tpu_torch.utils.io import import_attr
+    net = import_attr(case["cls"])(**case["kwargs"])
+    net.load_state_dict(case["state"])
+    net = net.double()
+    x = x.double().requires_grad_()
+    with spatial.spatial_scope(scope):
+        kwargs = dict(case.get("forward", {}))
+        if generator is not None:
+            kwargs["generator"] = generator
+        y = net(x, **kwargs)
+        outs = y if isinstance(y, dict) else dict(enumerate(y)) if isinstance(y, list) \
+            else {"y": y}
+        loss = sum(spatial.global_mean((v.float() - 0.5).square()) for v in outs.values())
+        loss.backward()
+        total = spatial.total(loss)
+    return {"y": {k: v.detach() for k, v in outs.items()}, "dx": x.grad, "loss": total,
+            "grads": {k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                      for k, p in net.named_parameters()}}
+
+
+def verb_network(case, scope):
+    """`net_case` on this rank's slab of the case's input (dim 2), with a
+    host generator from the case's seed where it takes one."""
+    from ganslate_tpu_torch.parallel import spatial
+    seed = case.get("generator_seed")
+    generator = None if seed is None else torch.Generator().manual_seed(seed)
+    spatial.reset_counts()
+    out = net_case(case, scope, _slab(case["x"], 2, scope), generator)
+    out["sites"] = dict(spatial.SITES)
+    out["counts"] = dict(spatial.COUNTS)
+    return out
+
+
+def nce_case(case, scope, feats):
+    """CUT's head on taps `feats` (`(B, *spatial, C)`, a slab under a
+    sharded scope): the case's ids selected (`cut.select_patches`), the
+    MLP, PatchNCE against the detached keys of the same patches, as the
+    loss share of the train step: the loss, the taps' and the MLP's
+    gradients."""
+    from ganslate_tpu_torch.nn.gans.unpaired import cut
+    from ganslate_tpu_torch.nn.losses.cut_losses import PatchNCELoss
+    from ganslate_tpu_torch.parallel import spatial
+    mlp = cut.FeaturePatchMLP([feats.shape[-1]], nc=8)
+    mlp.load_state_dict(case["mlp"])
+    nce = PatchNCELoss.__new__(PatchNCELoss)
+    nce.batch_size, nce.nce_T = feats.shape[0], 0.07
+    feats = feats.clone().requires_grad_()
+    with spatial.spatial_scope(scope):
+        ids = [torch.from_numpy(case["ids"])]
+        q = mlp(cut.select_patches([feats], ids))[0]
+        with torch.no_grad():
+            k = mlp(cut.select_patches([feats * case["key_scale"]], ids))[0]
+        loss = spatial.global_mean(nce(q, k))
+        loss.backward()
+        total = spatial.total(loss)
+    return {"loss": total, "dx": feats.grad,
+            "grads": {k: p.grad.clone() for k, p in mlp.named_parameters()}}
+
+
+def verb_nce(case, scope):
+    return nce_case(case, scope, _slab(case["x"], 1, scope))
+
+
+VERBS = {"reslab": verb_reslab, "select": verb_select, "replicated": verb_replicated,
+         "network": verb_network, "nce": verb_nce}
+
+
+def check_spatial_verbs(job, out_dir):
+    """Each of the job's cases of the spatial verbs and of the sharded
+    layers' replicated sections, on this rank's slabs."""
+    from ganslate_tpu_torch.parallel import spatial
+    scope = spatial.make_scope()
+    return {name: VERBS[case["verb"]](case, scope)
+            for name, case in job["spatial_verbs"].items()}
+
+
+@contextlib.contextmanager
+def handed_draws(draws):
+    """CUT's next step draws `draws` = (flip, patch ids in order), where
+    given: the JAX package's draws, handed to the port as its CPU lockstep
+    hands them."""
+    from ganslate_tpu_torch.nn.gans.unpaired import cut
+    if draws is None:
+        yield
+        return
+    flip, ids = draws
+    queue = iter(ids)
+    saved = cut.draw_patch_ids, cut.draw_flip
+    cut.draw_patch_ids = lambda generator, positions, num_patches: torch.from_numpy(
+        np.asarray(next(queue), dtype=np.int64))
+    cut.draw_flip = lambda generator: torch.tensor(bool(flip))
+    try:
+        yield
+    finally:
+        cut.draw_patch_ids, cut.draw_flip = saved
+
+
+def zoo_step(spec, out_dir, spatial_mesh=None):
+    """One fp32 train step of the model of `spec["raw"]` (a config's raw
+    dict) on the global batch `spec["batch"]`, from `spec["state"]` (state
+    dicts by network) where given, with CUT's `spec["draws"]`: the losses,
+    every gradient, the parameters after it and, sharded, the exchanges by
+    network and site. Spatially sharded with `spatial_mesh`; the one-process
+    reference without."""
+    from ganslate_tpu_torch.parallel import spatial
+    raw = copy.deepcopy(spec["raw"])
+    raw["train"]["output_dir"] = str(out_dir)
+    if spatial_mesh:
+        raw["train"]["spatial_mesh"] = spatial_mesh
+    model = build_gan(init_config(Conf.create(raw), config_class=Config))
+    model.setup(spec["batch"])
+    for name, sd in spec.get("state", {}).items():
+        model.networks[name].load_state_dict(sd)
+    spatial.reset_counts()
+    with handed_draws(spec.get("draws")):
+        model.set_input(spec["batch"])
+        model.optimize_parameters()
+    return {"losses": {k: float(v) for k, v in model.losses.items()},
+            "grads": {f"{name}.{k}": p.grad.clone() for name, net in model.networks.items()
+                      for k, p in net.named_parameters() if p.grad is not None},
+            "params": {f"{name}.{k}": p.detach().clone() for name, net in model.networks.items()
+                       for k, p in net.named_parameters()},
+            "counts": dict(spatial.COUNTS), "sites": dict(spatial.SITES),
+            "by_network": copy.deepcopy(spatial.BY_NETWORK), "sharded": model._sharded}
+
+
+def check_spatial_zoo(job, out_dir):
+    """One step of each of the job's families with `train.spatial_mesh`."""
+    return {name: zoo_step(spec, out_dir / name, job["spatial_groups"])
+            for name, spec in job["spatial_zoo"].items()}
+
+
 CHECKS = {"cyclegan": check_cyclegan, **{name: check_model(name) for name in MODELS},
           "batchnorm": check_batchnorm, "pool": check_pool, "verbs": check_verbs,
           "sliding_window": check_sliding_window, "fid": check_fid,
@@ -627,7 +812,8 @@ CHECKS = {"cyclegan": check_cyclegan, **{name: check_model(name) for name in MOD
           "spatial_convs": check_spatial_convs,
           "spatial_norm": check_spatial_norm, "spatial_infer": check_spatial_infer,
           "spatial_vnet": check_spatial_vnet, "spatial_replicated": check_spatial_replicated,
-          "spatial_cyclegan": check_spatial_cyclegan, "spatial_trainer": check_spatial_trainer}
+          "spatial_cyclegan": check_spatial_cyclegan, "spatial_trainer": check_spatial_trainer,
+          "spatial_verbs": check_spatial_verbs, "spatial_zoo": check_spatial_zoo}
 
 
 def main(job_path, out_dir):
