@@ -87,6 +87,20 @@ one read back bit for bit. Those phases read them through the BRaTS
 project's datasets, which the port's config loader takes from its twin
 (`ganslate_tpu_torch/projects/brats_mri_sequence_translation/`).
 
+7b. native: the host data ops (`ganslate_tpu_torch/native/dataops.cpp`,
+   host C++ built by g++ with `ops/build.py:HOST_FLAGS`): the build's
+   seconds, library, compiler version, the host's CPU model and cores and
+   the card's `nvidia-smi` line; each of the five ops against its plain
+   numpy version on the validation scan's flair sequence (155, 240, 240)
+   (clip and masked fill also on an HX4 padded (64, 512, 512) CT and its
+   body mask), masked fill and patch copy equal, clip
+   and z-score within 2^-22, `mean_std` within 1e-6 relative, each timed
+   against its plain version; then one BRaTS validation `__getitem__` on
+   the NIfTI root as shipped and with the plain ops swapped in by the
+   script: the sample's seconds, the z-scores' ms, the calls that reached
+   the library (at least one as shipped, none with the plain ops) and
+   both samples within 2^-22 of each other.
+
 8. revgan: the BRaTS RevGAN experiment (`projects/brats_mri_sequence_
    translation/experiments/revgan.yaml` field for field, built in Python:
    Piresnet3D of depth 5 with 32 first-layer channels and memory saving,
@@ -663,6 +677,21 @@ BRATS_DATASETS = {"train": "project.datasets.train_dataset.BratsDataset",
                   "val": "project.datasets.val_test_dataset.BratsValTestDataset"}
 BRATS_SPLITS = {"train": "imagesTr", "val": "imagesTs"}
 _BRATS_ROOT = []
+# The native phase: the host data ops (`ganslate_tpu_torch/native/`, host
+# C++ built by g++) against their plain numpy versions on one sequence of
+# the validation scan, (155, 240, 240), and on an HX4 padded validation
+# volume (a CT in HU and its body mask). `masked_fill` and `extract_patch`
+# copy bits: equal. Clip and z-score outputs lie in [-1, 1] and the plain
+# versions fuse the multiply-adds that GCC contracts, so they differ only
+# where the compiler contracts otherwise: 2 ulps of 1.0 (2^-22), absolute.
+# `mean_std` sums in float64 in another order: 1e-6 relative. Times: the
+# median of NATIVE_REPS calls after a warm one, on the host's clock.
+NATIVE_HX4_VOLUME = (64, 512, 512)
+NATIVE_PATCH = ((61, 32, 32), REVGAN_PATCH)
+NATIVE_CLIP = {"brats": (0.0, 500.0), "hx4": (-1000.0, 2000.0)}      # HU for the CT
+NATIVE_ATOL = 2.0 ** -22
+NATIVE_MEAN_STD_RTOL = 1e-6
+NATIVE_REPS = 5
 # The training batches that the revgan, cut and brats_cyclegan phases hold
 # their model-level steps and checks on: 4, drawn once per run from the
 # NIfTI root (`brats_batches`).
@@ -2646,6 +2675,157 @@ def brats_datasets():
     return ({"_target_": BRATS_DATASETS["train"], "root": str(brats_root("train")),
              "num_workers": 8, "patch_size": list(REVGAN_PATCH)},
             {"_target_": BRATS_DATASETS["val"], "root": str(brats_root("val"))})
+
+
+def host_ms(fn, reps=NATIVE_REPS):
+    """Median host time of `fn` in ms over `reps` calls after a warm one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def host_cpu_record():
+    """The host's CPU as `lscpu` names it (vendor, model name, family and
+    model number: a virtual machine may name its model "unknown") and its
+    core counts."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    except OSError:
+        out = Path("/proc/cpuinfo").read_text()
+    fields = {}
+    for line in out.splitlines():
+        key, _, value = line.partition(":")
+        fields.setdefault(key.strip().lower(), value.strip())
+    cpu = {k: fields.get(k) for k in ("vendor id", "model name", "cpu family", "model")}
+    return {"cpu": cpu, "cpu_count": os.cpu_count(),
+            "cpus_usable": len(os.sched_getaffinity(0))}
+
+
+def native_val_sample(dataset, swap_plain):
+    """One BRaTS validation `__getitem__` over the NIfTI root's scan: its
+    seconds, the z-scores' ms inside it and the calls that reached the
+    native library; with `swap_plain`, each native op is swapped for its
+    plain version for the call (here only; the package has no switch)."""
+    from ganslate_tpu_torch import native
+    from ganslate_tpu_torch.projects.brats_mri_sequence_translation.datasets import (
+        val_test_dataset)
+    shipped = val_test_dataset.z_score_normalize
+    norm_s = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = shipped(*args, **kwargs)
+        norm_s.append(time.perf_counter() - t0)
+        return out
+
+    swaps = [(name, getattr(native, name)) for name in native.CALLS]
+    val_test_dataset.z_score_normalize = timed
+    if swap_plain:
+        for name, _ in swaps:
+            setattr(native, name, getattr(native, name + "_plain"))
+    native.reset_calls()
+    try:
+        t0 = time.perf_counter()
+        sample = dataset[0]
+        seconds = time.perf_counter() - t0
+    finally:
+        val_test_dataset.z_score_normalize = shipped
+        for name, fn in swaps:
+            setattr(native, name, fn)
+    return sample, {"sample_s": seconds, "normalise_ms": sum(norm_s) * 1e3,
+                    "normalise_calls": len(norm_s), "native_calls": dict(native.CALLS)}
+
+
+def native_phase(smi):
+    """The host data ops: build the library, hold each op against its plain
+    version and time both, then one BRaTS validation sample as shipped and
+    with the plain versions swapped in."""
+    import numpy as np
+    from ganslate_tpu_torch import native
+    from ganslate_tpu_torch.configs.omega import Conf
+    from ganslate_tpu_torch.ops import build
+    from ganslate_tpu_torch.projects.brats_mri_sequence_translation import datasets
+    from ganslate_tpu_torch.projects.brats_mri_sequence_translation.datasets.train_dataset \
+        import get_mri_sequence
+    from ganslate_tpu_torch.utils import sitk_utils
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib_path = build.build_host(native.SOURCE)
+    native.library()
+    build_s = time.perf_counter() - t0
+    cxx = build.find_cxx()
+    rec = {"phase": "native", "build_s": build_s, "library": str(lib_path),
+           "compiler": cxx, "compiler_version": build.compiler_version(cxx),
+           "flags": list(build.HOST_FLAGS), **host_cpu_record(), "card": smi}
+
+    conf = Conf.create({"mode": "val", "val": {"dataset": {
+        "root": str(brats_root("val")), "source_sequence": "flair",
+        "target_sequence": "t1w"}}})
+    dataset = datasets.BratsValTestDataset(conf)
+    scan = sitk_utils.load(dataset.paths_brats[0])
+    volume = np.ascontiguousarray(sitk_utils.get_tensor(get_mri_sequence(scan, "flair")),
+                                  dtype=np.float32)
+    del scan
+    rng = np.random.default_rng(SEED + 50)
+    grid = np.ogrid[tuple(slice(0, d) for d in NATIVE_HX4_VOLUME)]
+    body = sum(((g - d / 2) / (0.45 * d)) ** 2
+               for g, d in zip(grid[1:], NATIVE_HX4_VOLUME[1:])) <= 1
+    body = np.broadcast_to(body, NATIVE_HX4_VOLUME)
+    ct = np.where(body, rng.normal(40, 300, NATIVE_HX4_VOLUME), -1000).astype(np.float32)
+    cases = {
+        "clip_minmax_normalize": (volume, *NATIVE_CLIP["brats"]),
+        "clip_minmax_normalize_hx4": (ct, *NATIVE_CLIP["hx4"]),
+        "mean_std": (volume,),
+        "z_score_normalize": (volume, (-1, 1)),
+        "extract_patch": (volume, *NATIVE_PATCH),
+        "masked_fill": (volume, volume > 0, -1.0),
+        "masked_fill_hx4": (ct, body, -1024.0),
+    }
+    ops = {}
+    for case, args in cases.items():
+        name = case.replace("_hx4", "")
+        fn, plain = getattr(native, name), getattr(native, name + "_plain")
+        got, want = fn(*args), plain(*args)
+        got, want = np.asarray(got), np.asarray(want)
+        if name == "mean_std":
+            err = float(np.max(np.abs(got - want) / np.abs(want)))
+            ok = err <= NATIVE_MEAN_STD_RTOL
+        else:
+            check(got.shape == want.shape and got.dtype == want.dtype == np.float32,
+                  f"native {case}: {got.shape} {got.dtype} against {want.shape} {want.dtype}")
+            err = float(np.max(np.abs(got - want)))
+            ok = err == 0 if name in ("extract_patch", "masked_fill") else err <= NATIVE_ATOL
+        ops[case] = {"shape": list(args[0].shape), "err": err, "ok": bool(ok),
+                     "ms": host_ms(lambda: fn(*args)), "plain_ms": host_ms(lambda: plain(*args))}
+        ops[case]["speedup"] = ops[case]["plain_ms"] / ops[case]["ms"]
+    rec["ops"] = ops
+    del ct, body
+
+    sample, shipped = native_val_sample(dataset, swap_plain=False)
+    plain_sample, plain = native_val_sample(dataset, swap_plain=True)
+    rec["val_sample"] = {"shape": list(sample["A"].shape), "shipped": shipped, "plain": plain,
+                         "normalise_share": shipped["normalise_ms"] / 1e3 / shipped["sample_s"],
+                         "plain_normalise_share":
+                             plain["normalise_ms"] / 1e3 / plain["sample_s"]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    for case, op in ops.items():
+        check(op["ok"], f"native {case} against its plain version: {op['err']}")
+    check(sum(shipped["native_calls"].values()) > 0,
+          f"the BRaTS validation sample never reached the native library: {shipped}")
+    check(sum(plain["native_calls"].values()) == 0,
+          f"the plain validation sample reached the native library: {plain}")
+    for key in ("A", "B"):
+        got, want = sample[key], plain_sample[key]
+        check(got.shape == want.shape == (*REVGAN_VOLUME[1:], 1) and np.isfinite(got).all(),
+              f"the validation sample's {key}: {got.shape}")
+        err = float(np.max(np.abs(got - want)))
+        check(err <= NATIVE_ATOL, f"the validation sample's {key} against the plain ops: {err}")
+    return rec
 
 
 def brats_batches(conf, n=None):
@@ -7172,6 +7352,9 @@ def main() -> int:
         brats = Path(stack.enter_context(tempfile.TemporaryDirectory()))
         write_brats_root(brats)
         phase_done("brats_data")
+
+        native_phase(smi)
+        phase_done("native")
 
         with tempfile.TemporaryDirectory() as tmp:
             revgan_totals = revgan_phase(Path(tmp))

@@ -1,9 +1,9 @@
 """Shared HX4 dataset helpers (the twin of the JAX project's
 `datasets/utils/basic.py`): the body mask applied to every PET and CT of a
-sample, clip and min-max to [-1, 1], and `MedicalImage` to numpy."""
+sample by the host data ops' masked fill, clip and min-max to [-1, 1], and
+`MedicalImage` to numpy."""
 
-import numpy as np
-
+from ganslate_tpu_torch import native
 from ganslate_tpu_torch.data.utils.body_mask import get_body_mask
 from ganslate_tpu_torch.data.utils.normalization import clip_and_min_max_normalize  # noqa: F401
 from ganslate_tpu_torch.utils import sitk_utils
@@ -15,14 +15,10 @@ OUT_OF_BODY_SUV = 0
 HU_THRESHOLD = -300
 
 
-def masked_fill(array, mask, fill) -> np.ndarray:
-    """`array` (as float32) where `mask` is set, `fill` elsewhere."""
-    return np.where(mask, np.asarray(array, dtype=np.float32), np.float32(fill))
-
-
 def apply_body_mask(image_dict, generate_body_mask=False):
     """Mask every CT and PET in the dict with the body mask, which is made
-    from a CT by thresholding when `generate_body_mask` is set."""
+    from a CT by thresholding when `generate_body_mask` is set, through the
+    native masked fill whatever the volume's size."""
     if generate_body_mask:
         assert image_dict['body-mask'] is None
         assert any('CT' in k for k in image_dict)
@@ -33,9 +29,9 @@ def apply_body_mask(image_dict, generate_body_mask=False):
     body_mask = image_dict['body-mask']
     for k in image_dict:
         if 'PET' in k:
-            image_dict[k] = masked_fill(image_dict[k], body_mask, OUT_OF_BODY_SUV)
+            image_dict[k] = native.masked_fill(image_dict[k], body_mask, OUT_OF_BODY_SUV)
         elif 'CT' in k:
-            image_dict[k] = masked_fill(image_dict[k], body_mask, OUT_OF_BODY_HU)
+            image_dict[k] = native.masked_fill(image_dict[k], body_mask, OUT_OF_BODY_HU)
     return image_dict
 
 

@@ -8,7 +8,9 @@ Synthetic BRaTS-shaped scans, 4 sequences of (12, 24, 24), are written as
 datasets read them; before each call both sides are seeded alike (Python's
 `random` for domain B's scan, the patch sampler's `rng` for the patch pair),
 and the patches must be equal bit for bit: the same numpy reads, the same
-draws and the same float32 z-scores."""
+draws and the same float32 z-scores. The validation scan is also read at
+sequences of 2^20 voxels, which both packages z-score with their host data
+ops (`native/`), bit for bit too."""
 
 import importlib.util
 import random
@@ -24,22 +26,25 @@ from ganslate_tpu_torch.configs.omega import Conf
 from ganslate_tpu_torch.configs.utils import init_config
 from ganslate_tpu_torch.engines.utils import init_engine
 from ganslate_tpu_torch.projects.brats_mri_sequence_translation import datasets
-from tests.torch_port_support import one_torch_thread  # noqa: F401 (autouse)
+from tests.torch_port_support import jax_native, one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 BRATS = REPO / "projects" / "brats_mri_sequence_translation"
 YAMLS = ("cyclegan", "cyclegan_s2d", "revgan", "cut")
 SHAPE = (4, 12, 24, 24)
+# Sequences of 2^20 voxels: the size from which both packages normalise a
+# volume with their host data ops.
+NATIVE_SHAPE = (4, 64, 128, 128)
 PATCH = [8, 16, 16]
 
 
-def _scan(seed):
+def _scan(seed, shape=SHAPE):
     """A head-like ellipsoid of positive intensities per sequence, zero
     outside, as a BRaTS scan is."""
     rng = np.random.default_rng(seed)
-    grid = np.ogrid[tuple(slice(0, d) for d in SHAPE[1:])]
-    head = sum(((g - d / 2) / (0.45 * d)) ** 2 for g, d in zip(grid, SHAPE[1:])) <= 1
-    return (np.maximum(rng.normal(300, 100, SHAPE), 0) * head).astype(np.float32)
+    grid = np.ogrid[tuple(slice(0, d) for d in shape[1:])]
+    head = sum(((g - d / 2) / (0.45 * d)) ** 2 for g, d in zip(grid, shape[1:])) <= 1
+    return (np.maximum(rng.normal(300, 100, shape), 0) * head).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -121,14 +126,24 @@ def test_patch_larger_than_the_volume_raises_as_jax(roots):
     assert errors[0] == errors[1]
 
 
-def test_val_dataset_matches_jax_bit_for_bit(roots):
+@pytest.mark.parametrize("shape", (SHAPE, NATIVE_SHAPE), ids=("small", "native"))
+def test_val_dataset_matches_jax_bit_for_bit(roots, tmp_path, shape):
+    """Whole sequences z-scored to [-1, 1]: by numpy in both packages, and at
+    `NATIVE_SHAPE`, 2^20 voxels a sequence, by both packages' host data
+    ops."""
+    if shape != SHAPE:
+        from ganslate_tpu.utils import medio as jax_medio
+        jax_native()
+        jax_medio.write(jax_medio.MedicalImage(_scan(3, shape)),
+                        tmp_path / "val" / "BRATS_003.nii.gz")
+        roots = tmp_path
     conf = _conf(roots, mode="val")
     port = datasets.BratsValTestDataset(conf)
     jax_ds = _jax_datasets().BratsValTestDataset(conf)
     assert len(port) == len(jax_ds) == 1
     got, want = port[0], jax_ds[0]
     for key in ("A", "B"):
-        assert got[key].shape == (*SHAPE[1:], 1)
+        assert got[key].shape == (*shape[1:], 1)
         np.testing.assert_array_equal(got[key], want[key])
     np.testing.assert_array_equal(port.denormalize(got["A"]), jax_ds.denormalize(want["A"]))
 

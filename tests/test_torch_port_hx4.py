@@ -9,13 +9,12 @@ body mask) are written once as NRRD files; both packages' datasets read
 them. Before each call both sides are seeded alike (Python's `random` for
 domain B's patient, the global `np.random` for the patches), and the
 samples must be equal bit for bit: the same reads, draws and float32
-arithmetic. One exception: volumes of 2^20 voxels or more, which the JAX
-package's `clip_and_min_max_normalize` hands to its native kernel, which
-computes `(v - lo) * (2 / (hi - lo)) - 1`; the port computes numpy's
-`2 * ((v - lo) / (hi - lo)) - 1`. The padded (64, 512, 512) validation
-volumes are held to `PADDED_ATOL`, 2 ulps of 1.0 (2^-22), absolute: the
-outputs lie in [-1, 1] and the two forms differ by a rounding of each
-(measured: at most 2^-24, on 0.05% of the elements).
+arithmetic. That holds for the padded (64, 512, 512) validation volumes
+too, past the 2^20 voxels from which both packages' `clip_and_min_max_
+normalize` run their host data ops (`native/`, which computes
+`(v - lo) * (2 / (hi - lo)) - 1` and not numpy's `2 * ((v - lo) / (hi -
+lo)) - 1`), and for every body mask, which both apply with the native
+masked fill.
 
 The balanced CycleGAN: Unet3D with 3 levels and ngf 8 (2 -> 1 channels,
 both directions) and PatchGAN3D with 1 layer and ndf 8 (1 channel), at
@@ -64,15 +63,14 @@ from ganslate_tpu_torch.utils import medio
 from ganslate_tpu_torch.utils.builders import build_gan
 from ganslate_tpu_torch.utils.flax_weights import load_flax_params
 from ganslate_tpu_torch.utils.synthetic_data import HX4_FILES, hx4_patient, write_hx4_root
-from tests.torch_port_support import (jax_params_from, one_torch_thread,  # noqa: F401
-                                      seeded_states)
+from tests.torch_port_support import (jax_native, jax_params_from,  # noqa: F401
+                                      one_torch_thread, seeded_states)
 
 REPO = Path(__file__).resolve().parents[1]
 HX4 = REPO / "projects" / "maastro_hx4_pet_translation"
 YAMLS = ("pix2pix", "cyclegan_balanced", "cyclegan_naive")
 SHAPE = (12, 40, 40)
 PATCH = [8, 16, 16]
-PADDED_ATOL = 2.0 ** -22
 MODULE = "modules.HX4CycleGANBalanced"
 NETWORKS = ("G_AB", "G_BA", "D_B", "D_A")
 SMALL = dict(num_downs=3, ngf=8, use_dropout=False)
@@ -184,11 +182,11 @@ def test_unknown_sampling_raises_as_jax(root):
     assert errors[0] == errors[1]
 
 
-def _assert_same_sample(got, want, atol=0.0):
+def _assert_same_sample(got, want):
     assert sorted(got) == sorted(want)
     for key in ("A", "B"):
         assert got[key].dtype == want[key].dtype == np.float32
-        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=atol)
+        np.testing.assert_array_equal(got[key], want[key])
     if "masks" in want:
         for label in ("BODY", "GTV"):
             np.testing.assert_array_equal(got["masks"][label], want["masks"][label])
@@ -215,14 +213,15 @@ def test_val_dataset_matches_jax_bit_for_bit(root, balanced):
     np.testing.assert_array_equal(port.denormalize(got["B"]), jax_ds.denormalize(want["B"]))
 
 
-def test_padded_val_volume_matches_jax_within_the_native_rounding(root):
+def test_padded_val_volume_matches_jax_bit_for_bit(root):
     """Without patch-based inference the volume is padded to (64, 512, 512),
-    past the size at which the JAX package normalises natively."""
+    past the size at which both packages normalise natively."""
+    jax_native()
     conf = _val_conf(root, patch_based=False, masks=True, balanced=False)
     got = datasets.HX4PETTranslationValTestDataset(conf)[0]
     want = _jax_project().datasets.HX4PETTranslationValTestDataset(conf)[0]
     assert got["A"].shape == (64, 512, 512, 2) and got["A"].size >= 2 ** 20
-    _assert_same_sample(got, want, atol=PADDED_ATOL)
+    _assert_same_sample(got, want)
 
 
 @pytest.mark.parametrize("balanced", (True, False))

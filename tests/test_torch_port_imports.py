@@ -72,7 +72,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert {f"ganslate_tpu_torch.{m}" for m in (
         "data", "data.samplers", "data.loaders", "data.image_folder",
         "data.unpaired_image_dataset", "data.paired_image_dataset",
-        "data.utils.transforms", "data.utils.normalization",
+        "data.utils.transforms", "data.utils.normalization", "native", "ops.build",
         "engines.trainer", "engines.validator_tester", "engines.inferer",
         "utils.trackers.base", "utils.trackers.utils", "utils.trackers.training",
         "utils.trackers.inference", "utils.trackers.validation_testing",
@@ -133,7 +133,7 @@ def test_port_sources_import_nothing_of_jax():
             "projects/cleargrasp_depth_estimation/modules/cyclegan_multimodal_v3.py",
             "projects/cleargrasp_depth_estimation/modules/cyclegan_losses_for_v3.py",
             "utils/metrics/fid.py", "nn/inception.py", "utils/torch_import.py",
-            "utils/cli/scripts/download_datasets.py"} <= scanned
+            "utils/cli/scripts/download_datasets.py", "native/__init__.py"} <= scanned
     offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
                  for p in sources for m in _FORBIDDEN.finditer(p.read_text())]
     assert not offenders, offenders

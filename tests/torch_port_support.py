@@ -13,9 +13,12 @@
   numpy from a seed.
 - `jax_params_from` and `seeded_states`: a JAX model set up from the port's
   seeded networks, carried by the JAX package's `torch_import` over an
-  abstract init, so that nothing of its init compiles."""
+  abstract init, so that nothing of its init compiles.
+- `jax_native`: the JAX package's host data ops, loaded, for the tests that
+  hold the port's native bits against them."""
 
 import contextlib
+import time
 
 import numpy as np
 import pytest
@@ -98,3 +101,18 @@ def seeded_states(raw):
     model = build_gan(init_config(Conf.create(raw), config_class=Config))
     model.init_networks()
     return {name: net.state_dict() for name, net in model.networks.items()}
+
+
+def jax_native():
+    """`ganslate_tpu.native`, with its library loaded. Its loader builds the
+    library in place and, while another test process is still writing it,
+    fails to load it and answers in numpy; so the load is retried for a
+    while. A test that holds the port's native bits against the JAX
+    package's fails plainly if the library never loads."""
+    from ganslate_tpu import native
+    for _ in range(60):
+        if native.available():
+            return native
+        time.sleep(0.5)
+    pytest.fail("the JAX package's native library (ganslate_tpu/native/libdataops.so) "
+                "did not build or load, so its ops would run numpy")
