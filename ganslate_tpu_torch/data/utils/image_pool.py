@@ -31,6 +31,7 @@ import torch
 
 from ganslate_tpu_torch.parallel import all_gather_batch
 from ganslate_tpu_torch.utils import communication
+from ganslate_tpu_torch.utils.tracing import span
 
 
 class ImagePool:
@@ -57,23 +58,25 @@ class ImagePool:
         images the discriminator should see. Data parallel, the batch is
         every rank's (`draws` then covers the global batch) and the result
         this rank's slice of it. `draws` (one `(uniform, index)` pair per
-        image) replaces the generator's draws, for tests."""
+        image) replaces the generator's draws, for tests. The call is the span
+        `ganslate.pool_query`."""
         if self.pool_size == 0:
             return images
-        local = images.shape[0]
-        images = all_gather_batch(images.detach().to(self.images.dtype))
-        if draws is None:
-            draws = self.draws(images.shape[0])
-        returned = images.clone()
-        for i, (u, idx) in enumerate(draws):
-            if self.count < self.pool_size:
-                self.images[self.count].copy_(images[i])
-                self.count += 1
-            elif u > 0.5:
-                returned[i].copy_(self.images[idx])
-                self.images[idx].copy_(images[i])
-        start = communication.get_data_rank() * local
-        return returned[start:start + local]
+        with span("ganslate.pool_query"):
+            local = images.shape[0]
+            images = all_gather_batch(images.detach().to(self.images.dtype))
+            if draws is None:
+                draws = self.draws(images.shape[0])
+            returned = images.clone()
+            for i, (u, idx) in enumerate(draws):
+                if self.count < self.pool_size:
+                    self.images[self.count].copy_(images[i])
+                    self.count += 1
+                elif u > 0.5:
+                    returned[i].copy_(self.images[idx])
+                    self.images[idx].copy_(images[i])
+            start = communication.get_data_rank() * local
+            return returned[start:start + local]
 
     def state_dict(self) -> Dict[str, object]:
         return {"images": self.images, "count": self.count,

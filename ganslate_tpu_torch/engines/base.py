@@ -28,6 +28,7 @@ from ganslate_tpu_torch.parallel import spatial
 from ganslate_tpu_torch.utils import communication
 from ganslate_tpu_torch.utils.io import decollate
 from ganslate_tpu_torch.utils.sliding_window_inferer import SlidingWindowInferer
+from ganslate_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -89,17 +90,27 @@ class BaseEngineWithInference(BaseEngine):
         """Translate `data` (N, *spatial, C), a numpy array or a tensor.
         Returns a host tensor in the wire dtype, in the same layout. With a
         sliding window, the volume moves to the device once and the network
-        runs on its window batches."""
-        data = self._to_wire(data)
+        runs on its window batches; on the plain path the model places the
+        input itself, cast to its compute dtype on the host. The host cast,
+        the copy in and the cast and copy out are the spans
+        `ganslate.infer.to_wire`, `.to_device` and `.to_host`."""
+        with span("ganslate.infer.to_wire"):
+            data = self._to_wire(data)
         if self.sliding_window_inferer:
             def network(windows):
                 return self.model.infer(windows, *args, out_dtype=None, **kwargs)
-            out = self.sliding_window_inferer(data.to(self.model.device), network)
+            out = self.sliding_window_inferer(self._to_device(data), network)
         elif self.spatial_sharding and communication.get_spatial_size() > 1:
-            out = self._sharded_infer(data.to(self.model.device), *args, **kwargs)
+            out = self._sharded_infer(self._to_device(data), *args, **kwargs)
         else:
             out = self.model.infer(data, *args, **kwargs)
-        return self._from_wire(out).cpu()
+        with span("ganslate.infer.to_host"):
+            return self._from_wire(out).cpu()
+
+    def _to_device(self, data: torch.Tensor) -> torch.Tensor:
+        """The copy in of the window and sharded paths."""
+        with span("ganslate.infer.to_device"):
+            return data.to(self.model.device)
 
     def _sharded_infer(self, data, *args, **kwargs) -> torch.Tensor:
         """The volume split along `spatial_sharding.dim` over the spatial

@@ -77,6 +77,7 @@ from ganslate_tpu_torch.parallel import (average_gradients, broadcast_module,
                                          spatial, spatial_slab)
 from ganslate_tpu_torch.utils import communication
 from ganslate_tpu_torch.utils.metrics.train_metrics import TrainingMetrics
+from ganslate_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -284,11 +285,22 @@ class BaseGAN(ABC):
     def step(self, *groups: str):
         """Average the gradients of each optimizer group in `groups` over
         the data ranks (`parallel.average_gradients`), then step it. Every
-        optimizer step of a train step goes through here."""
+        optimizer step of a train step goes through here
+        (`ganslate.optimizer_step.<group>`)."""
         for group in groups:
             optimizer = self.optimizers[group]
-            average_gradients(p for g in optimizer.param_groups for p in g["params"])
-            optimizer.step()
+            with span(f"ganslate.optimizer_step.{group}"):
+                average_gradients(p for g in optimizer.param_groups for p in g["params"])
+                optimizer.step()
+
+    def backward(self, loss: torch.Tensor, *groups: str):
+        """Clear the gradients of optimizer groups `groups` and backpropagate
+        `loss` (`ganslate.backward.<first group>`). Every backward of a
+        train step goes through here."""
+        with span(f"ganslate.backward.{groups[0]}"):
+            for group in groups:
+                self.optimizers[group].zero_grad(set_to_none=True)
+            loss.backward()
 
     @staticmethod
     def _update_count(optimizer: torch.optim.Optimizer) -> int:
@@ -306,9 +318,10 @@ class BaseGAN(ABC):
         applied twice shares one cast."""
         if self.compute_dtype == torch.float32:
             return None
-        return {name: {k: p.to(self.compute_dtype)
-                       for k, p in self.networks[name].named_parameters()}
-                for name in names}
+        with span("ganslate.cast_params"):
+            return {name: {k: p.to(self.compute_dtype)
+                           for k, p in self.networks[name].named_parameters()}
+                    for name in names}
 
     def apply(self, name: str, x: torch.Tensor, params: Optional[Dict] = None,
               generator: Optional[torch.Generator] = None, **kwargs):
@@ -322,25 +335,27 @@ class BaseGAN(ABC):
         declares `stochastic_rngs` draws from the model's `host_rng`
         instead. `kwargs` go to the network's forward (`inverse=True` runs a
         RevGAN generator BA, `extract_features=[...]` returns a generator's
-        encoder taps)."""
+        encoder taps). The call is the span `ganslate.forward.<name>`."""
         net = self.networks[name]
         if generator is not None:
             if getattr(net, "use_dropout", False):
                 kwargs["generator"] = generator
             elif getattr(net, "stochastic_rngs", ()):
                 kwargs["generator"] = self.host_rng
-        x = x.to(self.compute_dtype)
-        # (N, *spatial, C) -> (N, C, *spatial): a view, channels-last in memory.
-        x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
-        scope = spatial.current()
-        with spatial.spatial_scope(scope and scope.named(name)):
-            y = net(x, **kwargs) if params is None \
-                else functional_call(net, params[name], (x,), kwargs)
-        if isinstance(y, list):
-            return [t.permute(0, *range(2, t.ndim), 1) for t in y]
-        if isinstance(y, dict):
-            return {k: t.permute(0, *range(2, t.ndim), 1) for k, t in y.items()}
-        return y.permute(0, *range(2, y.ndim), 1)
+        with span(f"ganslate.forward.{name}"):
+            x = x.to(self.compute_dtype)
+            # (N, *spatial, C) -> (N, C, *spatial): a view, channels-last in
+            # memory.
+            x = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
+            scope = spatial.current()
+            with spatial.spatial_scope(scope and scope.named(name)):
+                y = net(x, **kwargs) if params is None \
+                    else functional_call(net, params[name], (x,), kwargs)
+            if isinstance(y, list):
+                return [t.permute(0, *range(2, t.ndim), 1) for t in y]
+            if isinstance(y, dict):
+                return {k: t.permute(0, *range(2, t.ndim), 1) for k, t in y.items()}
+            return y.permute(0, *range(2, y.ndim), 1)
 
     def apply_batched(self, name: str, xs: Sequence[torch.Tensor],
                       params: Optional[Dict] = None,
@@ -437,23 +452,28 @@ class BaseGAN(ABC):
 
     def set_input(self, batch: Dict):
         """Place the host batch's arrays `(N, *spatial, C)` on the device
-        (this rank's slabs, spatially sharded: `_place`)."""
+        (this rank's slabs, spatially sharded: `_place`), in the span
+        `ganslate.set_input`."""
         self._chunk = None
-        self._batch = self._place(batch)
+        with span("ganslate.set_input"):
+            self._batch = self._place(batch)
 
     def set_input_multi(self, batches: Sequence[Dict]):
         """Multi-step dispatch (`train.steps_per_dispatch`): stack the array
         keys of k host batches on a new leading axis, place the stack on the
         device in one copy per key, and let `optimize_parameters` run the k
         steps. A chunk may be shorter than k (the end of a run), even of
-        length 1. Spatially sharded, each batch is placed by `_place`."""
-        if self.n_spatial > 1:
-            self._chunk = [self._place(b) for b in batches]
-            self._batch = self._chunk[-1]
-            return
-        stacked = {k: torch.as_tensor(np.stack([np.asarray(b[k]) for b in batches]))
-                   .to(self.device) for k, v in batches[0].items() if hasattr(v, "shape")}
-        self._chunk = [{k: v[i] for k, v in stacked.items()} for i in range(len(batches))]
+        length 1. Spatially sharded, each batch is placed by `_place`. The
+        call is the span `ganslate.set_input`."""
+        with span("ganslate.set_input"):
+            if self.n_spatial > 1:
+                self._chunk = [self._place(b) for b in batches]
+            else:
+                stacked = {k: torch.as_tensor(np.stack([np.asarray(b[k]) for b in batches]))
+                           .to(self.device) for k, v in batches[0].items()
+                           if hasattr(v, "shape")}
+                self._chunk = [{k: v[i] for k, v in stacked.items()}
+                               for i in range(len(batches))]
         self._batch = self._chunk[-1]
 
     def optimize_parameters(self, sync: bool = False):
@@ -539,13 +559,14 @@ class BaseGAN(ABC):
         if name not in self.networks:
             raise KeyError(f"The model has no generator for direction {direction}; "
                            f"networks: {list(self.networks)}")
-        net = self._serving_network(name)
-        x = x.to(device=self.device, dtype=self.compute_dtype)
-        # (N, *spatial, C) -> (N, C, *spatial): a free permute, whose result
-        # is channels-last in memory.
-        y = net(x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)), **kwargs)
-        y = y.permute(0, *range(2, y.ndim), 1)
-        return y if out_dtype is None else y.to(out_dtype)
+        with span(f"ganslate.forward.{name}"):
+            net = self._serving_network(name)
+            x = x.to(device=self.device, dtype=self.compute_dtype)
+            # (N, *spatial, C) -> (N, C, *spatial): a free permute, whose
+            # result is channels-last in memory.
+            y = net(x.permute(0, x.ndim - 1, *range(1, x.ndim - 1)), **kwargs)
+            y = y.permute(0, *range(2, y.ndim), 1)
+            return y if out_dtype is None else y.to(out_dtype)
 
     # ---------------------------------------------------------- checkpoints
 

@@ -68,7 +68,6 @@ class Pix2PixConditionalGAN(BaseGAN):
     def train_step(self):
         real_A, real_B = self._batch["A"], self._batch["B"]
         adv = self.criterion_adv
-        opt_G, opt_D = self.optimizers["G"], self.optimizers["D"]
 
         # ---- G update; D is frozen.
         with self.frozen(self.network_groups["D"]):
@@ -77,8 +76,7 @@ class Pix2PixConditionalGAN(BaseGAN):
             pred = self.apply("D", self._conditional(real_A, fake_B), params, self.rng)
             losses = {"G": adv(pred, target_is_real=True),
                       "pix2pix": self.criterion_pix2pix(fake_B, real_B)}
-            opt_G.zero_grad(set_to_none=True)
-            (losses["G"] + losses["pix2pix"]).backward()
+            self.backward(losses["G"] + losses["pix2pix"], "G")
         self.step("G")
         fake_B = fake_B.detach()
 
@@ -88,8 +86,7 @@ class Pix2PixConditionalGAN(BaseGAN):
             "D", [self._conditional(real_A, real_B), self._conditional(real_A, fake_B)],
             params, self.rng)
         loss_D = adv(pred_real, True) + adv(pred_fake, False)
-        opt_D.zero_grad(set_to_none=True)
-        loss_D.backward()
+        self.backward(loss_D, "D")
         self.step("D")
 
         visuals = {"real_A": real_A, "fake_B": fake_B, "real_B": real_B}

@@ -53,6 +53,7 @@ from ganslate_tpu_torch.nn.layers import make_initializer
 from ganslate_tpu_torch.nn.losses.adversarial_loss import AdversarialLoss
 from ganslate_tpu_torch.nn.losses.cut_losses import PatchNCELoss
 from ganslate_tpu_torch.parallel import spatial
+from ganslate_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -246,13 +247,15 @@ class CUT(BaseGAN):
             feats_k = self.apply("G", source, params, extract_features=layers)
             patch_ids = [draw_patch_ids(self.rng, positions(f), self.num_patches)
                          for f in feats_k]
-            pool_k = mlp(select_patches(feats_k, patch_ids))
+            with span("ganslate.forward.mlp"):
+                pool_k = mlp(select_patches(feats_k, patch_ids))
         del feats_k
         feats_q = self.apply("G", target, params, extract_features=layers)
         if flip is not None:
             patch_ids = [torch.where(flip, mirror_w(ids, f.shape[-2]), ids)
                          for ids, f in zip(patch_ids, feats_q)]
-        pool_q = mlp(select_patches(feats_q, patch_ids))
+        with span("ganslate.forward.mlp"):
+            pool_q = mlp(select_patches(feats_q, patch_ids))
         total = 0.0
         for q, k in zip(pool_q, pool_k):
             total = total + spatial.global_mean(self.criterion_nce(q, k)) * self.lambda_nce
@@ -278,9 +281,7 @@ class CUT(BaseGAN):
         params_D = self.compute_params(["D"])
         pred_real, pred_fake = self.apply_batched("D", [real_B, fake_B.detach()], params_D)
         loss_D = adv(pred_real, True) + adv(pred_fake, False)
-        opt_D = self.optimizers["D"]
-        opt_D.zero_grad(set_to_none=True)
-        loss_D.backward()
+        self.backward(loss_D, "D")
         self.step("D")
 
         # ---- Joint G + mlp update against the updated D, which is frozen.
@@ -301,9 +302,7 @@ class CUT(BaseGAN):
                     losses["NCE_idt"] = loss_nce_idt
                     loss_nce = (1 - self.lambda_nce_idt) * loss_nce + loss_nce_idt
                 total = total + loss_nce
-            for group in ("G", "mlp"):
-                self.optimizers[group].zero_grad(set_to_none=True)
-            total.backward()
+            self.backward(total, "G", "mlp")
         self.step("G", "mlp")
 
         visuals = {"real_A": real_A, "fake_B": fake_B.detach(), "real_B": real_B}

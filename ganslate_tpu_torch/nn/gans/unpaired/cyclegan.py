@@ -71,7 +71,6 @@ class CycleGAN(BaseGAN):
     def train_step(self):
         real_A, real_B = self._batch["A"], self._batch["B"]
         adv = self.criterion_adv
-        opt_G = self.optimizers["G"]
 
         # ---- G update; the discriminators are frozen.
         with self.frozen(self.network_groups["D"]):
@@ -91,9 +90,8 @@ class CycleGAN(BaseGAN):
                       "G_BA": adv(self.apply("D_A", fake_A, params, self.rng),
                                   target_is_real=True)}
             losses.update(self.criterion_G(visuals))
-            opt_G.zero_grad(set_to_none=True)
             # Summed in sorted key order, as the JAX package's tree_leaves.
-            sum(losses[k] for k in sorted(losses)).backward()
+            self.backward(sum(losses[k] for k in sorted(losses)), "G")
         self.step("G")
         visuals = {k: v.detach() for k, v in visuals.items()}
         return self.discriminator_step(losses, visuals)
@@ -109,7 +107,6 @@ class CycleGAN(BaseGAN):
                             "fake_A": visuals["fake_A"], "fake_B": visuals["fake_B"]}
         real_A, real_B = judged["real_A"], judged["real_B"]
         adv = self.criterion_adv
-        opt_D = self.optimizers["D"]
 
         # ---- Pool query with the pre-update fakes.
         fake_B_pooled = self.pools["fake_B"].query(judged["fake_B"])
@@ -124,8 +121,7 @@ class CycleGAN(BaseGAN):
                                                               params, self.rng)
         losses_D = {"D_B": adv(preds["real_B"], True) + adv(preds["fake_B"], False),
                     "D_A": adv(preds["real_A"], True) + adv(preds["fake_A"], False)}
-        opt_D.zero_grad(set_to_none=True)
-        (losses_D["D_B"] + losses_D["D_A"]).backward()
+        self.backward(losses_D["D_B"] + losses_D["D_A"], "D")
         self.step("D")
 
         # ---- Metrics.

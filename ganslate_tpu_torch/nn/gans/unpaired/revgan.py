@@ -46,7 +46,6 @@ class RevGAN(cyclegan.CycleGAN):
     def train_step(self):
         real_A, real_B = self._batch["A"], self._batch["B"]
         adv = self.criterion_adv
-        opt_G = self.optimizers["G"]
 
         # ---- G update; the discriminators are frozen.
         with self.frozen(self.network_groups["D"]):
@@ -66,9 +65,8 @@ class RevGAN(cyclegan.CycleGAN):
                       "G_BA": adv(self.apply("D_A", fake_A, params, self.rng),
                                   target_is_real=True)}
             losses.update(self.criterion_G(visuals))
-            opt_G.zero_grad(set_to_none=True)
             # Summed in sorted key order, as the JAX package's tree_leaves.
-            sum(losses[k] for k in sorted(losses)).backward()
+            self.backward(sum(losses[k] for k in sorted(losses)), "G")
         self.step("G")
         visuals = {k: v.detach() for k, v in visuals.items()}
         return self.discriminator_step(losses, visuals)

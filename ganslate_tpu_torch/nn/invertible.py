@@ -34,6 +34,7 @@ from torch.func import functional_call
 from ganslate_tpu_torch.nn.layers import (Conv, batch_norm_or_none, inert_bias,
                                           is_bias_before_norm, make_initializer, norm_act)
 from ganslate_tpu_torch.parallel import spatial
+from ganslate_tpu_torch.utils.tracing import span
 
 
 def coupling_forward(f, g, h):
@@ -95,7 +96,7 @@ class MemorySavingSequence(torch.autograd.Function):
         g = grad_y.chunk(2, dim=1)
         grads: List = [None] * len(tensors)
         for i in order:
-            with torch.profiler.record_function("coupling_recompute"), torch.no_grad():
+            with span("coupling_recompute"), torch.no_grad():
                 undo(*seq.block_fns(i, names, tensors), h)
             out, inputs, own = seq.rerun(i, names, tensors, needs, *h, ctx.inverse)
             with torch.enable_grad():
@@ -161,7 +162,7 @@ class InvertibleSequence(nn.Module):
             if name[0] == i and need:
                 leaves[j] = own[j] = tensors[j].detach().requires_grad_()
         inputs = (h1.detach().requires_grad_(), h2.detach().requires_grad_())
-        with torch.profiler.record_function("coupling_recompute"), torch.enable_grad():
+        with span("coupling_recompute"), torch.enable_grad():
             out = step(*self.block_fns(i, names, leaves), list(inputs))
         return out, inputs, own
 

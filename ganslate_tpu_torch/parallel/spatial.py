@@ -56,6 +56,7 @@ from torch import nn
 
 from ganslate_tpu_torch.parallel import mesh
 from ganslate_tpu_torch.utils import communication
+from ganslate_tpu_torch.utils.tracing import span
 
 # Modules that only hold others (what they hold is checked), and
 # position-wise modules, which act on the channels of each row alone.
@@ -124,18 +125,22 @@ def _count(kind: str, scope: "SpatialScope", site: Optional[str] = None):
 
 @contextlib.contextmanager
 def _timed(kind: str, x: torch.Tensor):
-    if not TIMED:
-        yield
-        return
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
+    """An exchange of `kind` ("halo" or "collective"): the span
+    `ganslate.spatial.<kind>`, and where `TIMED` is set its seconds between
+    device synchronisations in `SECONDS`."""
+    with span(f"ganslate.spatial.{kind}"):
+        if not TIMED:
+            yield
+            return
         if x.is_cuda:
             torch.cuda.synchronize(x.device)
-        SECONDS[kind] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            SECONDS[kind] += time.perf_counter() - t0
 
 
 @dataclass(frozen=True)

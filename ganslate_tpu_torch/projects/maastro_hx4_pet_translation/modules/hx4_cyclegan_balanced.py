@@ -46,7 +46,6 @@ class HX4CycleGANBalanced(cyclegan.CycleGAN):
     def train_step(self):
         real_A, real_B = self._batch["A"], self._batch["B"]
         adv = self.criterion_adv
-        opt_G = self.optimizers["G"]
         dtype = self.compute_dtype
 
         # ---- G update; the discriminators are frozen.
@@ -76,8 +75,7 @@ class HX4CycleGANBalanced(cyclegan.CycleGAN):
                       "G_BA": adv(self.apply("D_A", fake_A1, params, self.rng),
                                   target_is_real=True)}
             losses.update(self.criterion_G(visuals))
-            opt_G.zero_grad(set_to_none=True)
-            sum(losses[k] for k in sorted(losses)).backward()
+            self.backward(sum(losses[k] for k in sorted(losses)), "G")
         self.step("G")
         visuals = {k: v.detach() for k, v in visuals.items()}
 

@@ -13,7 +13,11 @@ padded symmetrically with `cval` first.
 
 PyTorch idiom: each group of windows is sliced from the padded volume on
 its device and stacked; the predictions stay in the network's dtype until
-the weighted add reads them into the canvas.
+the weighted add reads them into the canvas. The host's phases are the
+spans `ganslate.sliding_window.grid` (the window starts, the importance map
+and the summed weights), `.slice` (a group's stack), `.blend` (a group's
+weighted adds) and `.divide` (the canvas over the weights, cropped, and the
+volumes stacked).
 
 `distributed=True` (off by default) splits the window grid over the data
 ranks, as the JAX package splits it over its `data` axis: the windows,
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 
 from ganslate_tpu_torch.parallel import all_reduce_sum
 from ganslate_tpu_torch.utils import communication
+from ganslate_tpu_torch.utils.tracing import span
 
 
 def _scan_interval(image_size, roi_size, overlap: float) -> Tuple[int, ...]:
@@ -154,7 +159,8 @@ class SlidingWindowInferer:
             for s, p, lo in reversed(list(zip(spatial, padded, low))):
                 pad += [lo, p - s - lo]
             inputs = F.pad(inputs, pad, value=self.cval)
-        starts, live, importance, weight = self._grid(padded, roi, inputs.device)
+        with span("ganslate.sliding_window.grid"):
+            starts, live, importance, weight = self._grid(padded, roi, inputs.device)
         sw_batch = min(self.sw_batch_size, len(starts))
         crop = tuple(slice(lo, lo + s) for lo, s in zip(low, spatial))
 
@@ -163,16 +169,18 @@ class SlidingWindowInferer:
             canvas = None
             for b0 in range(0, len(starts), sw_batch):
                 group = starts[b0:b0 + sw_batch]
-                windows = torch.stack([volume[_region(s, roi)] for s in group])
+                with span("ganslate.sliding_window.slice"):
+                    windows = torch.stack([volume[_region(s, roi)] for s in group])
                 if squeeze_depth:
                     preds = network(windows[:, 0])[:, None]
                 else:
                     preds = network(windows)
-                if canvas is None:
-                    canvas = torch.zeros((*padded, preds.shape[-1]), dtype=torch.float32,
-                                         device=preds.device)
-                for s, pred in zip(group[:max(live - b0, 0)], preds):
-                    canvas[_region(s, roi)].addcmul_(pred, importance)
+                with span("ganslate.sliding_window.blend"):
+                    if canvas is None:
+                        canvas = torch.zeros((*padded, preds.shape[-1]), dtype=torch.float32,
+                                             device=preds.device)
+                    for s, pred in zip(group[:max(live - b0, 0)], preds):
+                        canvas[_region(s, roi)].addcmul_(pred, importance)
                 del windows, preds
             if self._split():
                 # One all-reduce of the weighted sum and the weights.
@@ -180,9 +188,11 @@ class SlidingWindowInferer:
                 canvas, total = both[..., :-1], both[..., -1:]
             else:
                 total = weight
-            outputs.append((canvas / total)[crop])
+            with span("ganslate.sliding_window.divide"):
+                outputs.append((canvas / total)[crop])
             del canvas
-        return torch.stack(outputs)
+        with span("ganslate.sliding_window.divide"):
+            return torch.stack(outputs)
 
 
 def _region(start, roi):

@@ -4,7 +4,9 @@ package's `utils/trackers/base.py`).
 The engines alternate two phases per iteration, host data loading and then
 compute, timed by `PhaseSplitTimer`. On the GPU the compute end-mark follows
 a device synchronisation only on the iterations where the engine asks for
-one (the Trainer's log iterations); elsewhere it records the enqueue.
+one (the Trainer's log iterations); elsewhere it records the enqueue. Each
+rank keeps its own times; the trackers average them over the ranks only in
+their log calls, which every rank enters.
 """
 
 import time
@@ -25,9 +27,9 @@ class PhaseSplitTimer:
         mark_compute_start()   # batch arrived; closes the load phase
         mark_compute_end()     # step output ready; closes the compute phase
 
-    `data_s` is the last load phase's wall time; `comp_s` the last compute
-    phase divided by the batch size (per sample). Both are averaged across
-    processes onto rank 0.
+    `data_s` is this rank's last load phase, `comp_s` its last compute
+    phase divided by the batch size (per sample), in seconds of
+    `time.perf_counter()`. `reduced` averages them over the ranks.
     """
 
     def __init__(self, batch_size: int):
@@ -37,21 +39,24 @@ class PhaseSplitTimer:
         self.data_s = 0.0
         self.comp_s = 0.0
 
-    def _rank0_mean(self, value: float) -> float:
-        return communication.reduce(value, average=True, all_reduce=False)
-
     def mark_load_start(self):
-        self._load_began = time.time()
+        self._load_began = time.perf_counter()
 
     def mark_compute_start(self):
-        now = time.time()
+        now = time.perf_counter()
         self._compute_began = now
         if self._load_began is not None:
-            self.data_s = self._rank0_mean(now - self._load_began)
+            self.data_s = now - self._load_began
 
     def mark_compute_end(self):
-        per_sample = (time.time() - self._compute_began) / self._batch_size
-        self.comp_s = self._rank0_mean(per_sample)
+        self.comp_s = (time.perf_counter() - self._compute_began) / self._batch_size
+
+    def reduced(self, *extra: float):
+        """`[data_s, comp_s, *extra]`, each averaged over the ranks onto rank
+        0 (the other ranks keep their own): one collective, which every rank
+        has to enter."""
+        return communication.reduce([self.data_s, self.comp_s, *extra], average=True,
+                                    all_reduce=False)
 
 
 class BaseTracker:
@@ -103,10 +108,12 @@ class BaseTracker:
 
     @property
     def t_data(self) -> float:
+        """This rank's last load phase (s)."""
         return self._timer.data_s
 
     @property
     def t_comp(self) -> float:
+        """This rank's last compute phase per sample (s)."""
         return self._timer.comp_s
 
     def set_iter_idx(self, iter_idx):

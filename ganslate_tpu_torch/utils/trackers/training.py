@@ -34,12 +34,13 @@ class TrainingTracker(BaseTracker):
         metrics = {k: float(v) for k, v in metrics.items() if v is not None}
         if metrics:
             metrics = communication.reduce(metrics, average=True, all_reduce=False)
+        t_data, t_comp = self._timer.reduced()
 
         visuals_grids = process_visuals_for_logging(self.conf, visuals, single_example=True)
         visual = visuals_grids[0] if visuals_grids else None
 
         message = "\n" + 20 * "-" + " "
-        message += f"(iter: {self.iter_idx} | comp: {self.t_comp:.3f}, data: {self.t_data:.3f}"
+        message += f"(iter: {self.iter_idx} | comp: {t_comp:.3f}, data: {t_data:.3f}"
         message += " | "
         message += ", ".join(f"{k}: {v:.7f}" for k, v in learning_rates.items())
         message += ") " + 20 * "-" + "\n"

@@ -804,6 +804,70 @@ def check_spatial_zoo(job, out_dir):
             for name, spec in job["spatial_zoo"].items()}
 
 
+def check_trackers(job, out_dir):
+    """The trackers' phase timers on this rank: `iterations` Trainer
+    iterations through the training tracker (logging every `freq`), whose
+    load and compute phases last `load_s` and `comp_s` times (rank + 1),
+    then one inference tracker iteration. Per iteration, the collectives
+    the tracker made (`communication.all_gather` calls) and the phase times
+    it logged (averaged over the ranks, on rank 0)."""
+    import logging
+    from ganslate_tpu_torch.utils.trackers.inference import InferenceTracker
+    from ganslate_tpu_torch.utils.trackers.training import TrainingTracker
+    spec, rank = job["trackers"], communication.get_rank()
+    gathers, logged = [0], []
+    all_gather = communication.all_gather
+
+    def counted(data):
+        gathers[0] += 1
+        return all_gather(data)
+
+    communication.all_gather = counted
+    try:
+        raw = {"train": {"output_dir": str(out_dir / "trackers"), "batch_size": 2,
+                         "n_iters": 1, "n_iters_decay": 1, "logging": {"freq": spec["freq"]}},
+               "infer": {}}
+        conf = init_config(Conf.create(raw), Config)
+        tracker = TrainingTracker(conf)
+        reduced = tracker._timer.reduced
+
+        def spy(*extra):
+            logged.append(reduced(*extra))
+            return logged[-1]
+
+        tracker._timer.reduced = spy
+        visuals = {"real_A": torch.zeros(2, 8, 8, 1), "fake_B": torch.ones(2, 8, 8, 1)}
+        iterations = []
+        logging.getLogger("ganslate_tpu_torch").setLevel(logging.INFO)
+        tracker.start_dataloading_timer()
+        for i in range(1, spec["iterations"] + 1):
+            gathers[0], logged[:] = 0, []
+            time.sleep(spec["load_s"] * (rank + 1))
+            tracker.set_iter_idx(i)
+            tracker.start_computation_timer()
+            tracker.end_dataloading_timer()
+            time.sleep(spec["comp_s"] * (rank + 1))
+            tracker.end_computation_timer()
+            tracker.log_iter({"lr_G": 1e-4}, {"G_AB": torch.tensor(0.5)}, visuals, {})
+            iterations.append({"gathers": gathers[0], "local": (tracker.t_data, tracker.t_comp),
+                               "logged": list(logged)})
+            tracker.start_dataloading_timer()
+        conf.mode = "infer"
+        tracker = InferenceTracker(conf)
+        gathers[0] = 0
+        tracker.set_iter_idx(1)
+        tracker.start_dataloading_timer()
+        tracker.start_computation_timer()
+        tracker.end_computation_timer()
+        tracker.start_saving_timer()
+        tracker.end_saving_timer()
+        tracker.log_iter({"input": np.zeros((2, 8, 8, 1)), "output": np.zeros((2, 8, 8, 1))}, 2)
+        inference = {"gathers": gathers[0]}
+    finally:
+        communication.all_gather = all_gather
+    return {"train": iterations, "infer": inference}
+
+
 CHECKS = {"cyclegan": check_cyclegan, **{name: check_model(name) for name in MODELS},
           "batchnorm": check_batchnorm, "pool": check_pool, "verbs": check_verbs,
           "sliding_window": check_sliding_window, "fid": check_fid,
@@ -813,7 +877,8 @@ CHECKS = {"cyclegan": check_cyclegan, **{name: check_model(name) for name in MOD
           "spatial_norm": check_spatial_norm, "spatial_infer": check_spatial_infer,
           "spatial_vnet": check_spatial_vnet, "spatial_replicated": check_spatial_replicated,
           "spatial_cyclegan": check_spatial_cyclegan, "spatial_trainer": check_spatial_trainer,
-          "spatial_verbs": check_spatial_verbs, "spatial_zoo": check_spatial_zoo}
+          "spatial_verbs": check_spatial_verbs, "spatial_zoo": check_spatial_zoo,
+          "trackers": check_trackers}
 
 
 def main(job_path, out_dir):
