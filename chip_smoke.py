@@ -43,12 +43,15 @@ and prints no result line):
    run's distance from the fp32 gradient). Then timed steps
    in bf16 with pool 50 and metrics on, at batch 1 and 16: step time (CUDA
    events), images/s, peak memory, finite losses and the norm launches of
-   every step. The trained batch-16 `G_AB` served from its checkpoint by a
-   deployment `Inferer`. One step at each batch under `torch.profiler`:
-   device time by family (conv forward, data and weight gradients, norm
-   kernels, the plain norm backward, pad gathers and their backward, bias
-   adds, casts, Adam, losses, metrics) and the device's idle share. Before
-   all of it, each norm's gradient alone at the step's slabs, elementwise.
+   every step, forward and backward. The trained batch-16 `G_AB` served
+   from its checkpoint by a deployment `Inferer`. One step at each batch
+   under `torch.profiler`: device time by family (conv forward, data and
+   weight gradients, norm kernels, the norm backward, pad gathers and their
+   backward, bias adds, casts, Adam, losses, metrics) and the device's idle
+   share. Before all of it, each norm's gradient alone (the backward
+   kernels, both forms, both dtypes) against autograd through the plain
+   version, elementwise, at the step's slabs, BRaTS's and the benchmark
+   cell's, each timed against the plain backward and its bound.
 6b. trainer: the horse2zebra experiment (`projects/horse2zebra/experiments/
    default.yaml` field for field, built in Python, with its loop lengths and
    frequencies cut and `logging.wandb` left out) through the port's engines:
@@ -114,7 +117,7 @@ project's datasets, which the port's config loader takes from its twin
    metrics, the norm launches of every step and validation; then
    model-level steps (CUDA events, peak memory), the recompute checked bit
    for bit and its rebuilt inputs' error, conv FLOPs, and 3 steps under
-   `torch.profiler` by family (convs, norm kernels, the plain norm backward,
+   `torch.profiler` by family (convs, norm kernels, the norm backward,
    pads, the couplings' recompute and layout copies). (b) The same config
    with stored activations: steps and peak memory, which must exceed (a)'s.
    (c) `init_engine("infer")` from (a)'s checkpoint: `run()` over the
@@ -191,7 +194,7 @@ project's datasets, which the port's config loader takes from its twin
    on one thread, peak memory, finite losses at every log, one validation
    with cycle metrics, the norm launches of every step and validation;
    model-level steps, conv FLOPs and 3 steps under `torch.profiler` by
-   family (convs, norm kernels, the plain norm backward, PReLU, the rest)
+   family (convs, norm kernels, the norm backward, PReLU, the rest)
    with the idle share. The checkpoint's `G_AB` served by the deployment
    `Inferer` through the sliding window against the plain norms. One step
    against the plain norms from the same state and batch (fp32 losses 1e-4,
@@ -429,8 +432,9 @@ TRAIN_WARM_STEPS = 3
 TRAIN_TIMED_STEPS = 10
 # Norm launches per train step: 4 G passes (fake_B, fake_A, rec_A, rec_B)
 # of 19 one-pass and 4 split norms; 3 one-pass norms in each of 2 D passes
-# in the G step and 2 in the D step (real and fake in one forward). The
-# backward launches none: it is plain PyTorch.
+# in the G step and 2 in the D step (real and fake in one forward). Every
+# norm has a gradient, so the backward kernels launch as often, in the same
+# forms (`BACKWARD_LAUNCHES`).
 TRAIN_LAUNCHES = {"onepass": 4 * 19 + 2 * 3 + 2 * 3, "split": 4 * 4}
 # Kernel norms vs plain norms over one train step (same state and batch).
 # fp32, TF32 off, cuDNN deterministic: only the norms' summation order
@@ -460,17 +464,34 @@ TRAIN_BF16_LOSS_RTOL = 1e-2
 # `cancelling`), of its network's gradient norm, in fp32: rounding noise.
 CANCELLING_GRAD_MAX = 1e-4
 TRAIN_BF16_GRAD_RATIO = 1.5
-# Each norm's gradient alone on the card, at the train step's slabs (batch
-# 2): the kernel's statistics with `instance_norm_backward` against autograd
-# through the plain version, elementwise. Both statistics agree to a few
-# fp32 ulps, which dx = rstd * (gy - mean(gy) - y * mean(gy * y)) carries
-# into ~1e-6 of max|dx| (fp32); a bf16 dx may round to the neighbouring
-# value (2**-7 relative). Elements within 1e-3 of an activation's kink are
-# left out (their derivative jumps), at most 1% of a slab.
+# Each norm's gradient alone on the card: the kernels' statistics and
+# backward kernels through `InstanceNormFunction` against the exact
+# gradient (autograd in float64, rounded to x's dtype), elementwise, with
+# the activation's kinks decided where the kernels decide them: an element
+# within rounding of a kink may fall on either side in any fp32 route, and
+# its side moves its channel's mean(gy) by gy / S, every dx of the channel
+# by ~1e-4 at S = 4,096 (seen at batch 16, in the kernels' and in the plain
+# version's fp32 gradient alike). The kernels' fp32 statistics and sums are
+# a few ulps off, which dx = rstd * (gy - mean(gy) - y * mean(gy * y))
+# carries into ~1e-6 of max|dx| (fp32); a bf16 dx may round to the
+# neighbouring value (2**-7 relative). Autograd through the plain version in
+# x's dtype is recorded beside (`plain_max_abs_err`). Elements within 1e-3
+# of a kink are left out (their derivative jumps), at most 1% of a slab. The slabs: the horse2zebra
+# train step's at batch 2 (D at 4); BRaTS's V-Net level 0 (split), level 3
+# (one-pass) and PatchGAN3D's in its D step (split); a padded channel count
+# in each form. Then the horse2zebra cell's at batch 16 (D at 32). Each is
+# timed in both dtypes beside the plain version on the card and the bound
+# (x and dy read once, dx written once).
 NORM_BACKWARD_SLABS = (((2, 256, 256, 64), "relu"), ((2, 128, 128, 128), "relu"),
                        ((2, 64, 64, 256), "relu"), ((2, 64, 64, 256), "none"),
                        ((4, 64, 64, 128), "leaky_relu"), ((4, 32, 32, 256), "leaky_relu"),
-                       ((4, 31, 31, 512), "leaky_relu"))
+                       ((4, 31, 31, 512), "leaky_relu"),
+                       ((1, 32, 176, 176, 16), "none"), ((1, 4, 22, 22, 128), "none"),
+                       ((2, 7, 43, 43, 256), "leaky_relu"),
+                       ((2, 16, 64, 64, 20), "relu"), ((4, 8, 22, 22, 20), "leaky_relu"),
+                       ((16, 256, 256, 64), "relu"), ((16, 128, 128, 128), "relu"),
+                       ((16, 64, 64, 256), "relu"), ((32, 64, 64, 128), "leaky_relu"),
+                       ((32, 32, 32, 256), "leaky_relu"), ((32, 31, 31, 512), "leaky_relu"))
 NORM_BACKWARD_TOL = {"float32": dict(rtol=0, atol=1e-5),
                      "bfloat16": dict(rtol=2 ** -7, atol=1e-5)}
 
@@ -1530,10 +1551,30 @@ def check_train_step(out_dir, mixed_precision, fp32_grads=None):
     return ref_grads
 
 
-def check_norm_backward():
-    """Each norm's gradient alone at the train step's slabs: the kernel's
-    statistics through `InstanceNormFunction` against autograd through the
-    plain version, elementwise (`NORM_BACKWARD_TOL`), kinks left out."""
+def exact_norm_grad(x, g, act, y_at):
+    """The gradient of the instance norm (eps 1e-5, then `act`) at x for the
+    output's gradient g, by autograd in float64, with the activation's
+    derivative taken at `y_at` (`_act_grad`'s kinks), the pre-activation as
+    the kernels compute it: at a kink both sides are right, and one
+    element's side moves its whole channel's two sums."""
+    import torch
+    xp = x.double().requires_grad_(True)
+    axes = tuple(range(1, x.ndim - 1))
+    mean = xp.mean(dim=axes, keepdim=True)
+    y = (xp - mean) * torch.rsqrt((xp - mean).square().mean(dim=axes, keepdim=True) + 1e-5)
+    if act == "relu":
+        y = y * (y_at > 0).double()
+    elif act == "leaky_relu":
+        y = y * torch.where(y_at >= 0, 1.0, 0.2).double()
+    y.backward(g.double())
+    return xp.grad
+
+
+def check_norm_backward(bandwidth):
+    """Each norm's gradient alone at `NORM_BACKWARD_SLABS`: the kernels
+    through `InstanceNormFunction` against `exact_norm_grad`, elementwise
+    (`NORM_BACKWARD_TOL`), kinks left out; then the backward kernels timed
+    against the plain backward on the card and the bound."""
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
@@ -1541,28 +1582,49 @@ def check_norm_backward():
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1.5).to(dtype)
             g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            xk, xp = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+            stat = (shape[0],) + (1,) * (len(shape) - 2) + (shape[-1],)
+            xk = x.clone().requires_grad_(True)
+            inorm.reset_launches()
             inorm.instance_norm(xk, 1e-5, act, 0.2).backward(g)
-            out, mean, rstd = inorm.instance_norm_reference(xp, 1e-5, act, 0.2)
-            out.backward(g)
+            form = inorm.pick_kernel(shape, dtype)
+            launches = dict(inorm.BACKWARD_LAUNCHES)
+            got = xk.grad.float()
+            _, mk, rk = inorm.instance_norm_forward(x, 1e-5, act, 0.2)
+            y = (x.float() - mk.reshape(stat)) * rk.reshape(stat)
+            want = exact_norm_grad(x, g, act, y)
+            # Autograd through the plain version, as the kernels' yardstick.
+            xp = x.clone().requires_grad_(True)
+            inorm.instance_norm_reference(xp, 1e-5, act, 0.2)[0].backward(g)
+            plain = xp.grad
             with torch.no_grad():
-                stat = (shape[0],) + (1,) * (len(shape) - 2) + (shape[-1],)
-                y = (x.float() - mean.reshape(stat)) * rstd.reshape(stat)
+                want = want.to(dtype).float()
                 keep = y.abs() >= 1e-3 if act != "none" else torch.ones_like(y, dtype=torch.bool)
-                want, got = xp.grad.float(), xk.grad.float()
                 dname = str(dtype).split(".")[1]
                 tol = NORM_BACKWARD_TOL[dname]
                 scale = float(want.abs().max())
                 err = (got - want).abs()
                 limit = tol["atol"] * scale + tol["rtol"] * want.abs()
                 ok = bool((err <= limit)[keep].all()) and float(keep.float().mean()) >= 0.99
+                plain_err = float((plain.float() - want).abs()[keep].max())
+                _, mean, rstd = inorm.instance_norm_reference(x, 1e-5, act, 0.2)
+                ms, hb1 = time_ms(lambda: inorm.instance_norm_grad(x, mean, rstd, g, act, 0.2),
+                                  iters=10, reps=3)
+                plain_ms, hb2 = time_ms(
+                    lambda: inorm.instance_norm_backward(x, mean, rstd, g, act, 0.2),
+                    iters=5, reps=3)
+            nbytes = 3 * x.numel() * x.element_size()
             rec = {"phase": "norm_backward", "shape": list(shape), "dtype": dname,
-                   "activation": act, "max_abs_err": float(err[keep].max()),
-                   "dx_scale": scale, "kept": float(keep.float().mean()), "tol": tol,
-                   "grad_dtype": str(xk.grad.dtype), "ok": ok}
+                   "activation": act, "form": form, "max_abs_err": float(err[keep].max()),
+                   "plain_max_abs_err": plain_err, "dx_scale": scale,
+                   "kept": float(keep.float().mean()), "tol": tol,
+                   "grad_dtype": str(xk.grad.dtype), "launches": launches, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": nbytes / bandwidth * 1e3,
+                   "roofline_share": nbytes / bandwidth * 1e3 / ms, "host_bound": hb1 or hb2,
+                   "ok": ok}
             emit(rec)
             check(ok and xk.grad.dtype == dtype, rec)
-            del x, g, xk, xp, out, y, keep, want, got, err, limit
+            check(launches == {k: int(k == form) for k in launches}, rec)
+            del x, g, xk, xp, y, mk, rk, keep, want, got, plain, err, limit
 
 
 class Labelled:
@@ -1696,7 +1758,7 @@ def time_train(out_dir, batch_size, totals):
     device = [{k: torch.from_numpy(v).to(model.device) for k, v in b.items()} for b in host]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps, launches, losses = [], [], []
+    steps, launches, backward, copies, losses = [], [], [], 0, []
     t0 = time.perf_counter()
     for i in range(TRAIN_WARM_STEPS + TRAIN_TIMED_STEPS):
         if i == TRAIN_WARM_STEPS:
@@ -1709,6 +1771,8 @@ def time_train(out_dir, batch_size, totals):
         model.optimize_parameters()
         end.record()
         launches.append(dict(inorm.LAUNCHES))
+        backward.append(dict(inorm.BACKWARD_LAUNCHES))
+        copies += inorm.BACKWARD_COPIES["grad"]
         losses.append(model.losses)
         steps.append((start, end))
     torch.cuda.synchronize()
@@ -1722,13 +1786,15 @@ def time_train(out_dir, batch_size, totals):
            "host_wall_ms_per_step": wall_ms,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches_per_step": launches[-1], "losses": {k: float(v) for k, v in
-                                                         last_losses.items()},
+           "launches_per_step": launches[-1], "backward_launches_per_step": backward[-1],
+           "grad_copies": copies, "losses": {k: float(v) for k, v in last_losses.items()},
            "metrics": {k: float(v) for k, v in metrics.items()}, "lrs": lrs,
            "visuals": {k: [list(v.shape), str(v.dtype)] for k, v in visuals.items()}}
     emit(rec)
     check(finite, f"a train step gave a non-finite loss: {rec}")
     check(all(step == TRAIN_LAUNCHES for step in launches), f"launches per step: {launches}")
+    check(all(step == TRAIN_LAUNCHES for step in backward),
+          f"backward launches per step: {backward}")
     # The loggable visuals stay on the device in the step's dtypes (bf16
     # fakes); the training tracker reads them to the host as fp32.
     from ganslate_tpu_torch.utils.trackers.utils import to_numpy
@@ -1767,10 +1833,10 @@ def serve_trained(out_dir, model, iter_idx):
     check(err <= SLICE_BF16_MAX, rec)
 
 
-def train_phase(out_dir):
+def train_phase(out_dir, bandwidth):
     """Phase 6; returns the norm launches of the timed steps."""
     import torch
-    check_norm_backward()
+    check_norm_backward(bandwidth)
     fp32_grads = check_train_step(out_dir, mixed_precision=False)
     torch.cuda.empty_cache()
     check_train_step(out_dir, mixed_precision=True, fp32_grads=fp32_grads)
@@ -3163,7 +3229,7 @@ def model_steps(model, batches, label, steps=REVGAN_MODEL_STEPS):
     import torch
     from ganslate_tpu_torch.ops import instance_norm as inorm
     warm, timed = steps
-    steps, launches, losses = [], [], []
+    steps, launches, backward, copies, losses = [], [], [], 0, []
     for i in range(warm + timed):
         if i == warm:
             torch.cuda.synchronize()
@@ -3175,6 +3241,8 @@ def model_steps(model, batches, label, steps=REVGAN_MODEL_STEPS):
         model.optimize_parameters()
         end.record()
         launches.append(dict(inorm.LAUNCHES))
+        backward.append(dict(inorm.BACKWARD_LAUNCHES))
+        copies += inorm.BACKWARD_COPIES["grad"]
         losses.append(model.losses)
         steps.append((start, end))
     torch.cuda.synchronize()
@@ -3182,7 +3250,8 @@ def model_steps(model, batches, label, steps=REVGAN_MODEL_STEPS):
     peak = torch.cuda.max_memory_allocated()
     return {"config": label, "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
             "peak_memory_bytes": peak, "peak_memory_gib": peak / 2 ** 30,
-            "launches_per_step": launches[-1],
+            "launches_per_step": launches[-1], "backward_launches": backward,
+            "grad_copies": copies,
             "losses_finite": all(math.isfinite(float(v)) for s in losses for v in s.values())}, \
         launches
 
@@ -4676,6 +4745,9 @@ def brats_cyclegan_phase(root):
         check(steps["losses_finite"]
               and all(s == BRATS_CYCLEGAN_LAUNCHES for s in step_launches),
               f"model-level steps: {steps}, launches {step_launches}")
+        # Every norm of the step has a gradient: a backward kernel each.
+        check(all(s == BRATS_CYCLEGAN_LAUNCHES for s in steps["backward_launches"]),
+              f"backward launches per step: {steps['backward_launches']}")
         flops = brats_cyclegan_conv_flops(model)
         profile = profile_steps(model, device_batches, BRATS_CYCLEGAN_PROFILED_STEPS,
                                 brats_cyclegan_family, ("losses", "metrics", "pool"))
@@ -4739,6 +4811,8 @@ def brats_cyclegan_phase(root):
                "launches_main_path": totals,
                "launches_whole_phase": {k: totals[k] + sum(s[k] for s in other)
                                         for k in totals},
+               "backward_launches_per_step": steps["backward_launches"][-1],
+               "grad_copies": steps["grad_copies"],
                "device_bytes_left_allocated": left}
     emit(summary)
     check(profile["device_busy_ms_per_step"] != "not measured"
@@ -5460,7 +5534,7 @@ def project_summary(label, t0, rec, steps, sample_s, num_workers, profile, extra
     """The `<label>_summary` record: samples/s, the plain iteration against
     the model-level step with t_data and the loader wait, the loader's bound
     from one sample's time, peak memory, the profile's busy time by group
-    (convs, norm kernels, the plain norm backward, the rest) and idle share,
+    (convs, norm kernels, the norm backward, the rest) and idle share,
     and the validation's seconds."""
     fam = profile["device_ms_per_step_by_family"]
     groups = {"convs": sum(fam.get(f, 0.0) for f in PROJECT_FAMILY_GROUPS),
@@ -6850,7 +6924,9 @@ def spatial_train_cli(out_dir, sharded):
     finally:
         Trainer._run_iteration = run_iteration
     torch.cuda.synchronize()
-    return {**seen, "launches": dict(inorm.LAUNCHES), "seconds_run": time.perf_counter() - t0,
+    return {**seen, "launches": dict(inorm.LAUNCHES),
+            "backward_launches": dict(inorm.BACKWARD_LAUNCHES),
+            "seconds_run": time.perf_counter() - t0,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "allocated_before_bytes": before}
 
@@ -7204,6 +7280,8 @@ def spatial_phase(root, bandwidth):
            "peak_memory_share_per_rank": [p / train_ref["peak_memory_bytes"] for p in peak],
            "memory_share_max": SPATIAL_MEMORY_MAX,
            "launches_per_rank": [r["train"]["launches"] for r in ranks],
+           "backward_launches_per_rank": [r["train"]["backward_launches"] for r in ranks],
+           "backward_launches_1_process": train_ref["backward_launches"],
            "launches_1_process": train_ref["launches"], "timing_caveat": caveat,
            "run_seconds": {"1_process": train_ref["seconds_run"],
                            "2_ranks": train["seconds_run"]}}
@@ -7219,6 +7297,10 @@ def spatial_phase(root, bandwidth):
           == n_iters * norms_per_iter, rec["launches_1_process"])
     check(all(r["train"]["launches"] == {"onepass": 0, "split": n_iters * norms_per_iter}
               for r in ranks), rec["launches_per_rank"])
+    # The sharded backward takes the split pair whatever the slab.
+    check(all(r["train"]["backward_launches"]["onepass"] == 0
+              and r["train"]["backward_launches"]["split"] > 0 for r in ranks),
+          [r["train"]["backward_launches"] for r in ranks])
     check(seconds_timed["halo"] > 0 and train["exchanges"][n_iters]["halo"] > 0, rec)
 
     # (c), inference.
@@ -7335,7 +7417,7 @@ def main() -> int:
     phase_done("slice")
 
     with tempfile.TemporaryDirectory() as tmp:
-        train_totals = train_phase(Path(tmp))
+        train_totals = train_phase(Path(tmp), bandwidth)
     torch.cuda.empty_cache()
     phase_done("train")
 

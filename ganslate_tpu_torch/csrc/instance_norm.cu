@@ -1,4 +1,5 @@
-// Fused instance norm (+ ReLU / LeakyReLU) forward for Hopper (sm_90a).
+// Fused instance norm (+ ReLU / LeakyReLU) forward and backward for Hopper
+// (sm_90a).
 //
 // x is the contiguous (N, S, C) view of a channels-last (N, *spatial, C)
 // tensor, the layout the JAX package's Pallas kernels see. Statistics are
@@ -94,6 +95,34 @@
 // by device memory. R, the segment and the thread count come from the
 // caller (ops/instance_norm.py:split_geometry), whose rule was picked from
 // chip_smoke.py's timings at the four split slabs (PERF.md).
+//
+// Backward. The kernels norm_bwd_* replace no TPU kernel: the JAX package's
+// gradient (_bwd in ganslate_tpu/ops/instance_norm.py) is XLA, and the plain
+// version (instance_norm_backward) makes a dozen fp32 passes over the slab.
+// From the saved x, mean and rstd and the output's gradient g, per (sample,
+// channel) over S rows:
+// y = (x - mean) * rstd (fp32), g' = g * act'(y) (the kinks of _act_grad),
+// the sums of g' and g' * y in fp32, and dx = rstd * (g' - sum(g') / S -
+// y * sum(g' y) / S), written once in x's dtype. The names leave out
+// "inorm", which the benchmark reads as the forward's kernels.
+//
+// Bound: x and g read once, dx written once: 3 slab-sized transfers
+// (bf16 (16, 256*256, 64): 403 MB, 0.120 ms at 3.35 TB/s). The arithmetic
+// (about 12 fp32 operations per element) is far below the card's rate.
+// - norm_bwd_onepass_kernel, for the slabs the forward's one-pass form
+//   takes: the forward's cluster, with x's and g's rows both in shared
+//   memory (twice the forward's bytes per block, so the caller's
+//   ops/instance_norm.py:backward_onepass_geometry keeps its own rule).
+//   The blocks add their sums through distributed shared memory in rank
+//   order and write dx from shared memory: the 3 transfers of the bound.
+// - the split pair, for larger slabs, at the forward's split tiles:
+//   norm_bwd_sums_kernel brings the tiles of x and g in by bulk copies and
+//   folds the tiles' sums in tile order on the arrival counters (no float
+//   atomics: dx has the same bits from run to run); norm_bwd_dx_kernel
+//   reads both tiles again, in reverse order so that it starts on what may
+//   still be in L2, and writes dx. That is 5 transfers, 1.67x the bound,
+//   less what L2 keeps. A spatially sharded slab takes the pair whatever
+//   its size: its sums are added over the shards between the two kernels.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -609,6 +638,310 @@ inorm_split_norm_kernel(const T* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
+// ----------------------------------------------------------------- backward
+
+// g' = g * act'(y), with the kinks of ops/instance_norm.py:_act_grad: relu's
+// derivative is 1 where y > 0, leaky_relu's 1 where y >= 0, else slope.
+__device__ __forceinline__ float act_grad(float g, float y, int act, float slope) {
+  if (act == kRelu) return g * (y > 0.f ? 1.f : 0.f);
+  if (act == kLeakyRelu) return g * (y >= 0.f ? 1.f : slope);
+  return g;
+}
+
+// Adds the two sums of one 16-byte vector of x and of g to sa and sb:
+// sa += g', sb += g' * y, with y = (x - mu) * rs recomputed in fp32.
+template <typename V>
+__device__ __forceinline__ void bwd_accumulate(const uint4& xv, const uint4& gv, const float* mu,
+                                               const float* rs, int act, float slope, float* sa,
+                                               float* sb) {
+  float f[V::kN], h[V::kN];
+  V::unpack(xv, f);
+  V::unpack(gv, h);
+#pragma unroll
+  for (int j = 0; j < V::kN; ++j) {
+    const float y = (f[j] - mu[j]) * rs[j];
+    const float gp = act_grad(h[j], y, act, slope);
+    sa[j] += gp;
+    sb[j] += gp * y;
+  }
+}
+
+// dx of one 16-byte vector: rs * (g' - a - y * b), a and b the means of g'
+// and g' * y over the sample, packed into x's dtype.
+template <typename V>
+__device__ __forceinline__ uint4 bwd_dx(const uint4& xv, const uint4& gv, const float* mu,
+                                        const float* rs, const float* a, const float* b, int act,
+                                        float slope) {
+  float f[V::kN], h[V::kN];
+  V::unpack(xv, f);
+  V::unpack(gv, h);
+#pragma unroll
+  for (int j = 0; j < V::kN; ++j) {
+    const float y = (f[j] - mu[j]) * rs[j];
+    f[j] = rs[j] * (act_grad(h[j], y, act, slope) - a[j] - y * b[j]);
+  }
+  return V::pack(f);
+}
+
+// One block of the one-pass backward: rows [rank_row(rank), rank_row(rank +
+// 1)) x kG channels of one sample, as the forward's one-pass block, with x
+// and g both kept in shared memory. Each block sums g' and g' * y over its
+// rows, the cluster's blocks add the k partials in rank order through
+// distributed shared memory, and each block writes dx of its rows from
+// shared memory.
+template <typename T, int kCols>
+__global__ void __launch_bounds__(kOnepassThreads, 2)
+norm_bwd_onepass_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                        const float* __restrict__ mean, const float* __restrict__ rstd,
+                        T* __restrict__ dx, int S, int C, int act, float slope) {
+  using V = Vec<T>;
+  constexpr int kN = V::kN, kG = kCols * kN, kStep = kOnepassThreads / kCols;
+  extern __shared__ uint4 slab[];                  // x's rows x kCols vectors, then g's
+  __shared__ float red[kOnepassThreads / 32 * kG];
+  __shared__ float s_part[2 * kG];                 // local sums of g', g' * y: read by the peers
+  __shared__ float s_mean[2 * kG];                 // their means over the sample
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int group = blockIdx.x / k, n = blockIdx.y, col = threadIdx.x % kCols;
+  const int r0 = rank_row(rank, S, k), rows = rank_row(rank + 1, S, k) - r0;
+  const size_t base = (static_cast<size_t>(n) * S + r0) * C + group * kG + col * kN;
+  uint4* gslab = slab + static_cast<size_t>(rows) * kCols;
+
+  for (int r = threadIdx.x / kCols; r < rows; r += kStep) {
+    cp_async_16(slab + r * kCols + col, x + base + static_cast<size_t>(r) * C);
+    cp_async_16(gslab + r * kCols + col, g + base + static_cast<size_t>(r) * C);
+  }
+  const int c0 = n * C + group * kG + col * kN;
+  float mu[kN], rs[kN], sa[kN], sb[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    mu[j] = __ldg(mean + c0 + j);
+    rs[j] = __ldg(rstd + c0 + j);
+    sa[j] = sb[j] = 0.f;
+  }
+  cp_async_wait_all();
+
+#pragma unroll 2
+  for (int r = threadIdx.x / kCols; r < rows; r += kStep)
+    bwd_accumulate<V>(slab[r * kCols + col], gslab[r * kCols + col], mu, rs, act, slope, sa, sb);
+  block_sum<kN, kOnepassThreads, kCols>(sa, red, s_part, 1.f);
+  block_sum<kN, kOnepassThreads, kCols>(sb, red, s_part + kG, 1.f);
+
+  // Every rank's sums are published: add them in rank order through
+  // distributed shared memory, all k remote loads issued before the first
+  // is used. Threads [0, kG) take the sums of g', [kG, 2 kG) those of g' y.
+  cluster.sync();
+  if (threadIdx.x < 2 * kG) {
+    float part[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < k) part[r] = cluster.map_shared_rank(&s_part[0], r)[threadIdx.x];
+    float total = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < k) total += part[r];
+    s_mean[threadIdx.x] = total / static_cast<float>(S);
+  }
+  cluster_arrive();                                // done reading the peers
+  __syncthreads();
+
+  float a[kN], b[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) { a[j] = s_mean[col * kN + j]; b[j] = s_mean[kG + col * kN + j]; }
+#pragma unroll 2
+  for (int r = threadIdx.x / kCols; r < rows; r += kStep)
+    *reinterpret_cast<uint4*>(dx + base + static_cast<size_t>(r) * C) =
+        bwd_dx<V>(slab[r * kCols + col], gslab[r * kCols + col], mu, rs, a, b, act, slope);
+  cluster_wait();                                  // no peer still reads s_part
+}
+
+// Adds, in order, partials [lo, hi) into (a, b): partial i has its sum of g'
+// at p[i * stride] and of g' * y at p[i * stride + C]. Loads of kFoldBatch
+// partials are issued before any is added, as chan_fold's.
+__device__ void sum_fold(const float* p, size_t stride, int C, int lo, int hi, float& a,
+                         float& b) {
+  for (int i0 = lo; i0 < hi; i0 += kFoldBatch) {
+    float ab[kFoldBatch], bb[kFoldBatch];
+#pragma unroll
+    for (int k = 0; k < kFoldBatch; ++k) {
+      if (i0 + k < hi) {
+        ab[k] = __ldcg(p + static_cast<size_t>(i0 + k) * stride);
+        bb[k] = __ldcg(p + static_cast<size_t>(i0 + k) * stride + C);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kFoldBatch; ++k) {
+      if (i0 + k < hi) { a += ab[k]; b += bb[k]; }
+    }
+  }
+}
+
+// The split backward's first kernel, one block per tile as the forward's
+// stats kernel: the tiles of x and of g come in by bulk copies onto one
+// mbarrier, the block sums g' and g' * y over its rows, writes them to
+// partial (N, n_tiles, 2, C), and the fold adds them in two levels of fixed
+// order (groups of kFoldGroup tiles, then the groups) on the arrival
+// counters, as the stats kernel's. The last block of each sample writes the
+// sample's sums to sum_g and sum_gy (N, C): not yet divided by the count,
+// so that a sharded slab's sums can be added over the shards first.
+template <typename T>
+__global__ void __launch_bounds__(kSplitMaxThreads)
+norm_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                     const float* __restrict__ mean, const float* __restrict__ rstd,
+                     float* __restrict__ partial, int* __restrict__ arrivals,
+                     float* __restrict__ sum_g, float* __restrict__ sum_gy, int S, int C,
+                     int vecs, int R, int act, float slope) {
+  using V = Vec<T>;
+  constexpr int kN = V::kN;
+  extern __shared__ uint4 tile[];                  // x's R x vecs vectors, g's, then red
+  __shared__ uint64_t bar;
+  __shared__ float s_a[kSplitMaxVecs * kN], s_b[kSplitMaxVecs * kN];
+  __shared__ int s_last;
+
+  // The dx kernel, launched as this one's programmatic dependent, may be
+  // scheduled (it waits for this grid's end before it reads the sums).
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int width = vecs * kN, nseg = C / width, n_tiles = (S + R - 1) / R;
+  const SplitTile u = split_tile(blockIdx.x, S, R, n_tiles, nseg);
+  const size_t off = (static_cast<size_t>(u.n) * S + u.r0) * C + u.seg * width;
+  uint4* gtile = tile + static_cast<size_t>(R) * vecs;
+  float* red = reinterpret_cast<float*>(gtile + static_cast<size_t>(R) * vecs);
+
+  // Warp 0 brings both tiles in: one bulk copy of each contiguous span, or
+  // one per row and tensor where the row is cut into segments.
+  if (threadIdx.x == 0) mbarrier_init(&bar);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const unsigned seg_bytes = static_cast<unsigned>(vecs * kVecBytes);
+    if (threadIdx.x == 0) mbarrier_arrive_expect_tx(&bar, 2 * u.rows * seg_bytes);
+    __syncwarp();
+    if (nseg == 1) {
+      if (threadIdx.x == 0) {
+        bulk_load(tile, x + off, u.rows * seg_bytes, &bar);
+        bulk_load(gtile, g + off, u.rows * seg_bytes, &bar);
+      }
+    } else {
+      for (int r = threadIdx.x; r < u.rows; r += 32) {
+        bulk_load(tile + r * vecs, x + off + static_cast<size_t>(r) * C, seg_bytes, &bar);
+        bulk_load(gtile + r * vecs, g + off + static_cast<size_t>(r) * C, seg_bytes, &bar);
+      }
+    }
+  }
+  const int col = threadIdx.x % vecs, step = blockDim.x / vecs;
+  const int c0 = u.n * C + u.seg * width + col * kN;
+  float mu[kN], rs[kN], sa[kN], sb[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    mu[j] = __ldg(mean + c0 + j);
+    rs[j] = __ldg(rstd + c0 + j);
+    sa[j] = sb[j] = 0.f;
+  }
+  mbarrier_wait(&bar, 0);
+
+#pragma unroll 2
+  for (int r = threadIdx.x / vecs; r < u.rows; r += step)
+    bwd_accumulate<V>(tile[r * vecs + col], gtile[r * vecs + col], mu, rs, act, slope, sa, sb);
+  column_sum<kN>(sa, vecs, red, s_a, 1.f);
+  column_sum<kN>(sb, vecs, red, s_b, 1.f);
+
+  // Publish the tile's sums, then count this tile in its group.
+  const size_t stride = 2 * static_cast<size_t>(C);
+  float* p = partial + static_cast<size_t>(u.n) * n_tiles * stride + u.seg * width;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    p[u.t * stride + i] = s_a[i];
+    p[u.t * stride + C + i] = s_b[i];
+  }
+  const int n_groups = (n_tiles + kFoldGroup - 1) / kFoldGroup, grp = u.t / kFoldGroup;
+  const int g0 = grp * kFoldGroup, g1 = min(g0 + kFoldGroup, n_tiles);
+  int* arrival = arrivals + (u.n * nseg + u.seg) * (n_groups + 1);
+  if (threadIdx.x < width) __threadfence();        // the writers' stores, before the count
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrival + grp, 1) == g1 - g0 - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // The group's last tile: add its tiles in order, over the first tile's.
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    sum_fold(p + i, stride, C, g0, g1, a, b);
+    p[g0 * stride + i] = a;
+    p[g0 * stride + C + i] = b;
+  }
+  if (threadIdx.x == 0) arrival[grp] = 0;
+  if (threadIdx.x < width) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrival + n_groups, 1) == n_groups - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  // The sample's last group: add the groups in order.
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    float a = 0.f, b = 0.f;
+    sum_fold(p + i, kFoldGroup * stride, C, 0, n_groups, a, b);
+    const int c = u.n * C + u.seg * width + i;
+    sum_g[c] = a;
+    sum_gy[c] = b;
+  }
+  if (threadIdx.x == 0) arrival[n_groups] = 0;
+}
+
+// The split backward's second kernel: one block per tile, as the sums
+// kernel's, walked in reverse block order when `reverse` is set, so that it
+// starts on the bytes the sums kernel read last. The means are the sums
+// over `count` rows (the sample's, or the whole sharded sample's).
+template <typename T>
+__global__ void __launch_bounds__(kSplitMaxThreads)
+norm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   const float* __restrict__ mean, const float* __restrict__ rstd,
+                   const float* __restrict__ sum_g, const float* __restrict__ sum_gy,
+                   T* __restrict__ dx, int S, int C, int vecs, int R, int reverse, float count,
+                   int act, float slope) {
+  using V = Vec<T>;
+  constexpr int kN = V::kN;
+  const int width = vecs * kN, nseg = C / width, n_tiles = (S + R - 1) / R;
+  const int blk = reverse ? static_cast<int>(gridDim.x - 1 - blockIdx.x)
+                          : static_cast<int>(blockIdx.x);
+  const SplitTile u = split_tile(blk, S, R, n_tiles, nseg);
+  const int col = threadIdx.x % vecs, step = blockDim.x / vecs;
+  const int c0 = u.n * C + u.seg * width + col * kN;
+  // Launched as the sums kernel's programmatic dependent: wait until that
+  // grid has ended and its sums are visible (no wait otherwise).
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  float mu[kN], rs[kN], a[kN], b[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    mu[j] = __ldg(mean + c0 + j);
+    rs[j] = __ldg(rstd + c0 + j);
+    a[j] = __ldcg(sum_g + c0 + j) / count;
+    b[j] = __ldcg(sum_gy + c0 + j) / count;
+  }
+
+  const size_t base = (static_cast<size_t>(u.n) * S + u.r0) * C + u.seg * width + col * kN;
+  for (int r = threadIdx.x / vecs; r < u.rows; r += kSplitUnroll * step) {
+    uint4 xv[kSplitUnroll], gv[kSplitUnroll];
+#pragma unroll
+    for (int k = 0; k < kSplitUnroll; ++k) {
+      const int rr = r + k * step;
+      if (rr < u.rows) {
+        xv[k] = __ldg(reinterpret_cast<const uint4*>(x + base + static_cast<size_t>(rr) * C));
+        gv[k] = __ldg(reinterpret_cast<const uint4*>(g + base + static_cast<size_t>(rr) * C));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSplitUnroll; ++k) {
+      const int rr = r + k * step;
+      if (rr < u.rows)
+        *reinterpret_cast<uint4*>(dx + base + static_cast<size_t>(rr) * C) =
+            bwd_dx<V>(xv[k], gv[k], mu, rs, a, b, act, slope);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 template <typename T, int kCols>
@@ -735,6 +1068,114 @@ int launch_split_norm(const void* x, const void* mean, const void* rstd, void* y
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kCols>
+int launch_bwd_onepass(const void* x, const void* g, const void* mean, const void* rstd,
+                       void* dx, int n, int s, int c, int k, int act, float slope,
+                       cudaStream_t stream) {
+  constexpr int kG = kCols * Vec<T>::kN;
+  const auto kernel = norm_bwd_onepass_kernel<T, kCols>;
+  // x's rows and g's rows of the largest rank; the static scratch (the
+  // column sums and the two pairs of sums) comes on top.
+  const size_t smem = 2 * static_cast<size_t>((s + k - 1) / k) * kCols * kVecBytes;
+  if (smem + (kOnepassThreads / 32 + 4) * kG * sizeof(float) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess && k > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = k;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(k * (c / kG), n);
+  cfg.blockDim = dim3(kOnepassThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(g),
+                           static_cast<const float*>(mean), static_cast<const float*>(rstd),
+                           static_cast<T*>(dx), s, c, act, slope);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_onepass_g(const void* x, const void* g, const void* mean, const void* rstd,
+                         void* dx, int n, int s, int c, int gch, int k, int act, float slope,
+                         cudaStream_t stream) {
+  if (gch <= 0 || c % gch || k < 1 || k > kMaxCluster || k > s)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (gch * static_cast<int>(sizeof(T)) / kVecBytes) {
+    case 2: return launch_bwd_onepass<T, 2>(x, g, mean, rstd, dx, n, s, c, k, act, slope, stream);
+    case 4: return launch_bwd_onepass<T, 4>(x, g, mean, rstd, dx, n, s, c, k, act, slope, stream);
+    case 8: return launch_bwd_onepass<T, 8>(x, g, mean, rstd, dx, n, s, c, k, act, slope, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_bwd_sums(const void* x, const void* g, const void* mean, const void* rstd,
+                    void* partial, void* arrivals, void* sum_g, void* sum_gy, int n, int s, int c,
+                    int seg_bytes, int rows, int threads, int act, float slope,
+                    cudaStream_t stream) {
+  constexpr int kN = Vec<T>::kN;
+  const int vecs = split_vecs<T>(s, c, seg_bytes, rows, threads);
+  if (!vecs) return static_cast<int>(cudaErrorInvalidValue);
+  rows = rows < s ? rows : s;
+  // The tiles of x and g, then the column sums' scratch; the static scratch
+  // (the tile's two sums, the barrier) comes on top.
+  const int sums = (32 % vecs == 0 ? threads / 32 * vecs : threads) * kN;
+  const size_t smem = 2 * static_cast<size_t>(rows) * vecs * kVecBytes + sums * sizeof(float);
+  if (smem + 2 * kSplitMaxVecs * kN * sizeof(float) + 16 > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = norm_bwd_sums_kernel<T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<split_blocks<T>(n, s, c, seg_bytes, rows), threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<float*>(partial), static_cast<int*>(arrivals),
+      static_cast<float*>(sum_g), static_cast<float*>(sum_gy), s, c, vecs, rows, act, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_dx(const void* x, const void* g, const void* mean, const void* rstd,
+                  const void* sum_g, const void* sum_gy, void* dx, int n, int s, int c,
+                  int seg_bytes, int rows, int threads, int reverse, float count, int act,
+                  float slope, cudaStream_t stream) {
+  const int vecs = split_vecs<T>(s, c, seg_bytes, rows, threads);
+  if (!vecs || !(count > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+  rows = rows < s ? rows : s;
+  // A programmatic dependent launch of the sums kernel, as the normalise
+  // kernel's of the stats kernel.
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split_blocks<T>(n, s, c, seg_bytes, rows));
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, norm_bwd_dx_kernel<T>, static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<const float*>(sum_g), static_cast<const float*>(sum_gy), static_cast<T*>(dx),
+      s, c, vecs, rows, reverse, count, act, slope);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. act: 0 none, 1 relu, 2 leaky_relu.
@@ -774,6 +1215,46 @@ int inorm_split_norm(const void* x, const void* mean, const void* rstd, void* y,
                                          threads, reverse, act, slope, st)
       : launch_split_norm<float>(x, mean, rstd, y, n, s, c, seg_bytes, tile_rows, threads,
                                  reverse, act, slope, st);
+}
+
+// The backward: dx of x (n, s, c) from the output's gradient g (same shape
+// and dtype) and the forward's fp32 mean and rstd (n, c).
+// gch: channels per block (a 32, 64 or 128-byte row segment); k: cluster size.
+int norm_bwd_onepass(const void* x, const void* g, const void* mean, const void* rstd, void* dx,
+                     int n, int s, int c, int dtype, int gch, int k, int act, float slope,
+                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+      ? launch_bwd_onepass_g<__nv_bfloat16>(x, g, mean, rstd, dx, n, s, c, gch, k, act, slope, st)
+      : launch_bwd_onepass_g<float>(x, g, mean, rstd, dx, n, s, c, gch, k, act, slope, st);
+}
+
+// The split backward's sums, at the split geometry: partial (n, tiles, 2, c)
+// fp32 scratch and arrivals as inorm_split_stats's; writes the sums of g'
+// and of g' * y to sum_g and sum_gy (n, c) fp32.
+int norm_bwd_sums(const void* x, const void* g, const void* mean, const void* rstd,
+                  void* partial, void* arrivals, void* sum_g, void* sum_gy, int n, int s, int c,
+                  int dtype, int seg_bytes, int tile_rows, int threads, int act, float slope,
+                  void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+      ? launch_bwd_sums<__nv_bfloat16>(x, g, mean, rstd, partial, arrivals, sum_g, sum_gy, n,
+                                       s, c, seg_bytes, tile_rows, threads, act, slope, st)
+      : launch_bwd_sums<float>(x, g, mean, rstd, partial, arrivals, sum_g, sum_gy, n, s, c,
+                               seg_bytes, tile_rows, threads, act, slope, st);
+}
+
+// The split backward's dx from the sums over count rows.
+int norm_bwd_dx(const void* x, const void* g, const void* mean, const void* rstd,
+                const void* sum_g, const void* sum_gy, void* dx, int n, int s, int c, int dtype,
+                int seg_bytes, int tile_rows, int threads, int reverse, float count, int act,
+                float slope, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+      ? launch_bwd_dx<__nv_bfloat16>(x, g, mean, rstd, sum_g, sum_gy, dx, n, s, c, seg_bytes,
+                                     tile_rows, threads, reverse, count, act, slope, st)
+      : launch_bwd_dx<float>(x, g, mean, rstd, sum_g, sum_gy, dx, n, s, c, seg_bytes, tile_rows,
+                             threads, reverse, count, act, slope, st);
 }
 
 }  // extern "C"

@@ -42,9 +42,21 @@ which kernels a run went through.
 
 `instance_norm` is differentiable: `InstanceNormFunction` runs the forward
 above, saves `(x, mean, rstd)` and computes the gradient with
-`instance_norm_backward`, plain PyTorch in fp32 from the saved statistics, on
-the CPU and on the card alike. It is the counterpart of the JAX package's
-`_bwd`, which is XLA there too: no TPU kernel stands behind it.
+`instance_norm_grad`, which takes the tensor's device as the forward does:
+
+- a CPU tensor takes `instance_norm_backward`, the plain version in fp32
+  from the saved statistics (it mirrors the JAX package's `_bwd`);
+- a CUDA tensor launches the backward kernels of `csrc/instance_norm.cu`,
+  or raises. They replace no TPU kernel: `_bwd` is XLA there. Their bound
+  is 3 slab-sized transfers (x and the gradient read once, dx written once,
+  in x's dtype), where the plain version makes about a dozen fp32 passes.
+  The one-pass backward (`backward_onepass_geometry`: the forward's cluster
+  with x and the gradient both in shared memory) takes the slabs that the
+  forward's one-pass form takes and moves those 3; the split pair (a sums
+  kernel that folds its tiles' sums in tile order, then a dx kernel that
+  walks the tiles in reverse, at `split_geometry`'s tiles) takes the rest
+  and moves 5, less what L2 keeps between the two. `BACKWARD_LAUNCHES`
+  counts them.
 
 A spatially sharded tensor (`parallel/spatial.py`: each rank holds a slab of
 every sample) is normalised with the statistics of the whole sample by
@@ -54,7 +66,8 @@ slab's per-(n, c) statistics; each rank writes them into its slot of a
 zeroed (shards, N, 2, C) fp32 tensor, one sum all-reduce fills every slot,
 and `fold_shard_stats` merges the slots in rank order (Chan), the same on
 every rank; the normalise kernel then runs on the slab with the global mean
-and rstd. The backward all-reduces its two per-(n, c) sums over the shards.
+and rstd. The backward all-reduces its two per-(n, c) sums over the shards:
+on the card between the split backward's two kernels, whatever the shape.
 On the CPU the plain version computes the slab's (mean, M2)
 (`partial_stats_reference`) and the normalisation, with the same fold.
 """
@@ -119,11 +132,17 @@ SOURCE = "instance_norm.cu"
 #: Launches per kernel form since the last `reset_launches()`. The split form
 #: counts one launch per call (its stats and normalise kernels run together).
 LAUNCHES = {"onepass": 0, "split": 0}
+#: Backward launches, likewise (the split form's sums and dx kernels count
+#: one), and the gradients that came in another layout, or unaligned, and
+#: were copied before a backward launch.
+BACKWARD_LAUNCHES = {"onepass": 0, "split": 0}
+BACKWARD_COPIES = {"grad": 0}
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES, BACKWARD_COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ------------------------------------------------------------ plain version
@@ -174,15 +193,28 @@ def onepass_geometry(shape, dtype: torch.dtype):
     within `ONEPASS_BLOCK_SMEM` and makes at least `ONEPASS_MIN_BLOCKS`
     blocks, else the largest; never more than S, so that no rank is empty.
     (A one-pass slab has S <= 6400 rows: 50 KB per block at K = 8.)"""
+    return _cluster_geometry(shape, dtype, 1)
+
+
+def backward_onepass_geometry(shape, dtype: torch.dtype):
+    """`(G, K, rows_per_block, smem_bytes)` of the one-pass backward kernel
+    for a `(N, *spatial, C)` input that `pick_kernel` sends to the one-pass
+    form: `onepass_geometry`'s rule, with a block's rows of x and of the
+    gradient both in its `smem_bytes` (at most 100 KB at S = 6400, K = 8)."""
+    return _cluster_geometry(shape, dtype, 2)
+
+
+def _cluster_geometry(shape, dtype, tensors: int):
+    """The one-pass rule for a block that keeps `tensors` slabs of its rows."""
     n, c, s = shape[0], shape[-1], math.prod(shape[1:-1])
     item = dtype.itemsize
     seg = ONEPASS_SEGMENT_BYTES if (c * item) % ONEPASS_SEGMENT_BYTES == 0 else ROW_BYTES
     g = seg // item
     sizes = [k for k in ONEPASS_CLUSTER_SIZES if k <= s]
-    k = next((k for k in sizes if -(-s // k) * seg <= ONEPASS_BLOCK_SMEM
+    k = next((k for k in sizes if tensors * -(-s // k) * seg <= ONEPASS_BLOCK_SMEM
               and k * (c // g) * n >= ONEPASS_MIN_BLOCKS), sizes[-1])
     rows = -(-s // k)
-    return g, k, rows, rows * seg
+    return g, k, rows, tensors * rows * seg
 
 
 def split_geometry(shape, dtype: torch.dtype):
@@ -210,9 +242,21 @@ def split_geometry(shape, dtype: torch.dtype):
 def split_stats_smem(dtype: torch.dtype, tile_rows: int, seg_bytes: int, threads: int) -> int:
     """Dynamic shared memory of one split stats block, as its launcher
     computes it: the tile, then the scratch of the column sums."""
+    return _split_smem(dtype, tile_rows, seg_bytes, threads, 1)
+
+
+def backward_sums_smem(dtype: torch.dtype, tile_rows: int, seg_bytes: int,
+                       threads: int) -> int:
+    """Dynamic shared memory of one block of the split backward's sums
+    kernel, as its launcher computes it: the tiles of x and of the
+    gradient, then the scratch of the column sums."""
+    return _split_smem(dtype, tile_rows, seg_bytes, threads, 2)
+
+
+def _split_smem(dtype, tile_rows, seg_bytes, threads, tensors):
     vecs, per_vec = seg_bytes // 16, 16 // dtype.itemsize
     sums = (threads // 32 * vecs if 32 % vecs == 0 else threads) * per_vec
-    return tile_rows * seg_bytes + 4 * sums
+    return tensors * tile_rows * seg_bytes + 4 * sums
 
 
 def pick_kernel(shape, dtype: torch.dtype) -> str:
@@ -255,6 +299,16 @@ _SIGNATURES = {
         ctypes.c_int),
     "inorm_split_norm": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int),
+    "norm_bwd_onepass": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int),
+    "norm_bwd_sums": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
+        ctypes.c_int),
+    "norm_bwd_dx": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+                                                      ctypes.c_float, ctypes.c_void_p],
         ctypes.c_int),
 }
 
@@ -424,6 +478,107 @@ def _sharded_split(x, eps, activation, negative_slope, shards):
     return out, mean, rstd
 
 
+# --------------------------------------------------------- backward kernels
+
+
+def _grad_operand(grad, x):
+    """The output's gradient as the backward kernels take it: of x's shape,
+    dtype and device, contiguous and 16-byte aligned. One that is not
+    contiguous or aligned is copied (counted in `BACKWARD_COPIES`)."""
+    if grad.shape != x.shape or grad.dtype != x.dtype or grad.device != x.device:
+        raise ValueError(f"the gradient ({tuple(grad.shape)}, {grad.dtype}, {grad.device}) "
+                         f"does not match x ({tuple(x.shape)}, {x.dtype}, {x.device})")
+    if not grad.is_contiguous() or grad.data_ptr() % 16:
+        BACKWARD_COPIES["grad"] += 1
+        grad = grad.clone(memory_format=torch.contiguous_format)
+    return grad
+
+
+def _backward_channel_padded(launch, x, mean, rstd, grad, *args):
+    """`launch(x, mean, rstd, grad, *args) -> dx`, a backward kernel that
+    needs C to be a multiple of `channel_block`, on any C: x, the gradient
+    and the statistics are padded with zeros, and dx is cut back to C.
+    Exact: a zero channel (x, mean and rstd 0) has y = 0 and a zero
+    gradient, so it adds nothing to the sums and gets dx = 0."""
+    c, cb = x.shape[-1], channel_block(x.dtype)
+    if c % cb == 0:
+        return launch(x, mean, rstd, grad, *args)
+    pad = (0, cb - c % cb)
+    padded = (torch.nn.functional.pad(t, pad) for t in (x, mean, rstd, grad))
+    return launch(*padded, *args)[..., :c].contiguous()
+
+
+def backward_onepass(x, mean, rstd, grad, activation="none", negative_slope=0.2):
+    """The one-pass backward kernel on CUDA tensors, at
+    `backward_onepass_geometry`: dx of the forward's `x` from its fp32
+    `mean` and `rstd` (N, C) and the output's gradient."""
+    _check_input(x)
+    if pick_kernel(x.shape, x.dtype) != "onepass":
+        raise ValueError(f"slab of {math.prod(x.shape[1:-1])} rows does not fit the "
+                         f"one-pass kernel")
+    dx = _backward_channel_padded(_launch_backward_onepass, x, mean, rstd,
+                                  _grad_operand(grad, x), activation, negative_slope)
+    BACKWARD_LAUNCHES["onepass"] += 1
+    return dx
+
+
+def _launch_backward_onepass(x, mean, rstd, grad, activation, negative_slope):
+    """The one-pass backward kernel at `backward_onepass_geometry`, on
+    checked operands."""
+    n, c, s = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
+    g, k, _, _ = backward_onepass_geometry(x.shape, x.dtype)
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(library().norm_bwd_onepass(
+        x.data_ptr(), grad.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), n, s, c,
+        _DTYPE_CODES[x.dtype], g, k, _ACT_CODES[activation], negative_slope, stream),
+        "norm_bwd_onepass")
+    return dx
+
+
+def backward_split(x, mean, rstd, grad, activation="none", negative_slope=0.2, shards=None):
+    """The split backward kernels (sums with their fold, dx) on CUDA
+    tensors, at `split_geometry`; returns dx. `shards`: `x` is a slab of
+    spatially sharded samples; the sums are all-reduced over the shards
+    between the two kernels and divided by the whole samples' count."""
+    _check_input(x)
+    pick_kernel(x.shape, x.dtype)
+    dx = _backward_channel_padded(_launch_backward_split, x, mean, rstd,
+                                  _grad_operand(grad, x), activation, negative_slope, shards)
+    BACKWARD_LAUNCHES["split"] += 1
+    return dx
+
+
+def _launch_backward_split(x, mean, rstd, grad, activation, negative_slope, shards):
+    """The split backward kernels at `split_geometry`, in `SPLIT_REVERSE`
+    order, on checked operands."""
+    n, c, s = x.shape[0], x.shape[-1], math.prod(x.shape[1:-1])
+    tile_rows, seg_bytes, threads, _ = split_geometry(x.shape, x.dtype)
+    tiles = -(-s // tile_rows)
+    partial = torch.empty((n, tiles, 2, c), device=x.device, dtype=torch.float32)
+    sums = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    arrivals = _arrivals(x.device, stream, n * (c * x.element_size() // seg_bytes) * (tiles + 1))
+    dtype, act = _DTYPE_CODES[x.dtype], _ACT_CODES[activation]
+    _check(library().norm_bwd_sums(
+        x.data_ptr(), grad.data_ptr(), mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
+        arrivals.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), n, s, c, dtype, seg_bytes,
+        tile_rows, threads, act, negative_slope, stream), "norm_bwd_sums")
+    count = s
+    if shards is not None:
+        shards.all_reduce(sums)
+        count = s * shards.size
+    dx = torch.empty_like(x)
+    _check(library().norm_bwd_dx(
+        x.data_ptr(), grad.data_ptr(), mean.data_ptr(), rstd.data_ptr(), sums[0].data_ptr(),
+        sums[1].data_ptr(), dx.data_ptr(), n, s, c, dtype, seg_bytes, tile_rows, threads,
+        int(SPLIT_REVERSE), float(count), act, negative_slope, stream), "norm_bwd_dx")
+    return dx
+
+
+BACKWARD_KERNELS = {"onepass": backward_onepass, "split": backward_split}
+
+
 # ------------------------------------------------------------------- public
 
 
@@ -472,9 +627,24 @@ def instance_norm_backward(x, mean, rstd, grad, activation: str = "none",
     return (rstd * (gy - mean_gy - y * mean_gy_y)).to(x.dtype)
 
 
+def instance_norm_grad(x, mean, rstd, grad, activation: str = "none",
+                       negative_slope: float = 0.2, shards=None):
+    """dx of `instance_norm`: `instance_norm_backward` for a CPU tensor; for
+    a CUDA tensor the backward kernels, the split pair for a sharded slab,
+    else the form that `pick_kernel` picks for the forward."""
+    if x.device.type == "cpu":
+        return instance_norm_backward(x, mean, rstd, grad, activation, negative_slope, shards)
+    x, mean, rstd = x.contiguous(), mean.contiguous(), rstd.contiguous()
+    if shards is not None:
+        return backward_split(x, mean, rstd, grad, activation, negative_slope, shards)
+    return BACKWARD_KERNELS[pick_kernel(x.shape, x.dtype)](x, mean, rstd, grad, activation,
+                                                           negative_slope)
+
+
 class InstanceNormFunction(torch.autograd.Function):
     """`instance_norm` under autograd: the forward of `instance_norm_forward`
-    (a kernel for a CUDA tensor), the backward of `instance_norm_backward`."""
+    (a kernel for a CUDA tensor), the backward of `instance_norm_grad`
+    (kernels for a CUDA tensor)."""
 
     @staticmethod
     def forward(ctx, x, eps, activation, negative_slope):
@@ -486,7 +656,7 @@ class InstanceNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, mean, rstd = ctx.saved_tensors
-        dx = instance_norm_backward(x, mean, rstd, grad, ctx.activation, ctx.negative_slope)
+        dx = instance_norm_grad(x, mean, rstd, grad, ctx.activation, ctx.negative_slope)
         return dx, None, None, None
 
 
@@ -555,9 +725,8 @@ def sharded_instance_norm_forward(x, eps, activation, negative_slope, shards):
 
 class ShardedInstanceNormFunction(torch.autograd.Function):
     """`instance_norm(..., shards=...)` under autograd: the backward of
-    `instance_norm_backward` with its two per-(n, c) means taken over the
-    whole sample (sums all-reduced over the shards, over the global
-    count)."""
+    `instance_norm_grad` with its two per-(n, c) means taken over the whole
+    sample (sums all-reduced over the shards, over the global count)."""
 
     @staticmethod
     def forward(ctx, x, eps, activation, negative_slope, shards):
@@ -570,8 +739,8 @@ class ShardedInstanceNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, mean, rstd = ctx.saved_tensors
-        dx = instance_norm_backward(x, mean, rstd, grad, ctx.activation, ctx.negative_slope,
-                                    shards=ctx.shards)
+        dx = instance_norm_grad(x, mean, rstd, grad, ctx.activation, ctx.negative_slope,
+                                shards=ctx.shards)
         return dx, None, None, None, None
 
 
